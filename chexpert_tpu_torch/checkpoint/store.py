@@ -1,7 +1,8 @@
 """Checkpoint storage of the port: ``.pt`` files holding
 ``{"global_step", "eval_loss", "avg_auc", "state_dict"}`` (the reference
-training loop's format), written atomically (tmp + rename) so a preempted
-host never leaves a torn file.
+training loop's format) and, beside them, ``optim_<name>.pt`` holding the
+optimizer's and the LR scheduler's state dicts. Every write is atomic
+(tmp + rename) so a preempted host never leaves a torn file.
 
 A plain state dict (a ``.pth`` written by the JAX package's
 ``models/pretrained.py::export_torch_state_dict``) loads too, as a
@@ -17,6 +18,12 @@ from typing import Dict, Mapping
 import torch
 
 
+def _atomic_save(payload, path: str) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
 def save_model_checkpoint(
     path: str,
     state_dict: Mapping[str, torch.Tensor],
@@ -30,9 +37,7 @@ def save_model_checkpoint(
         "avg_auc": float(avg_auc),
         "state_dict": {k: v.detach().cpu() for k, v in state_dict.items()},
     }
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    _atomic_save(payload, path)
 
 
 def load_model_checkpoint(path: str) -> Dict:
@@ -52,3 +57,17 @@ def load_model_checkpoint(path: str) -> Dict:
         }
     return {"global_step": 0, "eval_loss": float("nan"), "avg_auc": float("nan"),
             "state_dict": raw}
+
+
+def save_optim_checkpoint(path: str, optimizer: torch.optim.Optimizer, scheduler) -> None:
+    _atomic_save({"optimizer": optimizer.state_dict(), "scheduler": scheduler.state_dict()},
+                 path)
+
+
+def load_optim_checkpoint(path: str, optimizer: torch.optim.Optimizer, scheduler) -> None:
+    """Load the optimizer and scheduler state saved by ``save_optim_checkpoint``
+    into ``optimizer`` and ``scheduler`` (tensors move to the parameters'
+    device)."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    optimizer.load_state_dict(raw["optimizer"])
+    scheduler.load_state_dict(raw["scheduler"])

@@ -29,6 +29,7 @@ import torch
 from chexpert_tpu_torch.data import ATTR_NAMES
 from chexpert_tpu_torch.data.chexpert import PIXEL_MEAN, PIXEL_STD
 from chexpert_tpu_torch.data.transforms import center_crop, resize_min_edge
+from chexpert_tpu_torch.utils.io import resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,13 +45,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda; 'cpu' on request)")
     return p
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name} asked for, but no CUDA device is available")
-    return device
 
 
 class Engine:

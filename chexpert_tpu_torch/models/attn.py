@@ -6,8 +6,9 @@ output = concat([conv(x) with out_channels-dv filters,
 
 ``attn_impl``:
   * ``"pallas"`` and ``"pallas-<pack>"`` (every pack name the JAX side
-    takes) route to the hand-written kernel (``ops/fused_attention.py``)
-    through the one query-side pack the port has;
+    takes) route to the hand-written kernels (``ops/fused_attention.py``:
+    ``RelAttention``, forward B1, backward B2) through the one query-side
+    pack the port has;
   * ``"einsum"`` runs the plain reference math (``ops/attention.py``).
 Any other string raises ValueError (no silent fall-through to a default).
 The JAX heads-in-lanes layout (``CHEXPERT_ATTN_LAYOUT=hil``) is not ported.
@@ -22,7 +23,7 @@ from torch import nn
 
 from chexpert_tpu_torch.models.common import conv, kaiming_normal_
 from chexpert_tpu_torch.ops.attention import aa_attention_einsum, pack_query
-from chexpert_tpu_torch.ops.fused_attention import rel_attention_fwd
+from chexpert_tpu_torch.ops.fused_attention import RelAttention
 
 REL_PACKS = ("fusedpack", "fusedpack5d", "bd", "einsum")
 ATTN_IMPLS = ("einsum", "pallas") + tuple(f"pallas-{p}" for p in REL_PACKS)
@@ -98,7 +99,7 @@ class AAConv2d(nn.Module):
         else:
             qr = pack_query(qh, self.key_rel_w, self.key_rel_h, H, W)
             dt = qr.dtype
-            out, _ = rel_attention_fwd(
+            out = RelAttention.apply(
                 qr.reshape(B * nh, H * W, -1).contiguous(),
                 kh.to(dt).reshape(B * nh, H * W, dkh).contiguous(),
                 vh.to(dt).reshape(B * nh, H * W, dvh).contiguous(),

@@ -1,23 +1,52 @@
 """Model factory, port of chexpert_tpu/models/registry.py for the archs this
 port has (aadensenet121, densenet121, aadensenet-tiny, densenet-tiny).
 
-Returns the model alone, in float32 on ``device``, initialized from
-``generator`` (a fresh one seeded 0 when none is given). The optimizer spec
-the JAX factory also returns belongs to the training slice, not yet ported.
+``build_model`` returns the model alone, in float32 on ``device``,
+initialized from ``generator`` (a fresh one seeded 0 when none is given).
+``optimizer_spec(name)`` returns the per-arch optimizer / schedule choice
+that the JAX factory returns beside its model (chexpert_tpu/models/
+registry.py:28-38, 90-157):
+  densenet121 and the tiny archs: Adam                      (chexpert.py:470)
+  aadensenet121: SGD(momentum .9, nesterov) + MultiStep[40k, 60k]
+                                                             (chexpert.py:479-480)
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from chexpert_tpu_torch.models.densenet import AttnParams, DenseNet
 
 N_CLASSES = 5
-
+PORTED = ("densenet121", "aadensenet121", "densenet-tiny", "aadensenet-tiny")
 # archs of the JAX registry that the port does not have yet (ROADMAP.md queue A)
 _NOT_YET_PORTED = ("resnet152", "aaresnet152") + tuple(f"efficientnet-b{i}" for i in range(8))
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerSpec:
+    kind: str  # 'adam' | 'sgd_nesterov' | 'rmsprop'
+    schedule: str = "constant"  # 'constant' | 'multistep' | 'exponential'
+    milestones: Tuple[int, ...] = ()
+    decay_factor: float = 0.97
+    decay_steps: int = 1  # staircase period for 'exponential'
+    momentum: float = 0.9
+    eps: float = 1e-3
+    weight_decay: float = 0.0
+
+
+def optimizer_spec(name: str) -> OptimizerSpec:
+    if name == "aadensenet121":
+        return OptimizerSpec("sgd_nesterov", "multistep", milestones=(40000, 60000))
+    if name in PORTED:
+        return OptimizerSpec("adam")
+    if name in _NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"{name!r} is not ported to PyTorch yet; see ROADMAP.md for its slice")
+    raise RuntimeError(f"Model architecture not supported: {name}")
 
 
 def build_model(

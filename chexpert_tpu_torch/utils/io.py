@@ -1,0 +1,31 @@
+"""JSON IO helpers (reference chexpert.py:81-88) and the entry points'
+device resolution."""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any
+
+import torch
+
+
+def save_json(data: Any, filename: str, output_dir: str) -> str:
+    path = os.path.join(output_dir, filename + ".json")
+    with open(path, "w") as f:
+        json.dump(data, f, indent=4)
+    return path
+
+
+def load_json(file_path: str) -> Any:
+    with open(file_path) as f:
+        return json.load(f)
+
+
+def resolve_device(name: str) -> torch.device:
+    """The torch device an entry point runs on; asking for ``cuda`` on a host
+    without a card raises instead of running on the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name} asked for, but no CUDA device is available")
+    return device

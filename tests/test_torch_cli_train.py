@@ -1,0 +1,126 @@
+"""The port's training CLI (``chexpert_tpu_torch.cli.chexpert``) on the CPU,
+on the synthetic fixture: artifacts, resume, config overlay, and the
+device / not-ported guards."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from chexpert_tpu_torch.checkpoint import load_model_checkpoint
+from chexpert_tpu_torch.cli.chexpert import main
+from chexpert_tpu_torch.data import make_synthetic_dataset
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _args(data, out, *extra):
+    return ["--data_path", data, "--output_dir", out, "--model", "aadensenet-tiny",
+            "--image_size", "32", "--batch_size", "8", "--lr", "1e-2",
+            "--compute_dtype", "float32", "--data_workers", "2", "--device", "cpu", *extra]
+
+
+def _steps(out, tag):
+    with open(os.path.join(out, "scalars.jsonl")) as f:
+        return [r["step"] for r in map(json.loads, f) if r.get("tag") == tag]
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """One training run: 24 train images, batch 8, 2 epochs = 6 steps, inline
+    eval + checkpoint every 4 steps."""
+    data = str(tmp_path_factory.mktemp("data"))
+    make_synthetic_dataset(data, n_train=24, n_valid=12, image_size=32)
+    out = os.path.join(data, "run1")
+    main(["--train", "--evaluate_single_model", *_args(data, out), "--n_epochs", "2",
+          "--log_interval", "2", "--eval_interval", "4"])
+    return data, out
+
+
+def test_train_writes_the_run_artifacts(run):
+    _, out = run
+    for name in ("config.json", "scalars.jsonl", "checkpoint_latest.pt",
+                 "optim_checkpoint_latest.pt", "checkpoints_tracker.csv",
+                 "eval_results_step_3.json", "eval_results_step_6.json",
+                 os.path.join("best_checkpoints", "checkpoint_0.pt")):
+        assert os.path.exists(os.path.join(out, name)), name
+    assert _steps(out, "train_loss") == [2, 4, 6]
+    losses = [r["value"] for r in map(json.loads, open(os.path.join(out, "scalars.jsonl")))
+              if r.get("tag") == "train_loss"]
+    assert np.isfinite(losses).all()
+    ck = load_model_checkpoint(os.path.join(out, "checkpoint_latest.pt"))
+    assert ck["global_step"] == 4 and np.isfinite(ck["avg_auc"])
+    metrics = json.load(open(os.path.join(out, "eval_results_step_6.json")))
+    assert set(metrics) == {"fpr", "tpr", "aucs", "precision", "recall", "loss"}
+    assert json.load(open(os.path.join(out, "config.json")))["device"] == "cpu"
+
+
+def test_restore_continues_the_step_counter(run):
+    data, out = run
+    main(["--train", *_args(data, out), "--restore", os.path.join(out, "checkpoint_latest.pt"),
+          "--n_epochs", "1", "--log_interval", "1", "--eval_interval", "0"])
+    # restored at step 4 (the last inline checkpoint) with its optimizer state
+    assert _steps(out, "train_loss")[-3:] == [5, 6, 7]
+    assert os.path.exists(os.path.join(out, "eval_results_step_7.json"))
+
+
+def test_evaluate_restored_checkpoint_and_auto_resume(run, tmp_path):
+    data, out = run
+    out2 = str(tmp_path / "eval")
+    ck = os.path.join(out, "best_checkpoints", "checkpoint_0.pt")
+    main(["--evaluate_single_model", *_args(data, out2), "--restore", ck])
+    step = load_model_checkpoint(ck)["global_step"]
+    assert os.path.exists(os.path.join(out2, f"eval_results_step_{step}.json"))
+    # --auto_resume picks up output_dir/checkpoint_latest.pt without --restore
+    out3 = str(tmp_path / "resume")
+    main(["--train", *_args(data, out3), "--n_epochs", "1", "--eval_interval", "3"])
+    main(["--train", *_args(data, out3), "--n_epochs", "1", "--eval_interval", "0",
+          "--auto_resume", "--log_interval", "1"])
+    assert _steps(out3, "train_loss")[-3:] == [4, 5, 6]
+
+
+def test_load_config_overlay(run, tmp_path):
+    data, _ = run
+    cfg = tmp_path / "overlay.json"
+    cfg.write_text(json.dumps({"mini_data": 8, "n_epochs": 1, "log_interval": 1}))
+    out = str(tmp_path / "overlay")
+    main(["--train", *_args(data, out), "--load_config", str(cfg), "--eval_interval", "0"])
+    assert _steps(out, "train_loss") == [1]  # 8 images, batch 8
+    assert json.load(open(os.path.join(out, "config.json")))["mini_data"] == 8
+
+
+@pytest.mark.parametrize("flags,exc,match", [
+    (["--evaluate_ensemble"], NotImplementedError, "slice 3"),
+    (["--ensemble_member_chunk", "2"], NotImplementedError, "slice 3"),
+    (["--visualize"], NotImplementedError, "slice 6"),
+    (["--plot_roc"], NotImplementedError, "slice 6"),
+    (["--multihost"], NotImplementedError, "slice 7"),
+    (["--packed_cache"], NotImplementedError, "slice 8"),
+    (["--pretrained"], NotImplementedError, "slice 8"),
+    (["--restore", "missing.pt"], FileNotFoundError, "missing.pt"),
+])
+def test_unported_and_bad_flags_raise(run, tmp_path, flags, exc, match):
+    data, _ = run
+    with pytest.raises(exc, match=match):
+        main(["--train", *_args(data, str(tmp_path / "x")), *flags])
+
+
+def test_default_device_is_cuda_and_raises_without_a_card(tmp_path):
+    """Without --device the CLI asks for the card; on a host without one it
+    exits with the error before writing anything, and never runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "chexpert_tpu_torch.cli.chexpert", "--train",
+         "--data_path", str(tmp_path), "--output_dir", str(out), "--model", "densenet-tiny"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr
+    assert not out.exists()

@@ -1,6 +1,8 @@
-"""The port imports no JAX: no module of chexpert_tpu_torch/, and not
-chip_smoke.py, imports jax, flax, optax or the JAX package chexpert_tpu
-(matched on the whole top-level name: chexpert_tpu_torch is allowed)."""
+"""The port imports no JAX: no module of chexpert_tpu_torch/, not
+chip_smoke.py and not the port's scripts (they run on the card host)
+import jax, flax, optax or the JAX package chexpert_tpu
+(matched on the whole top-level name: chexpert_tpu_torch is allowed), nor
+pandas or scikit-learn, which the card host does not have."""
 
 import ast
 import os
@@ -11,8 +13,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "chexpert_tpu"}
-FILES = sorted((ROOT / "chexpert_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "chexpert_tpu", "pandas", "sklearn"}
+SCRIPTS = ("profile_torch_serve.py", "profile_torch_train.py", "grad_divergence_torch.py")
+FILES = (sorted((ROOT / "chexpert_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + [ROOT / "scripts" / name for name in SCRIPTS])
 
 
 def _imported_top_levels(path: Path):
@@ -27,8 +31,12 @@ def _imported_top_levels(path: Path):
 
 def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    assert "chexpert_tpu_torch/cli/serve.py" in names
-    assert "chexpert_tpu_torch/ops/fused_attention.py" in names
+    for module in ("cli/serve.py", "cli/chexpert.py", "ops/fused_attention.py",
+                   "configs/config.py", "data/chexpert.py", "data/pipeline.py",
+                   "data/synthetic.py", "data/transforms.py", "eval/metrics.py",
+                   "checkpoint/store.py", "checkpoint/tracker.py", "train/loop.py",
+                   "train/optim.py", "train/steps.py", "utils/io.py", "utils/logging.py"):
+        assert f"chexpert_tpu_torch/{module}" in names, module
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -38,9 +46,10 @@ def test_no_jax_imports(path):
 
 
 def test_serve_import_leaves_jax_unloaded():
-    code = ("import sys, chexpert_tpu_torch.cli.serve, chexpert_tpu_torch.models; "
+    code = ("import sys, chexpert_tpu_torch.cli.serve, chexpert_tpu_torch.cli.chexpert, "
+            "chexpert_tpu_torch.models; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'chexpert_tpu')); print(bad)")
+            f"{tuple(sorted(FORBIDDEN))}); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout
