@@ -1,7 +1,8 @@
 """Checkpoint storage of the port: ``.pt`` files holding
 ``{"global_step", "eval_loss", "avg_auc", "state_dict"}`` (the reference
 training loop's format) and, beside them, ``optim_<name>.pt`` holding the
-optimizer's and the LR scheduler's state dicts. Every write is atomic
+optimizer's and the LR scheduler's state dicts and, where the run has one,
+the state of its train-mode generator. Every write is atomic
 (tmp + rename) so a preempted host never leaves a torn file.
 
 A plain state dict (a ``.pth`` written by the JAX package's
@@ -13,7 +14,7 @@ to read; they raise with a pointer to that exporter.
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -59,15 +60,21 @@ def load_model_checkpoint(path: str) -> Dict:
             "state_dict": raw}
 
 
-def save_optim_checkpoint(path: str, optimizer: torch.optim.Optimizer, scheduler) -> None:
-    _atomic_save({"optimizer": optimizer.state_dict(), "scheduler": scheduler.state_dict()},
-                 path)
+def save_optim_checkpoint(path: str, optimizer: torch.optim.Optimizer, scheduler,
+                          generator: Optional[torch.Generator] = None) -> None:
+    payload = {"optimizer": optimizer.state_dict(), "scheduler": scheduler.state_dict()}
+    if generator is not None:
+        payload["generator"] = generator.get_state()
+    _atomic_save(payload, path)
 
 
-def load_optim_checkpoint(path: str, optimizer: torch.optim.Optimizer, scheduler) -> None:
-    """Load the optimizer and scheduler state saved by ``save_optim_checkpoint``
-    into ``optimizer`` and ``scheduler`` (tensors move to the parameters'
-    device)."""
+def load_optim_checkpoint(path: str, optimizer: torch.optim.Optimizer, scheduler,
+                          generator: Optional[torch.Generator] = None) -> None:
+    """Load the state saved by ``save_optim_checkpoint`` into ``optimizer``,
+    ``scheduler`` and, when both the file and the call have one,
+    ``generator`` (tensors move to the parameters' device)."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     optimizer.load_state_dict(raw["optimizer"])
     scheduler.load_state_dict(raw["scheduler"])
+    if generator is not None and "generator" in raw:
+        generator.set_state(raw["generator"])

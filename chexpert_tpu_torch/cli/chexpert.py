@@ -130,18 +130,21 @@ class Runner:
                 raise FileNotFoundError(f"--restore {cfg.restore!r} is not a checkpoint file")
             print(f"Restoring model weights from {cfg.restore}")
             ck = load_model_checkpoint(cfg.restore)
-            model.load_state_dict(normalize_state_dict(ck["state_dict"]), strict=True)
+            model.load_state_dict(normalize_state_dict(ck["state_dict"], cfg.model), strict=True)
             self.start_step = ck["global_step"]
         model = model.to(self.device)
         optimizer, scheduler, self.schedule = make_optimizer(
             spec, model.parameters(), cfg.lr, cfg.lr_warmup_steps)
-        self.state = TrainState(model, optimizer, scheduler, step=self.start_step)
+        # the train-mode random parts draw from this, on the model's device
+        generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.state = TrainState(model, optimizer, scheduler, step=self.start_step,
+                                generator=generator)
         if cfg.restore and cfg.train:
             optim_path = os.path.join(os.path.dirname(cfg.restore),
                                       "optim_" + os.path.basename(cfg.restore))
             if os.path.exists(optim_path):
                 print("Restoring optimizer.")
-                load_optim_checkpoint(optim_path, optimizer, scheduler)
+                load_optim_checkpoint(optim_path, optimizer, scheduler, generator)
 
     def index(self, mode: str) -> ChexpertIndex:
         cfg = self.cfg

@@ -63,7 +63,7 @@ class Engine:
 
         model = build_model(args.model, image_size=self.hw)
         ck = load_model_checkpoint(args.restore_path)
-        model.load_state_dict(normalize_state_dict(ck["state_dict"]), strict=True)
+        model.load_state_dict(normalize_state_dict(ck["state_dict"], args.model), strict=True)
         self.model = model.to(self.device).eval()
         self.n_params = sum(p.numel() for p in self.model.parameters())
         self._lock = threading.Lock()

@@ -12,10 +12,11 @@ source rebuilds and a stale library is never loaded. Nothing is built or
 loaded when this module is imported: CPU-only hosts (no nvcc, no card)
 import every module of the port.
 
-Wrappers pass device pointers and the stream as ``ctypes.c_void_p``; each C
-entry returns ``cudaGetLastError()`` after its launch and ``check`` raises
-if that is not 0. Each wrapper calls ``count_launch`` where it launches its
-kernel, so a run can show that its main path went through the kernels.
+Wrappers launch through ``launch``, which passes device pointers and the
+stream as ``ctypes.c_void_p``; each C entry returns ``cudaGetLastError()``
+after its launch, ``check`` raises if that is not 0, and ``count_launch``
+counts the launch, so a run can show that its main path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -119,6 +120,27 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry's ``cudaGetLastError()`` is not cudaSuccess."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch (cudaError {err})")
+
+
+def launch(name: str, fn, pointers, ints, device) -> None:
+    """Call the C entry ``fn`` with device pointers, then ints, then the
+    current stream of ``device`` (on that device); raise if the launch
+    failed, else count it. The host work here is kept small: a served
+    forward calls it once per kernel launch."""
+    import torch
+
+    if fn.argtypes is None:  # ctypes caches fn per library: typed once
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
+                       + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*pointers, *ints, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*pointers, *ints, stream)
+    check(err, name)
+    count_launch(name)
 
 
 def count_launch(name: str) -> None:

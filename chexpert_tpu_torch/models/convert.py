@@ -1,17 +1,22 @@
 """Weight carry-over into the port's state dict.
 
-  * ``state_dict_from_jax(params, batch_stats)``: the JAX package's Flax
-    trees (nested dicts of numpy arrays) -> the port's ``state_dict``:
-    conv HWIO -> OIHW, Dense (in, out) -> (out, in), BN
-    scale/bias/mean/var -> weight/bias/running_mean/running_var (plus the
-    ``num_batches_tracked`` buffers strict loading needs), ``key_rel_*``
-    unchanged; the DenseNet body goes under ``features.``.
-  * ``normalize_state_dict(sd)``: a torchvision-format DenseNet state dict,
+  * ``state_dict_from_jax(params, batch_stats, arch)``: the JAX package's
+    Flax trees (nested dicts of numpy arrays) -> the port's ``state_dict``:
+    conv HWIO -> OIHW (a depthwise (k, k, 1, C) kernel becomes (C, 1, k, k)),
+    Dense (in, out) -> (out, in), BN scale/bias/mean/var ->
+    weight/bias/running_mean/running_var (plus the ``num_batches_tracked``
+    buffers strict loading needs), ``key_rel_*`` unchanged; the Flax path
+    joined by dots, with the DenseNet family's body under ``features.``.
+  * ``normalize_state_dict(sd, arch)``: a torchvision-format state dict,
     e.g. one written by the JAX package's
     ``models/pretrained.py::export_torch_state_dict`` -> the port's keys. That
     exporter writes no ``features.`` prefix for ``aadensenet*`` archs and no
     ``num_batches_tracked``; old torchvision zoo files use ``norm.1`` /
-    ``conv.2`` style dense-layer keys.
+    ``conv.2`` style dense-layer keys. EfficientNet keys are the Flax paths
+    (``blocks_3_1.depthwise_conv.weight``) in both and stay as they are.
+
+``arch`` is the registry name; only the DenseNet family (a name containing
+``densenet``) is renamed.
 """
 
 from __future__ import annotations
@@ -37,13 +42,11 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, Any]:
 
 
 def _key(path: tuple, leaf: str) -> str:
-    parts = list(path)
-    if parts[0] not in _HEADS:
-        parts = ["features"] + parts
-    return ".".join(parts + [leaf])
+    return ".".join(path + (leaf,))
 
 
-def state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                        arch: str = "densenet121") -> Dict[str, torch.Tensor]:
     sd: Dict[str, np.ndarray] = {}
     for p, val in _flatten(params).items():
         val = np.array(val, dtype=np.float32)  # a writable copy
@@ -68,17 +71,19 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torc
         else:
             raise KeyError(f"unhandled JAX batch statistic {'/'.join(p)}")
     return normalize_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
-                                 for k, v in sd.items()})
+                                 for k, v in sd.items()}, arch)
 
 
-def normalize_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def normalize_state_dict(sd: Mapping[str, torch.Tensor],
+                         arch: str = "densenet121") -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for k, v in sd.items():
-        m = _LEGACY.match(k)
-        if m:
-            k = m.group(1) + m.group(2) + "." + m.group(3)
-        if not k.startswith("features.") and k.split(".", 1)[0] not in _HEADS:
-            k = "features." + k
+        if "densenet" in arch:
+            m = _LEGACY.match(k)
+            if m:
+                k = m.group(1) + m.group(2) + "." + m.group(3)
+            if not k.startswith("features.") and k.split(".", 1)[0] not in _HEADS:
+                k = "features." + k
         out[k] = v
     for k in list(out):
         if k.endswith(".running_mean"):

@@ -136,7 +136,9 @@ class DenseNet(nn.Module):
         torch_linear_(self.classifier.weight, generator)
         self.classifier.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        del generator  # no random parts in this family
         f = self.features
         x = F.relu(f.norm0(f.conv0(x)))
         if self.imagenet_stem:

@@ -1,5 +1,6 @@
 """Model factory, port of chexpert_tpu/models/registry.py for the archs this
-port has (aadensenet121, densenet121, aadensenet-tiny, densenet-tiny).
+port has (aadensenet121, densenet121, aadensenet-tiny, densenet-tiny,
+efficientnet-b0..b7).
 
 ``build_model`` returns the model alone, in float32 on ``device``,
 initialized from ``generator`` (a fresh one seeded 0 when none is given).
@@ -9,6 +10,8 @@ registry.py:28-38, 90-157):
   densenet121 and the tiny archs: Adam                      (chexpert.py:470)
   aadensenet121: SGD(momentum .9, nesterov) + MultiStep[40k, 60k]
                                                              (chexpert.py:479-480)
+  efficientnet-b*: RMSprop(momentum .9, eps 1e-3) + per-step exponential
+                   decay gamma=lr_decay_factor               (chexpert.py:499-500)
 """
 
 from __future__ import annotations
@@ -17,13 +20,16 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
 from chexpert_tpu_torch.models.densenet import AttnParams, DenseNet
+from chexpert_tpu_torch.models.efficientnet import SCALING_PARAMS, EfficientNet
 
 N_CLASSES = 5
-PORTED = ("densenet121", "aadensenet121", "densenet-tiny", "aadensenet-tiny")
+PORTED = ("densenet121", "aadensenet121", "densenet-tiny", "aadensenet-tiny",
+          *SCALING_PARAMS)
 # archs of the JAX registry that the port does not have yet (ROADMAP.md queue A)
-_NOT_YET_PORTED = ("resnet152", "aaresnet152") + tuple(f"efficientnet-b{i}" for i in range(8))
+_NOT_YET_PORTED = ("resnet152", "aaresnet152")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +47,8 @@ class OptimizerSpec:
 def optimizer_spec(name: str) -> OptimizerSpec:
     if name == "aadensenet121":
         return OptimizerSpec("sgd_nesterov", "multistep", milestones=(40000, 60000))
+    if name in SCALING_PARAMS:
+        return OptimizerSpec("rmsprop", "exponential")
     if name in PORTED:
         return OptimizerSpec("adam")
     if name in _NOT_YET_PORTED:
@@ -54,6 +62,7 @@ def build_model(
     n_classes: int = N_CLASSES,
     image_size: int = 320,
     attn_impl: str = "pallas",
+    dw_impl: str = "kernel",
     prefix_stats: Optional[bool] = None,
     remat: bool = False,
     chunk_size: Optional[int] = None,
@@ -62,9 +71,12 @@ def build_model(
     concat_free: bool = False,
     device="cpu",
     generator: Optional[torch.Generator] = None,
-) -> DenseNet:
-    """``prefix_stats`` is accepted and has no effect: at eval the carried
-    statistics are the running statistics, so it equals plain BatchNorm.
+) -> nn.Module:
+    """``attn_impl`` picks the DenseNet family's attention route, ``dw_impl``
+    EfficientNet's depthwise route ("kernel" or "library"); ``image_size``
+    sizes the attention maps (EfficientNet takes any size). ``prefix_stats``
+    is accepted and has no effect: at eval the carried statistics are the
+    running statistics, so it equals plain BatchNorm.
     ``remat``/``slim_bwd``/``slim_block``/``chunk_size``/``concat_free`` are
     TPU layout flags with nothing to do here and raise ValueError."""
     if remat or slim_bwd or slim_block or chunk_size or concat_free:
@@ -86,6 +98,8 @@ def build_model(
     elif name == "aadensenet-tiny":
         model = DenseNet(8, (2, 2), 16, num_classes=n_classes,
                          attn=AttnParams(0.25, 0.25, 2, True, dims), attn_impl=attn_impl)
+    elif name in SCALING_PARAMS:
+        model = EfficientNet(name, num_classes=n_classes, dw_impl=dw_impl)
     else:
         raise RuntimeError(f"Model architecture not supported: {name}")
     if generator is None:

@@ -23,7 +23,6 @@ mode is on: its output has no ``grad_fn``, so gradients would be dropped.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -142,18 +141,7 @@ def _kernel_entry(name: str, source: str, operands, f32_operands, dkh: int, dvh:
         raise ValueError(f"{name}: operands must be contiguous")
     if operands[0].shape[0] > 65535:
         raise ValueError(f"{name}: bn={operands[0].shape[0]} exceeds the grid's y limit")
-    fn = getattr(kernels.load(source), f"{name}_{_DTYPE_SUFFIX[dt]}")
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(name: str, fn, pointers, ints, device) -> None:
-    fn.argtypes = [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*pointers, *ints, stream)
-    kernels.check(err, name)
-    kernels.count_launch(name)
+    return getattr(kernels.load(source), f"{name}_{_DTYPE_SUFFIX[dt]}")
 
 
 def rel_attention_fwd(qr: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,8 +160,8 @@ def rel_attention_fwd(qr: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _kernel_entry(NAME, NAME, (qr, k, v), (), dkh, dvh)
     out = torch.empty((bn, hw, dvh), dtype=v.dtype, device=qr.device)
     lse = torch.empty((bn, hw), dtype=torch.float32, device=qr.device)
-    _launch(NAME, fn, [t.data_ptr() for t in (qr, k, v, out, lse)],
-            [bn, hw, H, W, dkh, dvh], qr.device)
+    kernels.launch(NAME, fn, [t.data_ptr() for t in (qr, k, v, out, lse)],
+                   [bn, hw, H, W, dkh, dvh], qr.device)
     return out, lse
 
 
@@ -186,8 +174,9 @@ def rel_attention_bwd_dkdv(qr, k, v, dout, lse, delta, H: int, W: int, dkh: int)
     bn, hw, _ = qr.shape
     fn = _kernel_entry(BWD_DKDV, BWD_SOURCE, (qr, k, v, dout), (lse, delta), dkh, v.shape[-1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(BWD_DKDV, fn, [t.data_ptr() for t in (qr, k, v, dout, lse, delta, dk, dv)],
-            [bn, hw, H, W, dkh, v.shape[-1]], qr.device)
+    kernels.launch(BWD_DKDV, fn,
+                   [t.data_ptr() for t in (qr, k, v, dout, lse, delta, dk, dv)],
+                   [bn, hw, H, W, dkh, v.shape[-1]], qr.device)
     return dk, dv
 
 
@@ -200,8 +189,8 @@ def rel_attention_bwd_dq(qr, k, v, dout, lse, delta, H: int, W: int, dkh: int):
     bn, hw, _ = qr.shape
     fn = _kernel_entry(BWD_DQ, BWD_SOURCE, (qr, k, v, dout), (lse, delta), dkh, v.shape[-1])
     dqr = torch.empty_like(qr)
-    _launch(BWD_DQ, fn, [t.data_ptr() for t in (qr, k, v, dout, lse, delta, dqr)],
-            [bn, hw, H, W, dkh, v.shape[-1]], qr.device)
+    kernels.launch(BWD_DQ, fn, [t.data_ptr() for t in (qr, k, v, dout, lse, delta, dqr)],
+                   [bn, hw, H, W, dkh, v.shape[-1]], qr.device)
     return dqr
 
 

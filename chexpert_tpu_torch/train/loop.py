@@ -64,7 +64,7 @@ def _checkpoint(cfg: Config, state: TrainState, metrics: Dict, step: int) -> Non
     save_model_checkpoint(os.path.join(cfg.output_dir, "checkpoint_latest.pt"), sd, step,
                           eval_loss, auc_mean)
     save_optim_checkpoint(os.path.join(cfg.output_dir, "optim_checkpoint_latest.pt"),
-                          state.optimizer, state.scheduler)
+                          state.optimizer, state.scheduler, state.generator)
     update_tracker(
         cfg.output_dir, step, eval_loss, auc_mean,
         save_best=lambda p: save_model_checkpoint(p, sd, step, eval_loss, auc_mean),

@@ -3,7 +3,11 @@ optax ones (chexpert_tpu/train/optim.py):
 
   * Adam with torch defaults (betas .9/.999, eps 1e-8);
   * SGD, momentum .9, Nesterov (aadensenet121);
-  * RMSprop, alpha .99, momentum .9, eps outside the sqrt, as torch has it;
+  * RMSprop, decay .99, momentum .9, eps 1e-3 outside the sqrt, in optax's
+    order (``RMSpropLRInTrace``: the LR scales each step before the momentum
+    trace, so the trace holds LR-scaled steps; ``torch.optim.RMSprop``
+    multiplies the trace by the current LR instead, and the two part as
+    soon as the LR changes);
   * 'hold' warmup: the LR stays at base until ``warmup_steps``, then the
     decay clock starts (reference chexpert.py:165); multistep milestones
     and the per-step exponential decay count from ``step - warmup_steps``.
@@ -23,6 +27,49 @@ from typing import Callable, Iterable, Tuple
 import torch
 
 from chexpert_tpu_torch.models.registry import OptimizerSpec
+
+
+class RMSpropLRInTrace(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay, eps, momentum, eps_in_sqrt=False)``:
+    nu = decay * nu + (1 - decay) * g^2;  u = g / (sqrt(nu) + eps);
+    buf = momentum * buf + lr_t * u;  p -= buf. nu and buf start at 0, as
+    ``scale_by_rms`` and ``trace`` have them. ``weight_decay`` adds
+    weight_decay * p to g first (``optax.add_decayed_weights`` ahead of it)."""
+
+    def __init__(self, params, lr: float, decay: float = 0.99, eps: float = 1e-3,
+                 momentum: float = 0.9, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, momentum=momentum,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None if closure is None else closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["nu"] = torch.zeros_like(p)
+                    self.state[p]["buf"] = torch.zeros_like(p)
+            nus = [self.state[p]["nu"] for p in params]
+            bufs = [self.state[p]["buf"] for p in params]
+            # each product rounded where optax rounds it
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1.0 - group["decay"])
+            torch._foreach_mul_(nus, group["decay"])
+            torch._foreach_add_(nus, sq)
+            denom = torch._foreach_sqrt(nus)
+            torch._foreach_add_(denom, group["eps"])
+            scaled = torch._foreach_div(grads, denom)
+            torch._foreach_mul_(scaled, group["lr"])
+            torch._foreach_mul_(bufs, group["momentum"])
+            torch._foreach_add_(bufs, scaled)
+            torch._foreach_sub_(params, bufs)
+        return loss
 
 
 def make_schedule(spec: OptimizerSpec, base_lr: float, warmup_steps: int = 0) -> Callable:
@@ -52,8 +99,7 @@ def make_optimizer(spec: OptimizerSpec, params: Iterable[torch.nn.Parameter], ba
     elif spec.kind == "sgd_nesterov":
         opt = torch.optim.SGD(params, momentum=spec.momentum, nesterov=True, **kw)
     elif spec.kind == "rmsprop":
-        opt = torch.optim.RMSprop(params, alpha=0.99, eps=spec.eps, momentum=spec.momentum,
-                                  **kw)
+        opt = RMSpropLRInTrace(params, decay=0.99, eps=spec.eps, momentum=spec.momentum, **kw)
     else:
         raise ValueError(f"unknown optimizer {spec.kind!r}")
     scheduler = torch.optim.lr_scheduler.LambdaLR(

@@ -3,9 +3,10 @@
 The loss follows the reference hot loop (chexpert.py:156-165): BCE with
 logits summed over classes, meaned over the batch. The forward runs under
 ``torch.autocast`` at the compute dtype with float32 parameters; the loss
-is float32. There is no randomness inside a step: the archs of this port
-have no dropout, and augmentation runs on the host (``device_augment`` of
-the packed input path is ROADMAP.md slice 8).
+is float32. The only random draws inside a step are the model's train-mode
+ones (EfficientNet's DropConnect and Dropout), from ``state.generator``;
+augmentation runs on the host (``device_augment`` of the packed input path
+is ROADMAP.md slice 8).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     model = state.model.train()
     image = prepare_image(batch["image"])
     with _autocast(image.device, compute_dtype):
-        logits = model(image)
+        logits = model(image, generator=state.generator)
     loss = train_loss(logits, batch["label"], batch["mask"], batch.get("label_mask"))
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()

@@ -22,7 +22,8 @@ Run from the root of a checkout. Phases, each failing the run on error:
    port's checkpoint store and served by chexpert_tpu_torch.cli.serve on the
    card in bf16; JPEG requests over HTTP; launch counts must show every
    forward went through B1 (3 launches per forward) and none through B2;
-   the f32 kernel path must agree with the f32 einsum path within 1e-3.
+   the f32 kernel path must agree with the f32 einsum path within 1e-3 in
+   probability and 1e-4 in logits (relative to the largest).
 5. train: the port's synthetic fixture at 320x320, then
    chexpert_tpu_torch.cli.chexpert.main --train --evaluate_single_model,
    aadensenet121, bf16 autocast, batch 16, on one repeated batch (16 train
@@ -37,10 +38,35 @@ Run from the root of a checkout. Phases, each failing the run on error:
    gradient, the relative embeddings and qkv projection included, within
    max |dg| / max |g| <= 1e-3. The whole model's gradients are reported,
    not gated (see grad_reference_phase).
+7. kernel B3/B4: the depthwise conv forward kernel and the backward kernel
+   at the ten distinct stride-1 geometries of efficientnet-b4 at 380x380
+   (derived from the port's scaled_blocks and checked against the list
+   below), in f32 and bf16: B3 at batch 4 (serving) and 16 (training), B4
+   at 16, each against its plain version; times each beside its plain
+   version and one library call (F.conv2d(groups=C) for B3,
+   aten.convolution_backward for dx and dw for B4), by device time (the
+   calls captured in a CUDA graph and replayed between CUDA events), with
+   the wrapper's and the library call's eager time beside it.
+8. serve efficientnet-b4 at 380x380, bf16, micro-batch 4, seeded random
+   weights with BatchNorm statistics set from the request images
+   (calibrate_bn), over HTTP as in phase 4: 28 B3 launches per forward and
+   no other kernel; the f32 kernel route within 1e-3 (probabilities) and
+   1e-4 (logits) of the f32 library route (dw_impl="library").
+9. train efficientnet-b4 through cli.chexpert.main as in phase 5, 380x380,
+   bf16, batch 16, RMSprop + per-step exponential decay at lr 3e-4 (a CPU
+   rehearsal at 96x96 and 192x192 fell at this lr): finite, falling loss,
+   28 B3 + 28 B4 launches per train step and 28 B3 per eval forward, the
+   run's artifacts; prints ms/step and images/s.
+10. depthwise grad reference: one f32 train step of efficientnet-b4 at
+   batch 4, 380x380, TF32 off, on the kernel route and on the library route
+   from the same weights, batch and generator seed. Per stride-1 depthwise
+   layer, on its captured input and upstream gradient: dx and dw within
+   max |dg| / max |g| <= 1e-3. The whole model's gradients are reported.
 
-The last lines are one {"kernels": [...]} JSON line, the nvidia-smi line,
-and {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
-no CUDA device is available or the port is not importable.
+The phases take about 80 s on an H100, the build included (the run prints
+its own time). The last lines are one {"kernels": [...]} JSON line, the nvidia-smi line, and
+{"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
+CUDA device is available or the port is not importable.
 """
 
 from __future__ import annotations
@@ -81,10 +107,30 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # bf16, both sides round their f32 result to bf16, one ulp of which is at
 # most 2^-7 of the largest value.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-EINSUM_TOL = 1e-3                          # f32 kernel path vs f32 einsum path
+EINSUM_TOL = 1e-3                          # f32 kernel route vs f32 einsum / library route
+# the same routes' logits, max |d| / max |logit|: two f32 routes over the
+# same weights differ only in the order of f32 sums (~1e-7 relative per
+# layer; measured 4e-7 for aadensenet121 and 0 for efficientnet-b4 on an
+# H100), while the probability gate alone is loose where every probability
+# sits near 0.5 (a 1e-3 step there is ~4e-3 in logit)
+LOGIT_TOL = 1e-4
 GRAD_TOL = 1e-3                            # f32 grads, kernel route vs einsum route
 N_REQUESTS = 8
 TRAIN_STEPS, TRAIN_LR, EVAL_INTERVAL = 6, 0.01, 3
+
+EFF, EFF_IMAGE = "efficientnet-b4", 380    # its own resolution in SCALING_PARAMS
+EFF_TRAIN_LR = 3e-4                        # RMSprop, eps 1e-3: see phase 9 above
+# (H = W, C, k) of efficientnet-b4's stride-1 depthwise layers at 380x380
+DW_GEOMETRIES = ((190, 48, 3), (190, 24, 3), (95, 192, 3), (48, 336, 5), (24, 672, 3),
+                 (24, 672, 5), (24, 960, 5), (12, 1632, 5), (12, 1632, 3), (12, 2688, 3))
+DW_LAYERS = 28
+# B3 / B4 against their plain versions, max |kernel - plain| / max |plain|:
+# y and dx, f32 1e-5 (the same f32 sums of k*k terms in another order);
+# bf16 1e-2 (both round the same f32 sum to bf16, one ulp of which is 2^-8
+# of the largest value); dw is an f32 sum over up to 16*190*190 terms in
+# both dtypes, summed per block and then over blocks: 1e-4.
+DW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+DW_W_TOL = 1e-4
 
 
 def smi_line() -> str:
@@ -106,6 +152,30 @@ def time_ms(fn, reps: int = 15, inner: int = 5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10, inner: int = 10) -> float:
+    """Median over reps of the device time per call: inner calls captured in
+    one CUDA graph and replayed between CUDA events, so the host's work per
+    call (Python, the wrapper, the dispatcher) is not in it."""
+    fn()  # lazy initialisation and library planning, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    del graph
     return statistics.median(times)
 
 
@@ -277,13 +347,134 @@ def bwd_kernel_phase():
     return rows
 
 
-def jpegs(n: int):
+def dw_stride1_layers(model: str, image: int):
+    """(H, C, k) of each stride-1 depthwise layer of an EfficientNet variant
+    at image x image, walked from the port's scaled_blocks and TF-SAME rule."""
+    from chexpert_tpu_torch.models.efficientnet import scaled_blocks
+
+    _, blocks, _ = scaled_blocks(model)
+    h, layers = -(-image // 2), []  # after the stride-2 stem
+    for n, cin, cout, k, s, e, _ in blocks:
+        for i in range(n):
+            stride, c = (s if i == 0 else 1), (cin if i == 0 else cout) * e
+            if stride == 1:
+                layers.append((h, c, k))
+            else:
+                h = -(-h // stride)  # TF-SAME: ceil(h / stride)
+    return layers
+
+
+def dw_kernel_phase():
+    """B3 at the serving (4) and training (16) batch and B4 at the training
+    batch, at every distinct stride-1 geometry of efficientnet-b4 at 380x380,
+    in f32 and bf16, against their plain versions; times beside one library
+    call each."""
+    from chexpert_tpu_torch.ops.depthwise import (
+        depthwise_bwd,
+        depthwise_bwd_plain,
+        depthwise_fwd,
+        depthwise_fwd_plain,
+    )
+
+    layers = dw_stride1_layers(EFF, EFF_IMAGE)
+    mult = {geo: layers.count(geo) for geo in DW_GEOMETRIES}
+    if len(layers) != DW_LAYERS or set(layers) != set(DW_GEOMETRIES):
+        raise AssertionError(f"{EFF} at {EFF_IMAGE}: stride-1 layers {layers} are not the "
+                             f"{DW_LAYERS} layers over {DW_GEOMETRIES}")
+    gen = torch.Generator().manual_seed(2)
+    rows = []
+
+    def errs(got, want):  # (max |got - want|, that over max |want|)
+        d = (got.float() - want.float()).abs().max().item()
+        return d, d / max(want.float().abs().max().item(), 1e-30)
+
+    for H, C, k in DW_GEOMETRIES:
+        p = k // 2
+        for dtype in (torch.float32, torch.bfloat16):
+            es = torch.finfo(dtype).bits // 8
+            w = (torch.randn(C, 1, k, k, generator=gen) * 0.2).to(DEVICE)
+            w_lib = w.to(dtype)
+            row = {"geometry": f"{H}x{H}", "C": C, "k": k, "layers": mult[(H, C, k)],
+                   "dtype": str(dtype).replace("torch.", ""), "tol": DW_TOL[dtype],
+                   "dw_tol": DW_W_TOL}
+            for batch in (B, B_TRAIN):
+                x = torch.randn(batch, C, H, H, generator=gen).to(DEVICE, dtype)
+                y = depthwise_fwd(x, w)
+                torch.cuda.synchronize()
+                n = x.numel()
+                abs_err, rel_err = errs(y, depthwise_fwd_plain(x, w))
+
+                def library():
+                    return F.conv2d(x, w_lib, padding=p, groups=C)
+
+                row[f"fwd{batch}"] = {
+                    "abs_err": abs_err, "rel_err": rel_err,
+                    "ms": device_ms(lambda: depthwise_fwd(x, w)),
+                    "plain_ms": device_ms(lambda: depthwise_fwd_plain(x, w)),
+                    "library_ms": device_ms(library),
+                    # eager calls between events: at these sizes the host's work
+                    "host_ms": time_ms(lambda: depthwise_fwd(x, w)),
+                    "library_host_ms": time_ms(library),
+                    # x read and y written once, w (f32 rows) read once; 2 k^2 per output
+                    # at the f32 rate outside the tensor cores (no tensor-core work)
+                    **bound(2 * n * es + w.numel() * 4, 2 * k * k * n, torch.float32),
+                }
+                del y
+            g = torch.randn(x.shape, generator=gen).to(DEVICE, dtype)  # x: the training batch
+            dx, dw = depthwise_bwd(x, w, g)
+            torch.cuda.synchronize()
+            dx_p, dw_p = depthwise_bwd_plain(x, w, g)
+
+            def library():
+                return torch.ops.aten.convolution_backward(
+                    g, x, w_lib, None, [1, 1], [p, p], [1, 1], False, [0, 0], C,
+                    [True, True, False])
+
+            (abs_dx, rel_dx), (abs_dw, rel_dw) = errs(dx, dx_p), errs(dw, dw_p)
+            row["bwd16"] = {
+                "abs_err_dx": abs_dx, "rel_err_dx": rel_dx, "abs_err_dw": abs_dw,
+                "rel_err_dw": rel_dw,
+                "ms": device_ms(lambda: depthwise_bwd(x, w, g)),
+                "plain_ms": device_ms(lambda: depthwise_bwd_plain(x, w, g)),
+                "library_ms": device_ms(library),
+                "host_ms": time_ms(lambda: depthwise_bwd(x, w, g)),
+                "library_host_ms": time_ms(library),
+                # x, g read and dx written once, w read and dw written once (f32);
+                # 2 k^2 per element for dx and 2 k^2 for dw
+                **bound(3 * n * es + 2 * w.numel() * 4, 4 * k * k * n, torch.float32),
+            }
+            fwd_ok = all(row[f"fwd{b}"]["rel_err"] <= DW_TOL[dtype] for b in (B, B_TRAIN))
+            bwd = row["bwd16"]
+            row["ok"] = (fwd_ok and bwd["rel_err_dx"] <= DW_TOL[dtype]
+                         and bwd["rel_err_dw"] <= DW_W_TOL
+                         and bool(torch.isfinite(dx.float()).all()))
+            rows.append(row)
+            f4, f16 = row[f"fwd{B}"], row[f"fwd{B_TRAIN}"]
+            print(f"kernel depthwise {H}x{H} C={C} k={k} x{row['layers']} {row['dtype']}: rel err "
+                  f"y {f4['rel_err']:.3g}/{f16['rel_err']:.3g} dx {bwd['rel_err_dx']:.3g} "
+                  f"dw {bwd['rel_err_dw']:.3g}; device ms: B3 b{B} {f4['ms']:.4f} (plain "
+                  f"{f4['plain_ms']:.4f}, library {f4['library_ms']:.4f}, bound "
+                  f"{f4['bound_ms']:.5f}); B3 b{B_TRAIN} {f16['ms']:.4f} (library "
+                  f"{f16['library_ms']:.4f}); B4 b{B_TRAIN} {bwd['ms']:.4f} (plain "
+                  f"{bwd['plain_ms']:.4f}, library {bwd['library_ms']:.4f}, bound "
+                  f"{bwd['bound_ms']:.5f}); eager ms B3 b{B} {f4['host_ms']:.4f} (library "
+                  f"{f4['library_host_ms']:.4f}), B4 {bwd['host_ms']:.4f} (library "
+                  f"{bwd['library_host_ms']:.4f})", flush=True)
+            del x, g, dx, dw, dx_p, dw_p
+            torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"B3 or B4 disagrees with its plain version: {bad}")
+    return rows
+
+
+def jpegs(n: int, size: int = IMAGE):
     from PIL import Image
 
     rng = np.random.RandomState(0)
     out = []
     for i in range(n):
-        h, w = IMAGE + 16 * (i % 3), IMAGE + 24 * (i % 2)
+        h, w = size + 16 * (i % 3), size + 24 * (i % 2)
         smooth = np.cumsum(rng.randn(h, w), axis=1)
         img = np.clip(128 + 40 * smooth / (np.abs(smooth).max() + 1e-6)
                       + 20 * rng.randn(h, w), 0, 255).astype(np.uint8)
@@ -293,19 +484,48 @@ def jpegs(n: int):
     return out
 
 
+def calibrate_bn(model, images, image: int) -> None:
+    """Set every BatchNorm's running statistics to the batch statistics of
+    the request images (preprocessed as cli.serve does), on the card. A
+    seeded random EfficientNet with its initial statistics (0, 1) saturates
+    every served probability at 0 or 1 (32 blocks of BN eps 1e-3 and swish
+    grow the activations), which would make the route comparison vacuous."""
+    from PIL import Image
+
+    from chexpert_tpu_torch.data.chexpert import PIXEL_MEAN, PIXEL_STD
+    from chexpert_tpu_torch.data.transforms import center_crop
+
+    batch = [(center_crop(np.asarray(Image.open(io.BytesIO(data)).convert("L"),
+                                     np.float32)[..., None], image) / 255.0 - PIXEL_MEAN)
+             / PIXEL_STD for data in images]
+    x = torch.from_numpy(np.stack(batch).astype(np.float32)).to(DEVICE).expand(-1, -1, -1, 3)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [m.momentum for m in bns]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None  # a cumulative average: one forward sets the batch statistics
+    with torch.no_grad():
+        model.train()(x.permute(0, 3, 1, 2).contiguous(),
+                      generator=torch.Generator(device=DEVICE).manual_seed(0))
+    for m, momentum in zip(bns, momenta):
+        m.momentum = momentum
+    model.eval()
+
+
 def post(url: str, data: bytes) -> dict:
     req = urllib.request.Request(url + "/predict", data=data, method="POST")
     with urllib.request.urlopen(req, timeout=300) as r:
         return json.loads(r.read())["probabilities"]
 
 
-def slice_phase(ckpt: str, images):
+def slice_phase(ckpt: str, images, model: str, image: int, per_forward: dict):
+    """Serve ``model`` over HTTP from ``ckpt``; every forward must launch
+    exactly ``per_forward`` (kernel name -> launches) and no other kernel."""
     from chexpert_tpu_torch import kernels
     from chexpert_tpu_torch.cli.serve import build_parser, serve
-    from chexpert_tpu_torch.ops.fused_attention import BWD_DKDV, BWD_DQ, NAME
 
     args = build_parser().parse_args([
-        "--restore_path", ckpt, "--model", "aadensenet121", "--image_size", str(IMAGE),
+        "--restore_path", ckpt, "--model", model, "--image_size", str(image),
         "--device", DEVICE,
         "--compute_dtype", "bfloat16", "--port", "0", "--micro_batch", str(B)])
     kernels.reset_launch_counts()
@@ -317,65 +537,84 @@ def slice_phase(ckpt: str, images):
     probs, latencies, per_request = [], [], []
     try:
         for data in images + images[:2]:  # the last two repeat the first two
-            before = kernels.launch_counts().get(NAME, 0)
+            before = kernels.launch_counts()
             t0 = time.perf_counter()
             probs.append(post(url, data))
             latencies.append((time.perf_counter() - t0) * 1e3)
             forwards += 1
-            per_request.append(kernels.launch_counts().get(NAME, 0) - before)
+            after = kernels.launch_counts()
+            per_request.append({k: after[k] - before.get(k, 0) for k in after
+                                if after[k] != before.get(k, 0)})
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=60)
     counts = kernels.launch_counts()
-    launches = counts.get(NAME, 0)
     vals = np.array([[p[k] for k in p] for p in probs])
     checks = {
         "finite_in_unit_interval": bool(np.isfinite(vals).all() and (vals >= 0).all()
                                         and (vals <= 1).all()),
         "repeat_exact": probs[-2:] == probs[:2],
-        "three_launches_per_request": per_request == [3] * len(per_request),
-        "three_launches_per_forward": launches == 3 * forwards,
-        "no_backward_launch": counts.get(BWD_DKDV, 0) == 0 and counts.get(BWD_DQ, 0) == 0,
+        "launches_per_request": per_request == [per_forward] * len(per_request),
+        # the named kernels per forward and no launch of any other kernel
+        # (the backward kernels included)
+        "launches_per_forward": counts == {k: v * forwards for k, v in per_forward.items()},
     }
-    print(f"slice served aadensenet121 bf16 micro_batch {B}: {len(probs)} requests, "
+    print(f"slice served {model} bf16 micro_batch {B}: {len(probs)} requests, "
           f"{forwards} forwards, launches {counts}, checks {checks}", flush=True)
     if not all(checks.values()):
         raise AssertionError(f"slice checks failed: {checks}")
     return probs[:len(images)], latencies, counts, forwards
 
 
-def reference_phase(ckpt: str, images, served):
-    """f32 on the card: the serve entry's kernel path vs the einsum path."""
+def reference_phase(ckpt: str, images, served, model: str, image: int, route: dict,
+                    per_forward: dict):
+    """f32 on the card: the serve entry's kernel route vs the plain route that
+    ``route`` names (attn_impl="einsum" / dw_impl="library"). The kernel
+    route's two forwards per image must launch ``per_forward`` each, the
+    plain route nothing."""
+    from chexpert_tpu_torch import kernels
     from chexpert_tpu_torch.checkpoint import load_model_checkpoint
     from chexpert_tpu_torch.cli.serve import Engine, build_parser
     from chexpert_tpu_torch.models import build_model
 
     engine = Engine(build_parser().parse_args([
-        "--restore_path", ckpt, "--model", "aadensenet121", "--image_size", str(IMAGE),
+        "--restore_path", ckpt, "--model", model, "--image_size", str(image),
         "--device", DEVICE,
         "--compute_dtype", "float32", "--micro_batch", str(B)]))
-    einsum = build_model("aadensenet121", image_size=IMAGE, attn_impl="einsum")
-    einsum.load_state_dict(load_model_checkpoint(ckpt)["state_dict"], strict=True)
-    einsum = einsum.to(DEVICE).eval()
-    d_f32, d_bf16 = 0.0, 0.0
+    ref = build_model(model, image_size=image, **route)
+    ref.load_state_dict(load_model_checkpoint(ckpt)["state_dict"], strict=True)
+    ref = ref.to(DEVICE).eval()
+    d_f32, d_bf16, d_logit, p_range = 0.0, 0.0, 0.0, (1.0, 0.0)
+    kernels.reset_launch_counts()
     for data, p_served in zip(images, served):
         p_kernel = engine.predict(data)
-        batch = np.zeros((B, IMAGE, IMAGE, 3), np.float32)
+        batch = np.zeros((B, image, image, 3), np.float32)
         batch[0] = engine.preprocess(data)
         x = torch.from_numpy(batch).to(DEVICE).permute(0, 3, 1, 2).contiguous()
         with torch.inference_mode():
-            p_ref = torch.sigmoid(einsum(x).float())[0].cpu().numpy()
+            logits_ref = ref(x).float()[0]
+            logits_kernel = engine.model(x).float()[0]
+            p_ref = torch.sigmoid(logits_ref).cpu().numpy()
         kern = np.array([p_kernel[k] for k in p_kernel])
         d_f32 = max(d_f32, float(np.abs(kern - p_ref).max()))
         d_bf16 = max(d_bf16, float(np.abs(np.array([p_served[k] for k in p_served])
                                           - p_ref).max()))
-    print(f"reference f32 kernel path vs f32 einsum path: max |dp| {d_f32:.3g} "
-          f"(tol {EINSUM_TOL}); served bf16 vs f32 einsum: max |dp| {d_bf16:.3g} "
-          "(reported, not gated)", flush=True)
-    if not d_f32 <= EINSUM_TOL:
-        raise AssertionError(f"kernel path disagrees with einsum path: {d_f32}")
-    return d_f32, d_bf16
+        # the logits too: a probability near 0 or 1 hides a difference
+        d_logit = max(d_logit, ((logits_kernel - logits_ref).abs().max()
+                                / logits_ref.abs().max()).item())
+        p_range = (min(p_range[0], float(p_ref.min())), max(p_range[1], float(p_ref.max())))
+    counts = kernels.launch_counts()
+    launched = counts == {k: v * 2 * len(images) for k, v in per_forward.items()}
+    print(f"reference {model} f32 kernel route vs f32 {route}: max |dp| {d_f32:.3g} "
+          f"(tol {EINSUM_TOL}), logits max |d| / max |logit| {d_logit:.3g} (tol {LOGIT_TOL}), "
+          f"probabilities "
+          f"in [{p_range[0]:.4g}, {p_range[1]:.4g}]; kernel route launches {counts}; served "
+          f"bf16 vs that f32 route: max |dp| {d_bf16:.3g} (reported, not gated)", flush=True)
+    if not (d_f32 <= EINSUM_TOL and d_logit <= LOGIT_TOL and launched):
+        raise AssertionError(f"{model}: kernel route disagrees with {route}: |dp| {d_f32}, "
+                             f"logits {d_logit}, or launched {counts}")
+    return d_f32, d_bf16, d_logit
 
 
 def _scalars(run_dir: str, tag: str):
@@ -383,20 +622,22 @@ def _scalars(run_dir: str, tag: str):
         return [(r["step"], r["value"]) for r in map(json.loads, f) if r.get("tag") == tag]
 
 
-def train_phase(data_dir: str, smi: str):
-    """The port's training CLI on the card; launch counts read just after."""
+def train_phase(data_dir: str, smi: str, model: str, image: int, lr: float,
+                per_step: dict, per_eval: dict):
+    """The port's training CLI on the card; launch counts read just after:
+    ``per_step`` launches per train step and ``per_eval`` per eval forward,
+    and no launch of any other kernel."""
     from chexpert_tpu_torch import kernels
     from chexpert_tpu_torch.cli.chexpert import main as cli_main
-    from chexpert_tpu_torch.ops.fused_attention import BWD_DKDV, BWD_DQ, NAME
 
     run_dir = os.path.join(data_dir, "run")
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     cli_main(["--train", "--evaluate_single_model", "--data_path", data_dir,
-              "--output_dir", run_dir, "--model", "aadensenet121",
-              "--image_size", str(IMAGE), "--compute_dtype", "bfloat16",
+              "--output_dir", run_dir, "--model", model,
+              "--image_size", str(image), "--compute_dtype", "bfloat16",
               "--batch_size", str(B_TRAIN), "--n_epochs", str(TRAIN_STEPS),
-              "--lr", str(TRAIN_LR), "--log_interval", "1",
+              "--lr", str(lr), "--log_interval", "1",
               "--eval_interval", str(EVAL_INTERVAL), "--device", DEVICE])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -405,7 +646,8 @@ def train_phase(data_dir: str, smi: str):
     ips = [v for _, v in _scalars(run_dir, "images_per_sec")]
     # one eval batch per evaluation: after each epoch, at each eval_interval, and the final one
     evals = TRAIN_STEPS + TRAIN_STEPS // EVAL_INTERVAL + 1
-    want = {NAME: 3 * (TRAIN_STEPS + evals), BWD_DKDV: 3 * TRAIN_STEPS, BWD_DQ: 3 * TRAIN_STEPS}
+    want = {k: per_step.get(k, 0) * TRAIN_STEPS + per_eval.get(k, 0) * evals
+            for k in {**per_step, **per_eval}}
     artifacts = ["checkpoint_latest.pt", "optim_checkpoint_latest.pt", "checkpoints_tracker.csv",
                  f"eval_results_step_{TRAIN_STEPS}.json", "config.json",
                  os.path.join("best_checkpoints", "checkpoint_0.pt")]
@@ -413,20 +655,20 @@ def train_phase(data_dir: str, smi: str):
         "steps_logged": len(losses) == TRAIN_STEPS,
         "losses_finite": bool(np.isfinite(losses).all()),
         "last_loss_below_first": losses[-1] < losses[0],
-        "launches_3_per_step_and_forward": {k: counts.get(k, 0) for k in want} == want,
+        "launches_per_step_and_forward": counts == want,
         "artifacts": all(os.path.exists(os.path.join(run_dir, a)) for a in artifacts),
     }
     steady = ips[1:]  # the first step includes kernel library loads and cuDNN planning
     ips_med = statistics.median(steady)
     ms_step = B_TRAIN / ips_med * 1e3
-    print(f"train aadensenet121 {IMAGE}x{IMAGE} bf16 batch {B_TRAIN} lr {TRAIN_LR}: "
+    print(f"train {model} {image}x{image} bf16 batch {B_TRAIN} lr {lr}: "
           f"losses {[round(x, 4) for x in losses]}; launches {counts} (want {want}); "
           f"median over steps 2..{TRAIN_STEPS}: {ms_step:.2f} ms/step, {ips_med:.2f} img/s "
           f"(all steps img/s {[round(x, 2) for x in ips]}); wall {wall_s:.1f} s "
           f"for {TRAIN_STEPS} steps + {evals} evals on {smi}; checks {checks}", flush=True)
     if not all(checks.values()):
         raise AssertionError(f"train checks failed: {checks}")
-    return {"losses": losses, "images_per_sec": ips, "ms_per_step": ms_step,
+    return {"model": model, "losses": losses, "images_per_sec": ips, "ms_per_step": ms_step,
             "images_per_sec_median": ips_med, "counts": counts, "evals": evals,
             "wall_s": wall_s}
 
@@ -527,6 +769,102 @@ def grad_reference_phase(data_dir: str):
             "whole_median": med(whole.values()), "whole_max": whole[worst_w]}
 
 
+def dw_grad_reference_phase(data_dir: str):
+    """f32, TF32 off, deterministic cuDNN: one efficientnet-b4 train step's
+    gradients on the kernel route (B3 / B4) and on the library route, from the
+    same weights, batch and generator seed (so the same DropConnect and
+    Dropout masks). Gated at GRAD_TOL per stride-1 depthwise layer: the
+    layer's real input and upstream gradient, captured in the library
+    route's step, go through the layer on both routes; dx and dw must agree.
+    The whole model's gradients are reported, not gated (as in
+    grad_reference_phase: two f32 routes that round differently move a
+    deep net's gradients by more than their own difference)."""
+    import copy
+
+    from chexpert_tpu_torch import kernels
+    from chexpert_tpu_torch.data import Batches, ChexpertIndex
+    from chexpert_tpu_torch.models import build_model, optimizer_spec
+    from chexpert_tpu_torch.models.efficientnet import DepthwiseConv
+    from chexpert_tpu_torch.ops.depthwise import BWD, FWD
+    from chexpert_tpu_torch.train import TrainState, make_optimizer, train_step
+
+    torch.backends.cudnn.deterministic = True
+    host = next(iter(Batches(ChexpertIndex(data_dir, "train"), 4, image_size=EFF_IMAGE)))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+    sd = build_model(EFF, generator=torch.Generator().manual_seed(0)).state_dict()
+
+    def step(route, capture=None):
+        model = build_model(EFF, dw_impl=route)
+        model.load_state_dict(sd, strict=True)
+        model = model.to(DEVICE)
+        handles = []
+        for mod in model.modules():
+            if capture is not None and isinstance(mod, DepthwiseConv) and mod.stride == 1:
+                def hook(m, inputs, out):
+                    rec = {"module": m, "x": inputs[0].detach().clone()}
+                    out.register_hook(lambda g: rec.__setitem__("g", g.detach().clone()))
+                    capture.append(rec)
+                handles.append(mod.register_forward_hook(hook))
+        opt, sched, _ = make_optimizer(optimizer_spec(EFF), model.parameters(), EFF_TRAIN_LR)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        kernels.reset_launch_counts()
+        train_step(TrainState(model, opt, sched, generator=gen), batch, torch.float32)
+        torch.cuda.synchronize()
+        for h in handles:
+            h.remove()
+        return ({n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                kernels.launch_counts())
+
+    captured = []
+    g_kernel, c_kernel = step("kernel")
+    g_library, c_library = step("library", capture=captured)
+    whole = _max_ratio(g_kernel, g_library)
+
+    layer, layer_counts = {}, []
+    for i, rec in enumerate(captured):
+        res = {}
+        for route in ("library", "kernel"):
+            mod = copy.deepcopy(rec["module"])
+            mod.dw_impl = route
+            x = rec["x"].clone().requires_grad_()
+            kernels.reset_launch_counts()
+            mod(x).backward(rec["g"])
+            torch.cuda.synchronize()
+            if route == "kernel":
+                layer_counts.append(kernels.launch_counts())
+            res[route] = {"x": x.grad, "weight": mod.weight.grad}
+        for n, r in _max_ratio(res["kernel"], res["library"]).items():
+            layer[f"layer{i}.d{n}"] = r
+    med = statistics.median
+    checks = {
+        "kernel_route_launches": c_kernel == {FWD: DW_LAYERS, BWD: DW_LAYERS},
+        "library_route_no_launch": c_library == {},
+        "layers_captured": len(captured) == DW_LAYERS,
+        "layer_launches": layer_counts == [{FWD: 1, BWD: 1}] * DW_LAYERS,
+        "layers_within_tol": max(layer.values()) <= GRAD_TOL,
+    }
+    worst_l = max(layer, key=layer.get)
+    worst_w = max(whole, key=whole.get)
+    # a BatchNorm bias whose output only reaches train-mode BatchNorms (every
+    # project_bn: convs and skips lead only into BN) has an analytic gradient
+    # of 0; its computed one is rounding noise on both routes
+    scale = {n: g.abs().max().item() for n, g in g_library.items()}
+    print(f"depthwise grad reference f32 {EFF} batch 4 {EFF_IMAGE}x{EFF_IMAGE}: per stride-1 "
+          f"depthwise layer (captured input and upstream grad) worst max|dg|/max|g| "
+          f"{layer[worst_l]:.3g} ({worst_l}), median {med(layer.values()):.3g}, tol {GRAD_TOL}; "
+          f"whole model ({len(whole)} tensors) kernel vs library median "
+          f"{med(whole.values()):.3g} max {whole[worst_w]:.3g} ({worst_w}, max |g| "
+          f"{scale[worst_w]:.3g} against a median max |g| {med(scale.values()):.3g}) "
+          f"(reported, not gated); launches step {c_kernel}; checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"depthwise grad reference checks failed: {checks}")
+    return {"layer_worst": layer[worst_l], "layer_worst_tensor": worst_l,
+            "layer_median": med(layer.values()),
+            "whole_median": med(whole.values()), "whole_max": whole[worst_w],
+            "whole_max_tensor": worst_w, "whole_max_tensor_max_abs_grad": scale[worst_w],
+            "median_max_abs_grad": med(scale.values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -539,13 +877,15 @@ def main() -> int:
     from chexpert_tpu_torch.checkpoint import save_model_checkpoint
     from chexpert_tpu_torch.data import make_synthetic_dataset
     from chexpert_tpu_torch.models import build_model
+    from chexpert_tpu_torch.ops.depthwise import BWD as DW_BWD
+    from chexpert_tpu_torch.ops.depthwise import FWD as DW_FWD
     from chexpert_tpu_torch.ops.fused_attention import BWD_DKDV, BWD_DQ, NAME
 
     # f32 references in full f32 (no TF32 in cuDNN convs or matmuls)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     took = kernels.build()
     build_s = time.perf_counter() - t0
     print(f"card: {smi} | torch.cuda: {torch.cuda.get_device_name(0)} | torch "
@@ -554,23 +894,50 @@ def main() -> int:
 
     rows = kernel_phase()
     bwd_rows = bwd_kernel_phase()
+    dw_rows = dw_kernel_phase()
 
-    images = jpegs(N_REQUESTS)
-    model = build_model("aadensenet121", image_size=IMAGE,
-                        generator=torch.Generator().manual_seed(0))
-    with tempfile.TemporaryDirectory(dir=ROOT) as d:
-        ckpt = os.path.join(d, "aadensenet121_seed0.pt")
-        save_model_checkpoint(ckpt, model.state_dict())
-        served, latencies, serve_counts, forwards = slice_phase(ckpt, images)
-        d_f32, d_bf16 = reference_phase(ckpt, images, served)
-    p50 = statistics.median(latencies)
-    print(f"served p50 request latency {p50:.3f} ms over {len(latencies)} requests "
-          f"(aadensenet121 {IMAGE}x{IMAGE} bf16, micro_batch {B}) on {smi}", flush=True)
+    def serve_and_reference(name, image, per_forward, route, calibrate=False):
+        images = jpegs(N_REQUESTS, image)
+        model = build_model(name, image_size=image, generator=torch.Generator().manual_seed(0))
+        if calibrate:
+            calibrate_bn(model.to(DEVICE), images, image)
+        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+            ckpt = os.path.join(d, f"{name}_seed0.pt")
+            save_model_checkpoint(ckpt, model.state_dict())
+            served, latencies, counts, forwards = slice_phase(ckpt, images, name, image,
+                                                              per_forward)
+            d_f32, d_bf16, d_logit = reference_phase(ckpt, images, served, name, image, route,
+                                                     per_forward)
+        p50 = statistics.median(latencies)
+        print(f"served p50 request latency {p50:.3f} ms over {len(latencies)} requests "
+              f"({name} {image}x{image} bf16, micro_batch {B}) on {smi}", flush=True)
+        torch.cuda.empty_cache()
+        return {"counts": counts, "forwards": forwards, "p50_ms": p50, "latencies_ms": latencies,
+                "f32_vs_plain_route_max_abs_dp": d_f32, "f32_vs_plain_route_logit_rel": d_logit,
+                "bf16_vs_f32_plain_route_max_abs_dp": d_bf16}
 
-    with tempfile.TemporaryDirectory(dir=ROOT) as d:
-        make_synthetic_dataset(d, n_train=B_TRAIN, n_valid=B_TRAIN, image_size=IMAGE)
-        train = train_phase(d, smi)
-        grad = grad_reference_phase(d)
+    def train_and_grads(name, image, lr, per_step, per_eval, grads):
+        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+            make_synthetic_dataset(d, n_train=B_TRAIN, n_valid=B_TRAIN, image_size=image)
+            train = train_phase(d, smi, name, image, lr, per_step, per_eval)
+            train["grad_reference"] = grads(d)
+        torch.cuda.empty_cache()
+        return train
+
+    serve = serve_and_reference("aadensenet121", IMAGE, {NAME: 3}, {"attn_impl": "einsum"})
+    train = train_and_grads("aadensenet121", IMAGE, TRAIN_LR,
+                            {NAME: 3, BWD_DKDV: 3, BWD_DQ: 3}, {NAME: 3}, grad_reference_phase)
+    eff_serve = serve_and_reference(EFF, EFF_IMAGE, {DW_FWD: DW_LAYERS}, {"dw_impl": "library"},
+                                    calibrate=True)
+    eff_train = train_and_grads(EFF, EFF_IMAGE, EFF_TRAIN_LR,
+                                {DW_FWD: DW_LAYERS, DW_BWD: DW_LAYERS}, {DW_FWD: DW_LAYERS},
+                                dw_grad_reference_phase)
+    paths = {"serve aadensenet121": serve["counts"], "train aadensenet121": train["counts"],
+             f"serve {EFF}": eff_serve["counts"], f"train {EFF}": eff_train["counts"]}
+
+    def launches(name):  # each path's counts, reset just before it and read just after
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     main_rows = [r for r in rows if r["dtype"] == "bfloat16"]  # the served dtype
     bytes_ms = sum(r["bytes_ms"] for r in main_rows)
@@ -586,9 +953,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "chexpert_tpu_torch/csrc/rel_attention_bwd.cu",
             "replaces": "chexpert_tpu/ops/pallas_attention.py:277",
-            "launches": serve_counts.get(name, 0) + train["counts"].get(name, 0),
-            "launches_by_path": {"serve": serve_counts.get(name, 0),
-                                 "train": train["counts"].get(name, 0)},
+            **launches(name),
             "max_abs_err": max(max(r["abs_err"].values()) for r in train_rows),
             "max_rel_err": max(max(r["rel_err"].values()) for r in train_rows),
             "ms": per_step(f"{key}_ms"), "plain_ms": per_step(f"{key}_plain_ms"),
@@ -600,14 +965,33 @@ def main() -> int:
             "pass": replaces_note, "card": smi,
         }
 
+    dw_main = [r for r in dw_rows if r["dtype"] == "bfloat16"]  # served and trained dtype
+
+    def per_layers(call, key):  # the 28 layers launch each geometry `layers` times
+        return sum(r["layers"] * r[call][key] for r in dw_main)
+
+    def dw_entry(name, call, source, replaces, errs, per, **extra):
+        b_ms, o_ms = per_layers(call, "bytes_ms"), per_layers(call, "ops_ms")
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            **launches(name),
+            "max_abs_err": max(r[call][e] for r in dw_main for e in errs[0]),
+            "max_rel_err": max(r[call][e] for r in dw_main for e in errs[1]),
+            # device time (CUDA graph replay); the eager calls' time beside it
+            "ms": per_layers(call, "ms"), "plain_ms": per_layers(call, "plain_ms"),
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": per_layers(call, "library_ms"),
+            "host_ms": per_layers(call, "host_ms"),
+            "library_host_ms": per_layers(call, "library_host_ms"),
+            "per": per, **extra, "card": smi,
+        }
+
     record = {"kernels": [{
         "name": NAME,
         "route": "cuda",
         "source": "chexpert_tpu_torch/csrc/rel_attention_fwd.cu",
         "replaces": "chexpert_tpu/ops/pallas_attention.py:178",
-        "launches": serve_counts.get(NAME, 0) + train["counts"].get(NAME, 0),
-        "launches_by_path": {"serve": serve_counts.get(NAME, 0),
-                             "train": train["counts"].get(NAME, 0)},
+        **launches(NAME),
         # bf16, at the served grid (bn 32) and the training grid (bn 128)
         "max_abs_err": max([max(r["max_abs_err_out"], r["max_abs_err_lse"]) for r in main_rows]
                            + [max(r["fwd_abs_err"].values()) for r in train_rows]),
@@ -619,21 +1003,38 @@ def main() -> int:
         "library_ms": sum(r["library_ms"] for r in main_rows),
         "per": f"served forward (bn {B * NH}, three geometries, bf16)",
         "train_forward_ms": per_step("fwd_ms"),
-        "forwards": forwards,
+        "forwards": serve["forwards"],
         "calls": rows,
-        "served_p50_ms": p50,
-        "einsum_max_abs_dp_f32": d_f32,
-        "served_bf16_vs_einsum_f32_max_abs_dp": d_bf16,
+        "served_p50_ms": serve["p50_ms"],
+        "einsum_max_abs_dp_f32": serve["f32_vs_plain_route_max_abs_dp"],
+        "served_bf16_vs_einsum_f32_max_abs_dp": serve["bf16_vs_f32_plain_route_max_abs_dp"],
         "card": smi,
     },
         bwd_entry(BWD_DKDV, "dkdv", "pass 1 of B2: dk, dv"),
         bwd_entry(BWD_DQ, "dq", "pass 2 of B2: dqr = [dq ; dRW ; dRH]"),
+        dw_entry(DW_FWD, f"fwd{B}", "chexpert_tpu_torch/csrc/depthwise_fwd.cu",
+                 "chexpert_tpu/ops/pallas_depthwise.py:130", (["abs_err"], ["rel_err"]),
+                 f"served {EFF} forward (batch {B}, {DW_LAYERS} layers, bf16)",
+                 library_is="F.conv2d(groups=C), on whichever backend PyTorch picks "
+                            "(its native _conv_depthwise2d kernel or cuDNN)",
+                 train_forward_ms=per_layers(f"fwd{B_TRAIN}", "ms"),
+                 train_forward_library_ms=per_layers(f"fwd{B_TRAIN}", "library_ms")),
+        dw_entry(DW_BWD, "bwd16", "chexpert_tpu_torch/csrc/depthwise_bwd.cu",
+                 "chexpert_tpu/ops/pallas_depthwise.py:171",
+                 (["abs_err_dx", "abs_err_dw"], ["rel_err_dx", "rel_err_dw"]),
+                 f"{EFF} train step (batch {B_TRAIN}, {DW_LAYERS} layers, bf16; one fused "
+                 "kernel for dx and per-block dw partials, then one torch sum)",
+                 library_is="aten.convolution_backward for dx and dw, on PyTorch's "
+                            "pick of backend"),
     ], "b2_whole": {
         "bound_ms": max(per_step("b2", "bytes_ms"), per_step("b2", "ops_ms")),
         "bound_by": ("bytes" if per_step("b2", "bytes_ms") >= per_step("b2", "ops_ms")
                      else "operations"),
         "ms": per_step("dkdv_ms") + per_step("dq_ms"), "calls": bwd_rows},
-        "train": {**train, "grad_reference": grad, "card": smi}}
+        "depthwise_calls": dw_rows,
+        "serve": serve, "train": {**train, "card": smi},
+        f"serve {EFF}": eff_serve, f"train {EFF}": {**eff_train, "card": smi}}
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Where a served request's time goes in the PyTorch port, on one card.
 
-    python3 scripts/profile_torch_serve.py
+    python3 scripts/profile_torch_serve.py [--model aadensenet121]
 
-Builds aadensenet121 at 320x320 with seeded random weights, serves it with
-chexpert_tpu_torch.cli.serve (bf16) and measures, per request: the HTTP
-round trip, Engine.predict alone, its preprocess and its forward (host clock
-around work that ends in a synchronize; medians). Then profiles one forward
-with torch.profiler and prints the device time by kernel name, the device
-busy share of the forward's wall time, and the relative-position attention
-kernel's share, then the profiler's own table. Needs a CUDA device.
+Builds ``--model`` (aadensenet121 at 320x320 by default; efficientnet-b* at
+its own resolution in SCALING_PARAMS) with seeded random weights, serves it with chexpert_tpu_torch.cli.serve (bf16) and
+measures, per request: the HTTP round trip, Engine.predict alone, its
+preprocess and its forward (host clock around work that ends in a
+synchronize; medians). Then profiles the forward with torch.profiler and
+prints the device time by kernel name, the device busy share of the
+forward's wall time, and the share of the port's forward kernels (B1
+rel_attention_fwd, B3 depthwise_fwd), then the profiler's own table. Needs
+a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import io
 import json
 import os
@@ -46,6 +49,9 @@ MICRO_BATCH, REQUESTS = 4, 10  # as chip_smoke.py serves
 
 
 def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--model", default="aadensenet121")
+    args = p.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
@@ -54,18 +60,23 @@ def main() -> int:
     from chexpert_tpu_torch.checkpoint import save_model_checkpoint
     from chexpert_tpu_torch.cli.serve import Engine, build_parser, make_handler
     from chexpert_tpu_torch.models import build_model
+    from chexpert_tpu_torch.models.efficientnet import SCALING_PARAMS
     from http.server import ThreadingHTTPServer
+
+    name = args.model
+    size = SCALING_PARAMS[name][2] if name in SCALING_PARAMS else 320
 
     rng = np.random.RandomState(0)
     buf = io.BytesIO()
-    Image.fromarray(rng.randint(0, 255, (336, 344), dtype=np.uint8), "L").save(buf, "JPEG")
+    Image.fromarray(rng.randint(0, 255, (size + 16, size + 24), dtype=np.uint8), "L").save(
+        buf, "JPEG")
     jpeg = buf.getvalue()
-    model = build_model("aadensenet121", image_size=320, generator=torch.Generator().manual_seed(0))
+    model = build_model(name, image_size=size, generator=torch.Generator().manual_seed(0))
     with tempfile.TemporaryDirectory(dir=ROOT) as d:
         ckpt = os.path.join(d, "w.pt")
         save_model_checkpoint(ckpt, model.state_dict())
         engine = Engine(build_parser().parse_args([
-            "--restore_path", ckpt, "--model", "aadensenet121", "--image_size", "320",
+            "--restore_path", ckpt, "--model", name, "--image_size", str(size),
             "--device", "cuda", "--compute_dtype", "bfloat16",
             "--micro_batch", str(MICRO_BATCH)]))
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine))
@@ -78,7 +89,7 @@ def main() -> int:
         with urllib.request.urlopen(req, timeout=300) as r:
             json.loads(r.read())
 
-    batch = np.zeros((MICRO_BATCH, 320, 320, 3), np.float32)
+    batch = np.zeros((MICRO_BATCH, size, size, 3), np.float32)
     batch[0] = engine.preprocess(jpeg)
     try:
         res = {
@@ -112,9 +123,10 @@ def main() -> int:
         print("profile_torch_serve: the profiler recorded no device time", file=sys.stderr)
         return 1
     busy_ms = sum(t for t, _, _ in dev)
-    attn_ms = sum(t for t, _, k in dev if "rel_attention_fwd" in k)
-    res.update({"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                "device_busy_share": busy_ms / wall_ms, "rel_attention_fwd_ms": attn_ms,
+    res.update({"model": name, "image_size": size, "profiled_wall_ms": wall_ms,
+                "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+                **{f"{kernel}_ms": sum(t for t, _, k in dev if kernel in k)
+                   for kernel in ("rel_attention_fwd", "depthwise_fwd")},
                 "device_kernels": sum(c for _, c, _ in dev)})
     print("device time by kernel (ms, launches, name):")
     for t, c, k in dev[:15]:

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Where a training step's time goes in the PyTorch port, on one card.
 
-    python3 scripts/profile_torch_train.py [--batch 16] [--steps 10]
+    python3 scripts/profile_torch_train.py [--model aadensenet121] [--batch 16]
+        [--steps 10]
 
-Builds aadensenet121 at 320x320 with seeded random weights and its
-optimizer (SGD-Nesterov), puts one whitened batch on the card, and times
-``chexpert_tpu_torch.train.train_step`` under bf16 autocast: steady-state
-ms/step and images/s over ``--steps`` steps after 3 warm-up steps (host
-clock around work that ends in a synchronize), and peak device memory.
-Then profiles 3 steps with torch.profiler and prints the device time by
-kernel name, the device busy share of the steps' wall time, and the time
-and launches of B1 (rel_attention_fwd) and B2 (rel_attention_bwd_*), then
-the profiler's own table. The input pipeline is not in the timed steps.
-Needs a CUDA device.
+Builds ``--model`` (aadensenet121 at 320x320 by default; efficientnet-b*
+at its own resolution in SCALING_PARAMS) with seeded random weights and
+its optimizer (SGD-Nesterov at lr 0.01 for aadensenet121, RMSprop +
+per-step exponential decay at lr 3e-4 for EfficientNet: the learning
+rates chip_smoke.py trains them at), puts one whitened batch on
+the card, and times ``chexpert_tpu_torch.train.train_step`` under bf16
+autocast: steady-state ms/step and images/s over ``--steps`` steps after 3
+warm-up steps (host clock around work that ends in a synchronize), and
+peak device memory. Then profiles 3 steps with torch.profiler and prints
+the device time by kernel name, the device busy share of the steps' wall
+time, and the time and launches of each of the port's kernels (B1
+rel_attention_fwd, B2 rel_attention_bwd_*, B3 depthwise_fwd, B4
+depthwise_bwd), then the profiler's own table. The input pipeline is not
+in the timed steps. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ sys.path.insert(0, str(ROOT))
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--model", default="aadensenet121")
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--steps", type=int, default=10)
     args = p.parse_args()
@@ -41,16 +47,21 @@ def main() -> int:
         return 1
     from chexpert_tpu_torch import kernels
     from chexpert_tpu_torch.models import build_model, optimizer_spec
+    from chexpert_tpu_torch.models.efficientnet import SCALING_PARAMS
     from chexpert_tpu_torch.train import TrainState, make_optimizer, train_step
 
+    effnet = args.model in SCALING_PARAMS
+    size = SCALING_PARAMS[args.model][2] if effnet else 320
+    lr = 3e-4 if effnet else 0.01
     kernels.build()
-    model = build_model("aadensenet121", image_size=320,
+    model = build_model(args.model, image_size=size,
                         generator=torch.Generator().manual_seed(0)).to("cuda")
-    opt, sched, _ = make_optimizer(optimizer_spec("aadensenet121"), model.parameters(), 0.01)
-    state = TrainState(model, opt, sched)
+    opt, sched, _ = make_optimizer(optimizer_spec(args.model), model.parameters(), lr)
+    state = TrainState(model, opt, sched,
+                       generator=torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.RandomState(0)
     batch = {
-        "image": torch.from_numpy(rng.randn(args.batch, 320, 320, 1).astype(np.float32)),
+        "image": torch.from_numpy(rng.randn(args.batch, size, size, 1).astype(np.float32)),
         "label": torch.from_numpy((rng.rand(args.batch, 5) < 0.4).astype(np.float32)),
         "label_mask": torch.ones(args.batch, 5),
         "mask": torch.ones(args.batch),
@@ -69,7 +80,8 @@ def main() -> int:
         loss = step()
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) * 1e3 / args.steps
-    res = {"batch": args.batch, "ms_per_step": ms_step,
+    res = {"model": args.model, "image_size": size, "batch": args.batch, "lr": lr,
+           "ms_per_step": ms_step,
            "images_per_sec": args.batch / ms_step * 1e3, "loss": float(loss),
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
@@ -85,8 +97,11 @@ def main() -> int:
     avgs = prof.key_averages()
     attr = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
             else "self_cuda_time_total")
+    # device kernels and copies; a user annotation's range on the device
+    # timeline (the optimizer's step) would count its kernels twice
     dev = sorted(((getattr(e, attr) / 1e3 / n, e.count // n, e.key) for e in avgs
-                  if getattr(e, attr) > 0 and e.device_type == torch.autograd.DeviceType.CUDA),
+                  if getattr(e, attr) > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
                  reverse=True)
     if not dev:
         print("profile_torch_train: the profiler recorded no device time", file=sys.stderr)
@@ -100,9 +115,9 @@ def main() -> int:
     res.update({"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "device_busy_share": busy_ms / wall_ms,
                 "device_kernels": sum(c for _, c, _ in dev),
-                "rel_attention_fwd": kernel("rel_attention_fwd"),
-                "rel_attention_bwd_dkdv": kernel("rel_attention_bwd_dkdv"),
-                "rel_attention_bwd_dq": kernel("rel_attention_bwd_dq")})
+                **{name: kernel(name) for name in (
+                    "rel_attention_fwd", "rel_attention_bwd_dkdv", "rel_attention_bwd_dq",
+                    "depthwise_fwd", "depthwise_bwd")}})
     print("device time per step by kernel (ms, launches, name):")
     for t, c, k in dev[:25]:
         print(f"  {t:9.3f} {c:5d}  {k[:110]}")

@@ -8,13 +8,26 @@ Marked ``cuda``; skips on a host without a CUDA device. On the card host
 Covers geometries beyond the served and trained ones: ragged key/query
 tails (HW not a multiple of the 64/128-row tiles), W != H, every dvh the
 kernels take, and more heads than fit one grid row of blocks. B1 (forward)
-and B2 (backward, two passes) run at the same geometries."""
+and B2 (backward, two passes) run at the same geometries. B3 / B4 (the
+depthwise conv forward / backward) run at the ten stride-1 geometries of
+efficientnet-b4 at 380x380 and at ragged ones (odd H and W, H != W, C not a
+multiple of 32, maps smaller than one block's items, every k the kernels
+are instantiated for)."""
 
 import pytest
 import torch
 
 from chexpert_tpu_torch import kernels
 from chexpert_tpu_torch.ops.attention import pack_query
+from chexpert_tpu_torch.ops.depthwise import BWD as DW_BWD
+from chexpert_tpu_torch.ops.depthwise import FWD as DW_FWD
+from chexpert_tpu_torch.ops.depthwise import (
+    depthwise_bwd,
+    depthwise_bwd_plain,
+    depthwise_conv2d,
+    depthwise_fwd,
+    depthwise_fwd_plain,
+)
 from chexpert_tpu_torch.ops.fused_attention import (
     BWD_DKDV,
     BWD_DQ,
@@ -38,6 +51,19 @@ GEOMETRIES = [
     (1, 1, 1, 1, 1), (1, 2, 1, 3, 2), (2, 2, 6, 5, 1), (2, 2, 6, 5, 8), (1, 3, 7, 11, 4),
     (2, 8, 10, 10, 6), (1, 8, 20, 20, 3), (1, 8, 40, 40, 1), (1, 2, 33, 17, 5),
     (1, 1, 64, 64, 2),
+]
+
+# B3 / B4, max |kernel - plain| / max |plain| per output: y and dx, f32 the
+# same f32 sums in another order, bf16 one output rounding (2^-8 of the
+# largest value); dw, an f32 sum over up to B*H*W terms in both dtypes
+DW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+DW_W_TOL = 1e-4
+DW_GEOMETRIES = [  # (B, H, W, C, k)
+    (2, 190, 190, 48, 3), (2, 190, 190, 24, 3), (2, 95, 95, 192, 3), (2, 48, 48, 336, 5),
+    (2, 24, 24, 672, 3), (2, 24, 24, 672, 5), (2, 24, 24, 960, 5), (2, 12, 12, 1632, 5),
+    (2, 12, 12, 1632, 3), (2, 12, 12, 2688, 3),
+    (1, 7, 9, 37, 3), (3, 5, 3, 33, 5), (1, 1, 1, 5, 3), (2, 13, 11, 70, 7), (1, 6, 6, 3, 9),
+    (2, 10, 10, 16, 1),
 ]
 
 
@@ -115,3 +141,69 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         rel_attention_fwd(qr.transpose(0, 1).contiguous().transpose(0, 1), k, v, 6, 5, 20)
     with pytest.raises(ValueError, match="dvh"):
         rel_attention_fwd(qr, k, torch.zeros(2, 30, 9, device="cuda"), 6, 5, 20)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _dw_inputs(B, H, W, C, k, dtype):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(B, C, H, W, generator=g).to("cuda", dtype)
+    w = (torch.randn(C, 1, k, k, generator=g) * 0.2).to("cuda")
+    gy = torch.randn(B, C, H, W, generator=g).to("cuda", dtype)
+    return x, w, gy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,W,C,k", DW_GEOMETRIES)
+def test_depthwise_kernels_match_plain(cuda, B, H, W, C, k, dtype):
+    x, w, gy = _dw_inputs(B, H, W, C, k, dtype)
+    kernels.reset_launch_counts()
+    y = depthwise_fwd(x, w)
+    dx, dw = depthwise_bwd(x, w, gy)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {DW_FWD: 1, DW_BWD: 1}
+    y_p = depthwise_fwd_plain(x, w)
+    dx_p, dw_p = depthwise_bwd_plain(x, w, gy)
+    assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32 and dw.shape == w.shape
+    assert _rel(y, y_p) <= DW_TOL[dtype], _rel(y, y_p)
+    assert _rel(dx, dx_p) <= DW_TOL[dtype], _rel(dx, dx_p)
+    assert _rel(dw, dw_p) <= DW_W_TOL, _rel(dw, dw_p)
+
+
+def test_depthwise_autograd_launches_both_kernels(cuda):
+    """depthwise_conv2d under bf16 autocast: B3 forward, B4 backward, the
+    weight gradient f32; the library route launches neither; the bare
+    forward wrapper refuses grad-requiring operands."""
+    x, w, _ = _dw_inputs(2, 24, 24, 64, 5, torch.float32)
+    x.requires_grad_()
+    w.requires_grad_()
+    with pytest.raises(RuntimeError, match="DepthwiseConv2d"):
+        depthwise_fwd(x, w)
+    kernels.reset_launch_counts()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = depthwise_conv2d(x, w, 1)
+    assert y.dtype == torch.bfloat16
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {DW_FWD: 1, DW_BWD: 1}
+    assert w.grad.dtype == torch.float32 and torch.isfinite(w.grad).all()
+    assert x.grad.dtype == torch.float32 and torch.isfinite(x.grad).all()
+    kernels.reset_launch_counts()
+    depthwise_conv2d(x, w, 1, impl="library").sum().backward()
+    depthwise_conv2d(x, w, 2).sum().backward()
+    assert kernels.launch_counts() == {}
+
+
+def test_depthwise_kernels_reject_what_they_do_not_take(cuda):
+    x, w, gy = _dw_inputs(1, 8, 8, 4, 3, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        depthwise_fwd(x.half(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        depthwise_fwd(x.to(memory_format=torch.channels_last), w)
+    with pytest.raises(ValueError, match="instantiated"):
+        depthwise_fwd(x, torch.zeros(4, 1, 11, 11, device="cuda"))
+    with pytest.raises(ValueError, match="must match"):
+        depthwise_bwd(x, w, gy.bfloat16())
