@@ -1,6 +1,7 @@
 from chexpert_tpu_torch.models.attn import AAConv2d, attn_dims
 from chexpert_tpu_torch.models.convert import normalize_state_dict, state_dict_from_jax
 from chexpert_tpu_torch.models.densenet import AttnParams, DenseNet
+from chexpert_tpu_torch.models.resnet import ResNet
 from chexpert_tpu_torch.models.registry import (
     N_CLASSES,
     OptimizerSpec,
@@ -15,6 +16,7 @@ __all__ = [
     "state_dict_from_jax",
     "AttnParams",
     "DenseNet",
+    "ResNet",
     "N_CLASSES",
     "OptimizerSpec",
     "build_model",

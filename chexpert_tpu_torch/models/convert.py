@@ -6,17 +6,21 @@
     Dense (in, out) -> (out, in), BN scale/bias/mean/var ->
     weight/bias/running_mean/running_var (plus the ``num_batches_tracked``
     buffers strict loading needs), ``key_rel_*`` unchanged; the Flax path
-    joined by dots, with the DenseNet family's body under ``features.``.
+    joined by dots, with the DenseNet family's body under ``features.`` and
+    the ResNet family's ``downsample_conv`` / ``downsample_bn`` as
+    torchvision's ``downsample.0`` / ``downsample.1``.
   * ``normalize_state_dict(sd, arch)``: a torchvision-format state dict,
     e.g. one written by the JAX package's
     ``models/pretrained.py::export_torch_state_dict`` -> the port's keys. That
     exporter writes no ``features.`` prefix for ``aadensenet*`` archs and no
     ``num_batches_tracked``; old torchvision zoo files use ``norm.1`` /
     ``conv.2`` style dense-layer keys. EfficientNet keys are the Flax paths
-    (``blocks_3_1.depthwise_conv.weight``) in both and stay as they are.
+    (``blocks_3_1.depthwise_conv.weight``) in both and stay as they are,
+    and so do the ResNet family's, which the exporter already writes as
+    torchvision names them.
 
-``arch`` is the registry name; only the DenseNet family (a name containing
-``densenet``) is renamed.
+``arch`` is the registry name; ``normalize_state_dict`` renames only the
+DenseNet family (a name containing ``densenet``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import numpy as np
 import torch
 
 _HEADS = ("classifier",)
+_RESNET_DOWNSAMPLE = {"downsample_conv": ("downsample", "0"),
+                      "downsample_bn": ("downsample", "1")}
 _LEGACY = re.compile(r"^(.*denselayer\d+\.(?:norm|relu|conv))\.([12])\.(.*)$")
 
 
@@ -42,7 +48,10 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, Any]:
 
 
 def _key(path: tuple, leaf: str) -> str:
-    return ".".join(path + (leaf,))
+    parts = []
+    for name in path:
+        parts += _RESNET_DOWNSAMPLE.get(name, (name,))
+    return ".".join((*parts, leaf))
 
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping,

@@ -22,7 +22,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from chexpert_tpu_torch.models.attn import AAConv2d, attn_dims, check_attn_impl
+from chexpert_tpu_torch.models.attn import (
+    AAConv2d,
+    attn_dims,
+    check_attn_impl,
+    check_attn_layout,
+)
 from chexpert_tpu_torch.models.common import (
     InstanceNorm,
     conv,
@@ -67,7 +72,8 @@ class Transition(nn.Module):
     """Standard (attn None) or attention-augmented transition."""
 
     def __init__(self, in_features: int, out_features: int, attn: Optional[AttnParams],
-                 attn_map_dims: Optional[Tuple[int, int]], attn_impl: str):
+                 attn_map_dims: Optional[Tuple[int, int]], attn_impl: str,
+                 attn_layout: str = "bn"):
         super().__init__()
         self.aa = attn is not None
         if not self.aa:
@@ -77,7 +83,8 @@ class Transition(nn.Module):
         dk, dv = attn_dims(attn.k, attn.v, attn.nh, out_features)
         self.norm = InstanceNorm()
         self.conv = AAConv2d(in_features, out_features, 3, 2, dk, dv, attn.nh,
-                             attn.relative, attn_map_dims, attn_impl=attn_impl)
+                             attn.relative, attn_map_dims, attn_impl=attn_impl,
+                             attn_layout=attn_layout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(F.relu(self.norm(x)))
@@ -87,9 +94,11 @@ class Transition(nn.Module):
 class DenseNet(nn.Module):
     def __init__(self, growth_rate: int = 32, block_config: Sequence[int] = (6, 12, 24, 16),
                  num_init_features: int = 64, bn_size: int = 4, num_classes: int = 5,
-                 attn: Optional[AttnParams] = None, attn_impl: str = "pallas"):
+                 attn: Optional[AttnParams] = None, attn_impl: str = "pallas",
+                 attn_layout: str = "bn"):
         super().__init__()
         check_attn_impl(attn_impl)
+        check_attn_layout(attn_layout)
         self.imagenet_stem = len(block_config) == 4
         dims = None if attn is None else tuple(attn.input_dims)
         f = nn.Module()
@@ -110,7 +119,8 @@ class DenseNet(nn.Module):
                 # the AA transition attends on the post-stride map: dims // 2
                 tdims = None if dims is None else (dims[0] // 2, dims[1] // 2)
                 setattr(f, f"transition{i + 1}",
-                        Transition(num_features, num_features // 2, attn, tdims, attn_impl))
+                        Transition(num_features, num_features // 2, attn, tdims, attn_impl,
+                                   attn_layout))
                 num_features //= 2
             if dims is not None:
                 dims = (dims[0] // 2, dims[1] // 2)

@@ -63,7 +63,33 @@ Run from the root of a checkout. Phases, each failing the run on error:
    layer, on its captured input and upstream gradient: dx and dw within
    max |dg| / max |g| <= 1e-3. The whole model's gradients are reported.
 
-The phases take about 80 s on an H100, the build included (the run prints
+11. kernel B5/B6: the heads-in-lanes attention forward kernel and the
+   backward's three passes (dk/dv, dq with the dRC rows, dRw/dRh) at the
+   three AA geometries of 320x320 (40x40 dvh 1, 20x20 dvh 3, 10x10 dvh 6; 8
+   heads, dkh 20, slot 48) over the packed operand, in f32 and bf16: B5 at
+   batch 4 and 16, B6 at 16, against their plain versions (out, lse; every
+   lane of dP, the pad lanes exactly 0; dRw, dRh); device time of each
+   beside its plain version, its bound, the library call
+   (scaled_dot_product_attention with the bias materialized, the head-split
+   and head-merge copies from and to the packed layout included) and B1 /
+   B2 at the same geometry and batch.
+12. serve aaresnet152 (Bottleneck (3, 8, 36, 3), 47 AA convs) at 320x320,
+   bf16, micro-batch 4, over HTTP as in phase 4, once under
+   CHEXPERT_ATTN_LAYOUT=hil (47 B5 launches per forward and no other
+   kernel) and once under bn (47 B1 and no other); each layout's f32 kernel
+   route against the f32 einsum route as in phase 4. The seeded weights are
+   made servable first: BatchNorm statistics from the requests
+   (calibrate_bn) and damped residual branches (damp_residuals).
+13. train aaresnet152 through cli.chexpert.main as in phase 5, 320x320,
+   bf16, batch 16, Adam at lr 1e-4 (a CPU rehearsal at 64x64 fell at this
+   lr), layout hil: finite, falling loss, 47 B5 + 47 of each B6 pass per
+   train step and 47 B5 per eval forward, nothing else; prints ms/step and
+   images/s. Then three steps under bn: 47 B1 + 47 of each B2 pass per step.
+14. aaresnet152 grad reference: as phase 6 with the hil route against the
+   einsum route, over all 47 AA convs on their captured inputs and upstream
+   gradients: every gradient within 1e-3; whole model reported.
+
+The phases take about 110 s on an H100, the build included (the run prints
 its own time). The last lines are one {"kernels": [...]} JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is available or the port is not importable.
@@ -71,6 +97,7 @@ CUDA device is available or the port is not importable.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import io
 import json
@@ -132,11 +159,36 @@ DW_LAYERS = 28
 DW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 DW_W_TOL = 1e-4
 
+AA_RES = "aaresnet152"                     # Bottleneck (3, 8, 36, 3), AA convs on layers 2-4
+# its AA convs per (H, W, dvh) of GEOMETRIES at 320x320: the blocks of layers 2 / 3 / 4
+AA_LAYERS = {(40, 40, 1): 8, (20, 20, 3): 36, (10, 10, 6): 3}
+N_AA = 47
+AA_TRAIN_LR = 1e-4                         # Adam: a CPU rehearsal at 64x64 fell 3.85 -> 2.45 in 5 steps
+AA_REQUESTS = 4
+AA_RESIDUAL_GAMMA = 0.25                   # the served model's residual scale: see damp_residuals
+AA_TRAIN_STEPS_BN = 3                      # the bn layout's train run only gates its launches
+LAYOUT_ENV = "CHEXPERT_ATTN_LAYOUT"        # read once by build_model, as the JAX package names it
+
 
 def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+@contextlib.contextmanager
+def attn_layout_env(layout):
+    """Set the attention layout switch that the entry points read (None:
+    leave it unset, the default layout) and restore it afterwards."""
+    old = os.environ.pop(LAYOUT_ENV, None)
+    if layout is not None:
+        os.environ[LAYOUT_ENV] = layout
+    try:
+        yield
+    finally:
+        os.environ.pop(LAYOUT_ENV, None)
+        if old is not None:
+            os.environ[LAYOUT_ENV] = old
 
 
 def time_ms(fn, reps: int = 15, inner: int = 5) -> float:
@@ -468,6 +520,203 @@ def dw_kernel_phase():
     return rows
 
 
+def hil_kernel_phase():
+    """B5 at the serving (4) and training (16) batch and B6's three passes at
+    the training batch, at the three AA geometries of 320x320 (8 heads, dkh
+    20, the model's slot stride), in f32 and bf16, against their plain
+    versions: out and lse; every lane of dP (pad lanes exactly 0), dRw, dRh.
+    Device time (CUDA-graph replay) of each kernel, its plain version and the
+    library call: scaled_dot_product_attention with the relative bias
+    materialized beforehand, the head-split copies of q, k, v out of P0 and
+    the head-merge copy of its output included, since the layout exists to
+    avoid those; its backward by events around eager calls. B1 and B2's two
+    passes at the same geometry and batch, device time, beside them."""
+    from chexpert_tpu_torch.ops.fused_attention import (
+        attention_delta,
+        key_positions,
+        rel_attention_bwd_dkdv,
+        rel_attention_bwd_dq,
+        rel_attention_fwd,
+    )
+    from chexpert_tpu_torch.ops.hil_attention import (
+        hil_attention_bwd,
+        hil_attention_bwd_dkdv,
+        hil_attention_bwd_dkdv_plain,
+        hil_attention_bwd_dq,
+        hil_attention_bwd_dq_plain,
+        hil_attention_bwd_drel,
+        hil_attention_bwd_drel_plain,
+        hil_attention_bwd_plain,
+        hil_attention_delta,
+        hil_attention_fwd,
+        hil_attention_fwd_plain,
+        hil_rel_operand,
+        hil_slot,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    slow = {"reps": 5, "inner": 3}  # the plain versions and the backward at 40x40
+    rows = []
+    for H, W, dvh in GEOMETRIES:
+        hw, slot = H * W, hil_slot(DKH, dvh)
+        geo = (H, W, DKH, dvh, slot)
+        col, krow = key_positions(hw, W, DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            es = torch.finfo(dtype).bits // 8
+            q = torch.randn(B_TRAIN, hw, NH, DKH, generator=gen) * DKH ** -0.5
+            k = torch.randn(B_TRAIN, hw, NH, DKH, generator=gen)
+            v = torch.randn(B_TRAIN, hw, NH, dvh, generator=gen)
+            pad = torch.zeros(B_TRAIN, hw, NH, slot - 2 * DKH - dvh)
+            P16 = torch.cat([q, k, v, pad], -1).reshape(B_TRAIN, hw, NH * slot).to(DEVICE, dtype)
+            rel_w = (torch.randn(DKH, 2 * W - 1, generator=gen) + DKH ** -0.5).to(DEVICE)
+            rel_h = (torch.randn(DKH, 2 * H - 1, generator=gen) + DKH ** -0.5).to(DEVICE)
+            Rw = hil_rel_operand(rel_w, W).contiguous()
+            Rh = hil_rel_operand(rel_h, H).contiguous()
+            rel_bytes = (Rw.numel() + Rh.numel()) * 4
+            row = {"geometry": f"{H}x{W}", "H": H, "W": W, "hw": hw, "nh": NH, "dkh": DKH,
+                   "dvh": dvh, "slot": slot, "layers": AA_LAYERS[(H, W, dvh)],
+                   "dtype": str(dtype).replace("torch.", ""), "tol": TOL[dtype],
+                   "bwd_tol": BWD_TOL[dtype]}
+
+            def heads(P):  # head-major views (batch, nh, hw, .) of the packed operand
+                Pv = P.view(P.shape[0], hw, NH, slot).permute(0, 2, 1, 3)
+                return Pv[..., :DKH], Pv[..., DKH:2 * DKH], Pv[..., 2 * DKH:2 * DKH + dvh]
+
+            def library_fwd(P, bias):
+                qh, kh, vh = (t.contiguous() for t in heads(P))  # the head-split copies
+                o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=1.0)
+                return o.permute(0, 2, 1, 3).reshape(P.shape[0], hw, NH * dvh)  # the merge copy
+
+            for batch in (B, B_TRAIN):
+                P = P16[:batch].contiguous()
+                out, lse = hil_attention_fwd(P, Rw, Rh, *geo)
+                torch.cuda.synchronize()
+                out_p, lse_p = hil_attention_fwd_plain(P, Rw, Rh, *geo)
+                q2 = heads(P)[0].float().reshape(batch, NH, H, W, DKH)
+                rcw = torch.einsum("bnhwd,wdm->bnhwm", q2, Rw.view(W, DKH, W))
+                rch = torch.einsum("bnhwd,hdm->bnhwm", q2, Rh.view(H, DKH, H))
+                bias = (rcw.reshape(batch, NH, hw, W)[..., col]
+                        + rch.reshape(batch, NH, hw, H)[..., krow]).to(dtype).contiguous()
+                del q2, rcw, rch
+                tok = batch * NH * hw
+                row[f"fwd{batch}"] = {
+                    "abs_err_out": (out.float() - out_p.float()).abs().max().item(),
+                    "abs_err_lse": (lse - lse_p).abs().max().item(),
+                    "finite": bool(torch.isfinite(out.float()).all()),
+                    "library_abs_err": (library_fwd(P, bias).float()
+                                        - out_p.float()).abs().max().item(),
+                    "ms": device_ms(lambda: hil_attention_fwd(P, Rw, Rh, *geo)),
+                    "plain_ms": device_ms(lambda: hil_attention_fwd_plain(P, Rw, Rh, *geo),
+                                          **slow),
+                    "library_ms": device_ms(lambda: library_fwd(P, bias)),
+                    "host_ms": time_ms(lambda: hil_attention_fwd(P, Rw, Rh, *geo)),
+                    # P, Rw, Rh read and out, lse written once; per (query, key) S 2*dkh+2,
+                    # max/exp/sum 3, p.v 2*dvh; per RC entry 2*dkh
+                    **bound(P.numel() * es + rel_bytes + out.numel() * es + lse.numel() * 4,
+                            tok * hw * (2 * DKH + 2 + 3 + 2 * dvh) + tok * (W + H) * 2 * DKH,
+                            dtype),
+                }
+                del out_p, lse_p
+            # batch == B_TRAIN from here on: P, out, lse, bias are the training batch's
+            dout = torch.randn(out.shape, generator=gen).to(DEVICE, dtype)
+            got = hil_attention_bwd(P, Rw, Rh, out, lse, dout, *geo)
+            torch.cuda.synchronize()
+            want = hil_attention_bwd_plain(P, Rw, Rh, out, lse, dout, *geo)
+            errs, rel = {}, {}
+            for name, g, w in zip(("dP", "dRw", "dRh"), got, want):
+                errs[name] = (g.float() - w.float()).abs().max().item()
+                rel[name] = errs[name] / max(1.0, w.float().abs().max().item())
+            pads = got[0].view(B_TRAIN, hw, NH, slot)[..., 2 * DKH + dvh:]
+            pads_zero = int(torch.count_nonzero(pads)) == 0
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            del got, want
+
+            delta = hil_attention_delta(out, dout, NH)
+            dP = torch.empty_like(P)
+            args = (P, Rw, Rh, dout, lse, delta, dP, *geo)
+            pargs = (P, Rw, Rh, dout, lse, delta, *geo)
+            drc = hil_attention_bwd_dq(*args)
+            leaves = [P.detach().clone().requires_grad_(), bias.detach().clone().requires_grad_()]
+            lib_out = library_fwd(*leaves)
+            pairs = tok * hw
+            ins = (P.numel() + dout.numel()) * es + 2 * tok * 4 + rel_bytes
+            row["dkdv"] = {
+                "ms": device_ms(lambda: hil_attention_bwd_dkdv(*args), **slow),
+                "plain_ms": device_ms(lambda: hil_attention_bwd_dkdv_plain(*pargs), **slow),
+                # writes the k, v and pad lanes of dP; per pair S 2*dkh+2, exp 2, dp and dv
+                # 4*dvh, ds 2, dk 2*dkh; the RC rows 2*dkh per entry
+                **bound(ins + P.numel() * es * (slot - DKH) / slot,
+                        pairs * (4 * DKH + 4 * dvh + 6) + tok * (W + H) * 2 * DKH, dtype)}
+            row["dq"] = {
+                "ms": device_ms(lambda: hil_attention_bwd_dq(*args), **slow),
+                "plain_ms": device_ms(lambda: hil_attention_bwd_dq_plain(*pargs), **slow),
+                # writes the q lanes of dP and the f32 dRC rows; per pair S 2*dkh+2, exp 2,
+                # dp 2*dvh, ds 2, dq 2*dkh, the two bins 2; RC and dq's relative part
+                **bound(ins + P.numel() * es * DKH / slot + tok * (W + H) * 4,
+                        pairs * (4 * DKH + 2 * dvh + 8) + tok * (W + H) * 4 * DKH, dtype)}
+            row["drel"] = {
+                "ms": device_ms(lambda: hil_attention_bwd_drel(P, drc, H, W, DKH, slot)),
+                "plain_ms": device_ms(
+                    lambda: hil_attention_bwd_drel_plain(P, drc, H, W, DKH, slot), **slow),
+                # reads the q lanes and the dRC rows, writes dRw and dRh
+                **bound(P.numel() * es * DKH / slot + tok * (W + H) * 4 + rel_bytes,
+                        tok * (W + H) * 2 * DKH, dtype)}
+            row["bwd16"] = {
+                "abs_err": errs, "rel_err": rel, "pads_zero": pads_zero, "finite": finite,
+                "ms": row["dkdv"]["ms"] + row["dq"]["ms"] + row["drel"]["ms"],
+                "host_ms": time_ms(lambda: hil_attention_bwd(P, Rw, Rh, out, lse, dout, *geo),
+                                   reps=5, inner=3),
+                "library_ms": time_ms(
+                    lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True),
+                    reps=5, inner=3),
+                # the whole backward as one function of (P, Rw, Rh, out, lse, dout)
+                **bound(2 * P.numel() * es + 2 * out.numel() * es + tok * 4 + 2 * rel_bytes,
+                        pairs * (6 * DKH + 4 * dvh + 8) + tok * (W + H) * 6 * DKH, dtype)}
+            del leaves, lib_out, bias, drc, dP, delta, P, out, lse, dout
+
+            # the head-major kernels at the same geometry and batch, device time
+            qr, kk, vv = kernel_inputs(H, W, dvh, dtype, gen, batch=B_TRAIN)
+            o1, l1 = rel_attention_fwd(qr, kk, vv, H, W, DKH)
+            d1 = torch.randn(o1.shape, generator=gen).to(DEVICE, dtype)
+            a1 = (qr, kk, vv, d1, l1, attention_delta(o1, d1), H, W, DKH)
+            n4 = B * NH
+            q4, k4, v4 = (t[:n4].contiguous() for t in (qr, kk, vv))
+            row["bn_layout"] = {
+                f"b1_ms_batch{B}": device_ms(lambda: rel_attention_fwd(q4, k4, v4, H, W, DKH)),
+                f"b1_ms_batch{B_TRAIN}": device_ms(
+                    lambda: rel_attention_fwd(qr, kk, vv, H, W, DKH)),
+                "b2_dkdv_ms": device_ms(lambda: rel_attention_bwd_dkdv(*a1), **slow),
+                "b2_dq_ms": device_ms(lambda: rel_attention_bwd_dq(*a1), **slow)}
+            del qr, kk, vv, o1, l1, d1, a1, q4, k4, v4
+            torch.cuda.empty_cache()
+
+            f4, f16, bw, bn_l = row[f"fwd{B}"], row[f"fwd{B_TRAIN}"], row["bwd16"], row["bn_layout"]
+            row["ok"] = (all(f["finite"] and max(f["abs_err_out"], f["abs_err_lse"]) <= TOL[dtype]
+                             for f in (f4, f16))
+                         and finite and pads_zero and max(rel.values()) <= BWD_TOL[dtype])
+            rows.append(row)
+            print(f"kernel hil_attention {H}x{W} dvh={dvh} slot={slot} {row['dtype']}: B5 err "
+                  f"out {f4['abs_err_out']:.3g}/{f16['abs_err_out']:.3g} lse "
+                  f"{f4['abs_err_lse']:.3g}/{f16['abs_err_lse']:.3g} (tol {TOL[dtype]}); B6 rel "
+                  f"err { {n: float(f'{e:.3g}') for n, e in rel.items()} } (tol "
+                  f"{BWD_TOL[dtype]}), pads zero {pads_zero}; device ms: B5 b{B} {f4['ms']:.4f} "
+                  f"(plain {f4['plain_ms']:.4f}, library {f4['library_ms']:.4f}, bound "
+                  f"{f4['bound_ms']:.5f}, B1 {bn_l[f'b1_ms_batch{B}']:.4f}); B5 b{B_TRAIN} "
+                  f"{f16['ms']:.4f} (library {f16['library_ms']:.4f}, B1 "
+                  f"{bn_l[f'b1_ms_batch{B_TRAIN}']:.4f}); B6 b{B_TRAIN} dkdv "
+                  f"{row['dkdv']['ms']:.4f} (plain {row['dkdv']['plain_ms']:.4f}, B2 "
+                  f"{bn_l['b2_dkdv_ms']:.4f}) dq {row['dq']['ms']:.4f} (plain "
+                  f"{row['dq']['plain_ms']:.4f}, B2 {bn_l['b2_dq_ms']:.4f}) drel "
+                  f"{row['drel']['ms']:.4f} (plain {row['drel']['plain_ms']:.4f}); whole "
+                  f"{bw['ms']:.4f} (bound {bw['bound_ms']:.5f}, eager library bwd "
+                  f"{bw['library_ms']:.4f}); eager ms B5 b{B} {f4['host_ms']:.4f}, B6 "
+                  f"{bw['host_ms']:.4f}", flush=True)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"B5 or B6 disagrees with its plain version: {bad}")
+    return rows
+
+
 def jpegs(n: int, size: int = IMAGE):
     from PIL import Image
 
@@ -510,6 +759,23 @@ def calibrate_bn(model, images, image: int) -> None:
     for m, momentum in zip(bns, momenta):
         m.momentum = momentum
     model.eval()
+
+
+def damp_residuals(model, gamma: float) -> None:
+    """Set the scale of the last BatchNorm of every residual block to
+    ``gamma``, as a trained ResNet has it (each branch adds a fraction of its
+    skip; ``zero_init_residual`` is the same idea at 0). With the seeded
+    scale of 1 the 50 blocks of a ResNet-152 amplify f32 rounding so far that
+    two f32 routes over the same weights differ by 1.1e-3 to 1.4e-3 of the
+    largest logit (scripts/route_noise_torch.py, 320x320, on an NVIDIA H100
+    80GB HBM3 at 700 W), which no kernel can change; at 0.25 they differ by
+    7e-6 to 8e-6 while zeroing the attention branches still moves the logits
+    by 12 times their size, so the route comparison stays tight and means
+    something."""
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "last_bn"):
+                m.last_bn.weight.fill_(gamma)
 
 
 def post(url: str, data: bytes) -> dict:
@@ -560,7 +826,8 @@ def slice_phase(ckpt: str, images, model: str, image: int, per_forward: dict):
         # (the backward kernels included)
         "launches_per_forward": counts == {k: v * forwards for k, v in per_forward.items()},
     }
-    print(f"slice served {model} bf16 micro_batch {B}: {len(probs)} requests, "
+    print(f"slice served {model} bf16 micro_batch {B} layout "
+          f"{os.environ.get(LAYOUT_ENV, 'bn')}: {len(probs)} requests, "
           f"{forwards} forwards, launches {counts}, checks {checks}", flush=True)
     if not all(checks.values()):
         raise AssertionError(f"slice checks failed: {checks}")
@@ -623,20 +890,20 @@ def _scalars(run_dir: str, tag: str):
 
 
 def train_phase(data_dir: str, smi: str, model: str, image: int, lr: float,
-                per_step: dict, per_eval: dict):
+                per_step: dict, per_eval: dict, steps: int = TRAIN_STEPS, run: str = "run"):
     """The port's training CLI on the card; launch counts read just after:
     ``per_step`` launches per train step and ``per_eval`` per eval forward,
     and no launch of any other kernel."""
     from chexpert_tpu_torch import kernels
     from chexpert_tpu_torch.cli.chexpert import main as cli_main
 
-    run_dir = os.path.join(data_dir, "run")
+    run_dir = os.path.join(data_dir, run)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     cli_main(["--train", "--evaluate_single_model", "--data_path", data_dir,
               "--output_dir", run_dir, "--model", model,
               "--image_size", str(image), "--compute_dtype", "bfloat16",
-              "--batch_size", str(B_TRAIN), "--n_epochs", str(TRAIN_STEPS),
+              "--batch_size", str(B_TRAIN), "--n_epochs", str(steps),
               "--lr", str(lr), "--log_interval", "1",
               "--eval_interval", str(EVAL_INTERVAL), "--device", DEVICE])
     torch.cuda.synchronize()
@@ -645,14 +912,14 @@ def train_phase(data_dir: str, smi: str, model: str, image: int, lr: float,
     losses = [v for _, v in _scalars(run_dir, "train_loss")]
     ips = [v for _, v in _scalars(run_dir, "images_per_sec")]
     # one eval batch per evaluation: after each epoch, at each eval_interval, and the final one
-    evals = TRAIN_STEPS + TRAIN_STEPS // EVAL_INTERVAL + 1
-    want = {k: per_step.get(k, 0) * TRAIN_STEPS + per_eval.get(k, 0) * evals
+    evals = steps + steps // EVAL_INTERVAL + 1
+    want = {k: per_step.get(k, 0) * steps + per_eval.get(k, 0) * evals
             for k in {**per_step, **per_eval}}
     artifacts = ["checkpoint_latest.pt", "optim_checkpoint_latest.pt", "checkpoints_tracker.csv",
-                 f"eval_results_step_{TRAIN_STEPS}.json", "config.json",
+                 f"eval_results_step_{steps}.json", "config.json",
                  os.path.join("best_checkpoints", "checkpoint_0.pt")]
     checks = {
-        "steps_logged": len(losses) == TRAIN_STEPS,
+        "steps_logged": len(losses) == steps,
         "losses_finite": bool(np.isfinite(losses).all()),
         "last_loss_below_first": losses[-1] < losses[0],
         "launches_per_step_and_forward": counts == want,
@@ -661,16 +928,17 @@ def train_phase(data_dir: str, smi: str, model: str, image: int, lr: float,
     steady = ips[1:]  # the first step includes kernel library loads and cuDNN planning
     ips_med = statistics.median(steady)
     ms_step = B_TRAIN / ips_med * 1e3
-    print(f"train {model} {image}x{image} bf16 batch {B_TRAIN} lr {lr}: "
+    print(f"train {model} {image}x{image} bf16 batch {B_TRAIN} lr {lr} layout "
+          f"{os.environ.get(LAYOUT_ENV, 'bn')}: "
           f"losses {[round(x, 4) for x in losses]}; launches {counts} (want {want}); "
-          f"median over steps 2..{TRAIN_STEPS}: {ms_step:.2f} ms/step, {ips_med:.2f} img/s "
+          f"median over steps 2..{steps}: {ms_step:.2f} ms/step, {ips_med:.2f} img/s "
           f"(all steps img/s {[round(x, 2) for x in ips]}); wall {wall_s:.1f} s "
-          f"for {TRAIN_STEPS} steps + {evals} evals on {smi}; checks {checks}", flush=True)
+          f"for {steps} steps + {evals} evals on {smi}; checks {checks}", flush=True)
     if not all(checks.values()):
         raise AssertionError(f"train checks failed: {checks}")
     return {"model": model, "losses": losses, "images_per_sec": ips, "ms_per_step": ms_step,
             "images_per_sec_median": ips_med, "counts": counts, "evals": evals,
-            "wall_s": wall_s}
+            "steps": steps, "wall_s": wall_s}
 
 
 def _max_ratio(got: dict, ref: dict) -> dict:
@@ -679,16 +947,18 @@ def _max_ratio(got: dict, ref: dict) -> dict:
             for n in ref}
 
 
-def grad_reference_phase(data_dir: str):
-    """f32, TF32 off, deterministic cuDNN: one train step's gradients on the
-    kernel route and on the einsum route.
+def grad_reference_phase(data_dir: str, model_name: str = "aadensenet121",
+                         layout: str = "bn", n_aa: int = 3, lr: float = 0.01):
+    """f32, TF32 off, deterministic cuDNN: one train step's gradients of
+    ``model_name`` on the kernel route of ``layout`` and on the einsum route.
 
-    Gated at GRAD_TOL, per AA transition: the transition's real input and
-    upstream gradient, captured in the einsum route's train step, go through
-    the module on both routes; every gradient (input, in_proj_qkv, key_rel_h,
-    key_rel_w, out_proj, conv) must agree. The whole model's gradients are
-    reported, not gated: at random init with train-mode BatchNorm they move
-    by ~1e-2 relative under a one-ulp change of the input on one route alone
+    Gated at GRAD_TOL, per AA conv (all ``n_aa`` of them): the layer's real
+    input and upstream gradient, captured in the einsum route's train step,
+    go through the module on both routes; every gradient (input,
+    in_proj_qkv in checkpoint order, key_rel_h, key_rel_w, out_proj, conv)
+    must agree. The whole model's gradients are reported, not gated: at
+    random init with train-mode BatchNorm they move by ~1e-2 relative under
+    a one-ulp change of the input on one route alone
     (scripts/grad_divergence_torch.py shows where), so no bound near
     GRAD_TOL can hold there."""
     import copy
@@ -697,27 +967,30 @@ def grad_reference_phase(data_dir: str):
     from chexpert_tpu_torch.data import Batches, ChexpertIndex
     from chexpert_tpu_torch.models import AAConv2d, build_model, optimizer_spec
     from chexpert_tpu_torch.ops.fused_attention import BWD_DKDV, BWD_DQ, NAME
+    from chexpert_tpu_torch.ops.hil_attention import BWD_PASSES, FWD
     from chexpert_tpu_torch.train import TrainState, make_optimizer, train_step
 
+    per_layer = ({NAME: 1, BWD_DKDV: 1, BWD_DQ: 1} if layout == "bn"
+                 else {FWD: 1, **{p: 1 for p in BWD_PASSES}})
     torch.backends.cudnn.deterministic = True
     host = next(iter(Batches(ChexpertIndex(data_dir, "train"), 4, image_size=IMAGE)))
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
-    sd = build_model("aadensenet121", image_size=IMAGE,
+    sd = build_model(model_name, image_size=IMAGE,
                      generator=torch.Generator().manual_seed(0)).state_dict()
 
     def step(route, capture=None):
-        model = build_model("aadensenet121", image_size=IMAGE, attn_impl=route)
+        model = build_model(model_name, image_size=IMAGE, attn_impl=route, attn_layout=layout)
         model.load_state_dict(sd, strict=True)
         model = model.to(DEVICE)
         handles = []
-        for mod in model.modules():
+        for name, mod in model.named_modules():
             if capture is not None and isinstance(mod, AAConv2d):
-                def hook(m, inputs, out):
-                    rec = {"module": m, "x": inputs[0].detach().clone()}
+                def hook(m, inputs, out, name=name):
+                    rec = {"module": m, "name": name, "x": inputs[0].detach().clone()}
                     out.register_hook(lambda g: rec.__setitem__("g", g.detach().clone()))
                     capture.append(rec)
                 handles.append(mod.register_forward_hook(hook))
-        opt, sched, _ = make_optimizer(optimizer_spec("aadensenet121"), model.parameters(), 0.01)
+        opt, sched, _ = make_optimizer(optimizer_spec(model_name), model.parameters(), lr)
         kernels.reset_launch_counts()
         train_step(TrainState(model, opt, sched), batch, torch.float32)
         torch.cuda.synchronize()
@@ -732,7 +1005,7 @@ def grad_reference_phase(data_dir: str):
     whole = _max_ratio(g_kernel, g_einsum)
 
     module, module_counts = {}, []
-    for i, rec in enumerate(captured):
+    for rec in captured:
         res = {}
         for route in ("einsum", "pallas"):
             mod = copy.deepcopy(rec["module"])
@@ -745,27 +1018,33 @@ def grad_reference_phase(data_dir: str):
                 module_counts.append(kernels.launch_counts())
             res[route] = {"x": x.grad, **{n: p.grad for n, p in mod.named_parameters()}}
         for n, r in _max_ratio(res["pallas"], res["einsum"]).items():
-            module[f"transition{i + 1}.{n}"] = r
+            module[f"{rec['name']}.{n}"] = r
     aa_names = [n for n in module if "key_rel" in n or "in_proj_qkv" in n]
     med = statistics.median
     checks = {
-        "kernel_route_launches": c_kernel == {NAME: 3, BWD_DKDV: 3, BWD_DQ: 3},
+        "kernel_route_launches": c_kernel == {k: n_aa for k in per_layer},
         "einsum_route_no_launch": c_einsum == {},
-        "module_launches": module_counts == [{NAME: 1, BWD_DKDV: 1, BWD_DQ: 1}] * 3,
-        "aa_params_covered": len(aa_names) == 9,  # key_rel_h, key_rel_w, in_proj_qkv x 3
+        "layers_captured": len(captured) == n_aa,
+        "module_launches": module_counts == [per_layer] * n_aa,
+        "aa_params_covered": len(aa_names) == 3 * n_aa,  # key_rel_h, key_rel_w, in_proj_qkv
         "modules_within_tol": max(module.values()) <= GRAD_TOL,
     }
     worst_m = max(module, key=module.get)
     worst_w = max(whole, key=whole.get)
-    print(f"grad reference f32 batch 4 {IMAGE}x{IMAGE}: per AA transition (captured input and "
-          f"upstream grad) worst max|dg|/max|g| {module[worst_m]:.3g} ({worst_m}), tol "
-          f"{GRAD_TOL}; AA params { {n: float(f'{module[n]:.3g}') for n in aa_names} }; "
+    aa_worst = {leaf: max(module[n] for n in aa_names if n.endswith(leaf))
+                for leaf in ("key_rel_h", "key_rel_w", "in_proj_qkv.weight")}
+    print(f"grad reference {model_name} layout {layout} f32 batch 4 {IMAGE}x{IMAGE}: per AA conv "
+          f"({len(captured)} layers, captured input and upstream grad) worst max|dg|/max|g| "
+          f"{module[worst_m]:.3g} ({worst_m}), median {med(module.values()):.3g}, tol "
+          f"{GRAD_TOL}; worst over layers of the AA params "
+          f"{ {n: float(f'{r:.3g}') for n, r in aa_worst.items()} }; "
           f"whole model ({len(whole)} tensors) kernel vs einsum median {med(whole.values()):.3g} "
-          f"max {whole[worst_w]:.3g} ({worst_w}) (reported, not gated); launches step {c_kernel} modules {module_counts}; checks {checks}", flush=True)
+          f"max {whole[worst_w]:.3g} ({worst_w}) (reported, not gated); launches step "
+          f"{c_kernel}; checks {checks}", flush=True)
     if not all(checks.values()):
         raise AssertionError(f"grad reference checks failed: {checks}")
     return {"module_worst": module[worst_m], "module_worst_tensor": worst_m,
-            "module_aa": {n: module[n] for n in aa_names},
+            "module_median": med(module.values()), "module_aa_worst": aa_worst,
             "whole_median": med(whole.values()), "whole_max": whole[worst_w]}
 
 
@@ -876,11 +1155,17 @@ def main() -> int:
     from chexpert_tpu_torch import kernels
     from chexpert_tpu_torch.checkpoint import save_model_checkpoint
     from chexpert_tpu_torch.data import make_synthetic_dataset
-    from chexpert_tpu_torch.models import build_model
+    from chexpert_tpu_torch.models import AAConv2d, build_model
     from chexpert_tpu_torch.ops.depthwise import BWD as DW_BWD
     from chexpert_tpu_torch.ops.depthwise import FWD as DW_FWD
     from chexpert_tpu_torch.ops.fused_attention import BWD_DKDV, BWD_DQ, NAME
+    from chexpert_tpu_torch.ops.hil_attention import BWD_DREL as HIL_DREL
+    from chexpert_tpu_torch.ops.hil_attention import BWD_DKDV as HIL_DKDV
+    from chexpert_tpu_torch.ops.hil_attention import BWD_DQ as HIL_DQ
+    from chexpert_tpu_torch.ops.hil_attention import BWD_PASSES as HIL_PASSES
+    from chexpert_tpu_torch.ops.hil_attention import FWD as HIL_FWD
 
+    os.environ.pop(LAYOUT_ENV, None)  # each phase names its layout; the default is bn
     # f32 references in full f32 (no TF32 in cuDNN convs or matmuls)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -895,13 +1180,17 @@ def main() -> int:
     rows = kernel_phase()
     bwd_rows = bwd_kernel_phase()
     dw_rows = dw_kernel_phase()
+    hil_rows = hil_kernel_phase()
 
-    def serve_and_reference(name, image, per_forward, route, calibrate=False):
-        images = jpegs(N_REQUESTS, image)
+    def serve_and_reference(name, image, per_forward, route, calibrate=False, layout=None,
+                            n_requests=N_REQUESTS, residual_gamma=None):
+        images = jpegs(n_requests, image)
         model = build_model(name, image_size=image, generator=torch.Generator().manual_seed(0))
+        if residual_gamma is not None:
+            damp_residuals(model, residual_gamma)
         if calibrate:
             calibrate_bn(model.to(DEVICE), images, image)
-        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        with tempfile.TemporaryDirectory(dir=ROOT) as d, attn_layout_env(layout):
             ckpt = os.path.join(d, f"{name}_seed0.pt")
             save_model_checkpoint(ckpt, model.state_dict())
             served, latencies, counts, forwards = slice_phase(ckpt, images, name, image,
@@ -916,10 +1205,18 @@ def main() -> int:
                 "f32_vs_plain_route_max_abs_dp": d_f32, "f32_vs_plain_route_logit_rel": d_logit,
                 "bf16_vs_f32_plain_route_max_abs_dp": d_bf16}
 
-    def train_and_grads(name, image, lr, per_step, per_eval, grads):
+    def train_and_grads(name, image, lr, per_step, per_eval, grads, layout=None, also=None):
+        """Train through the CLI under ``layout``, then the gradient reference;
+        ``also`` = (layout, per_step, per_eval): a second, short train run on
+        the same fixture that gates that layout's launches."""
         with tempfile.TemporaryDirectory(dir=ROOT) as d:
             make_synthetic_dataset(d, n_train=B_TRAIN, n_valid=B_TRAIN, image_size=image)
-            train = train_phase(d, smi, name, image, lr, per_step, per_eval)
+            with attn_layout_env(layout):
+                train = train_phase(d, smi, name, image, lr, per_step, per_eval)
+            if also is not None:
+                with attn_layout_env(also[0]):
+                    train["also"] = train_phase(d, smi, name, image, lr, also[1], also[2],
+                                                steps=AA_TRAIN_STEPS_BN, run=f"run_{also[0]}")
             train["grad_reference"] = grads(d)
         torch.cuda.empty_cache()
         return train
@@ -932,8 +1229,33 @@ def main() -> int:
     eff_train = train_and_grads(EFF, EFF_IMAGE, EFF_TRAIN_LR,
                                 {DW_FWD: DW_LAYERS, DW_BWD: DW_LAYERS}, {DW_FWD: DW_LAYERS},
                                 dw_grad_reference_phase)
+    # aaresnet152 at full width and depth (47 AA convs). Served: the residual
+    # branches damped (damp_residuals) and the BatchNorm statistics set from the
+    # request images (a seeded random ResNet-152 with statistics (0, 1) doubles
+    # its activations' variance at every residual block). Trained: as built.
+    aa_model = build_model(AA_RES, image_size=IMAGE, device="meta")
+    aa_geo = [(*m.input_dims, m.dv // m.nh) for m in aa_model.modules()
+              if isinstance(m, AAConv2d)]
+    if {g: aa_geo.count(g) for g in set(aa_geo)} != AA_LAYERS or len(aa_geo) != N_AA:
+        raise AssertionError(f"{AA_RES} at {IMAGE}: AA convs {aa_geo} are not {AA_LAYERS}")
+    del aa_model
+    hil_step = {HIL_FWD: N_AA, **{p: N_AA for p in HIL_PASSES}}
+    bn_step = {NAME: N_AA, BWD_DKDV: N_AA, BWD_DQ: N_AA}
+    aa_serve = {
+        layout: serve_and_reference(AA_RES, IMAGE, per_forward, {"attn_impl": "einsum"},
+                                    calibrate=True, layout=layout, n_requests=AA_REQUESTS,
+                                    residual_gamma=AA_RESIDUAL_GAMMA)
+        for layout, per_forward in (("hil", {HIL_FWD: N_AA}), ("bn", {NAME: N_AA}))}
+    aa_train = train_and_grads(
+        AA_RES, IMAGE, AA_TRAIN_LR, hil_step, {HIL_FWD: N_AA},
+        lambda d: grad_reference_phase(d, AA_RES, "hil", N_AA, AA_TRAIN_LR),
+        layout="hil", also=("bn", bn_step, {NAME: N_AA}))
     paths = {"serve aadensenet121": serve["counts"], "train aadensenet121": train["counts"],
-             f"serve {EFF}": eff_serve["counts"], f"train {EFF}": eff_train["counts"]}
+             f"serve {EFF}": eff_serve["counts"], f"train {EFF}": eff_train["counts"],
+             f"serve {AA_RES} hil": aa_serve["hil"]["counts"],
+             f"serve {AA_RES} bn": aa_serve["bn"]["counts"],
+             f"train {AA_RES} hil": aa_train["counts"],
+             f"train {AA_RES} bn": aa_train["also"]["counts"]}
 
     def launches(name):  # each path's counts, reset just before it and read just after
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -986,6 +1308,40 @@ def main() -> int:
             "per": per, **extra, "card": smi,
         }
 
+    hil_main = [r for r in hil_rows if r["dtype"] == "bfloat16"]  # served and trained dtype
+
+    def per_aa(call, key):  # the 47 AA convs launch each geometry `layers` times
+        return sum(r["layers"] * r[call][key] for r in hil_main)
+
+    def hil_entry(name, call, source, replaces, max_abs_err, max_rel_err, per, **extra):
+        b_ms, o_ms = per_aa(call, "bytes_ms"), per_aa(call, "ops_ms")
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            **launches(name), "max_abs_err": max_abs_err,
+            **({} if max_rel_err is None else {"max_rel_err": max_rel_err}),
+            # device time (CUDA graph replay)
+            "ms": per_aa(call, "ms"), "plain_ms": per_aa(call, "plain_ms"),
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "per": per, **extra, "card": smi,
+        }
+
+    def bn_layout_ms(key):  # B1 / B2 over the same 47 layers, device time
+        return sum(r["layers"] * r["bn_layout"][key] for r in hil_main)
+
+    hil_bwd_abs = max(max(r["bwd16"]["abs_err"].values()) for r in hil_main)
+    hil_bwd_rel = max(max(r["bwd16"]["rel_err"].values()) for r in hil_main)
+    hil_bwd_library = {
+        "library_ms": per_aa("bwd16", "library_ms"),
+        "library_is": "backward of F.scaled_dot_product_attention w.r.t. P0 (through the "
+                      "head-split and head-merge copies) and a materialized bias, events "
+                      "around eager calls: the whole of B6, all three passes",
+        "whole_b6_ms": per_aa("bwd16", "ms"), "whole_b6_host_ms": per_aa("bwd16", "host_ms"),
+        "b2_same_layers_ms": bn_layout_ms("b2_dkdv_ms") + bn_layout_ms("b2_dq_ms")}
+    hil_per_step = (f"{AA_RES} train step (batch {B_TRAIN}, {N_AA} AA convs: 8 at 40x40, 36 at "
+                    "20x20, 3 at 10x10; bf16)")
+    hil_bwd_src = "chexpert_tpu_torch/csrc/hil_attention_bwd.cu"
+    hil_bwd_replaces = "chexpert_tpu/ops/pallas_attention.py:853"
+
     record = {"kernels": [{
         "name": NAME,
         "route": "cuda",
@@ -1026,6 +1382,30 @@ def main() -> int:
                  "kernel for dx and per-block dw partials, then one torch sum)",
                  library_is="aten.convolution_backward for dx and dw, on PyTorch's "
                             "pick of backend"),
+        hil_entry(HIL_FWD, f"fwd{B}", "chexpert_tpu_torch/csrc/hil_attention_fwd.cu",
+                  "chexpert_tpu/ops/pallas_attention.py:785",
+                  max(max(r[f"fwd{b}"]["abs_err_out"], r[f"fwd{b}"]["abs_err_lse"])
+                      for r in hil_main for b in (B, B_TRAIN)), None,
+                  f"served {AA_RES} forward (batch {B}, {N_AA} AA convs: 8 at 40x40, 36 at "
+                  "20x20, 3 at 10x10; bf16)",
+                  library_ms=per_aa(f"fwd{B}", "library_ms"),
+                  library_is="F.scaled_dot_product_attention with the relative bias "
+                             "materialized beforehand, plus the head-split copies of q, k, v "
+                             "from P0 and the head-merge copy of its output",
+                  host_ms=per_aa(f"fwd{B}", "host_ms"),
+                  b1_same_layers_ms=bn_layout_ms(f"b1_ms_batch{B}"),
+                  train_forward_ms=per_aa(f"fwd{B_TRAIN}", "ms"),
+                  train_forward_library_ms=per_aa(f"fwd{B_TRAIN}", "library_ms"),
+                  train_forward_b1_same_layers_ms=bn_layout_ms(f"b1_ms_batch{B_TRAIN}")),
+        hil_entry(HIL_DKDV, "dkdv", hil_bwd_src, hil_bwd_replaces, hil_bwd_abs, hil_bwd_rel,
+                  hil_per_step, **{"pass": "pass 1 of B6: the k, v and pad lanes of dP"},
+                  **hil_bwd_library),
+        hil_entry(HIL_DQ, "dq", hil_bwd_src, hil_bwd_replaces, hil_bwd_abs, hil_bwd_rel,
+                  hil_per_step, **{"pass": "pass 2 of B6: the q lanes of dP and the dRC rows"},
+                  **hil_bwd_library),
+        hil_entry(HIL_DREL, "drel", hil_bwd_src, hil_bwd_replaces, hil_bwd_abs, hil_bwd_rel,
+                  hil_per_step, **{"pass": "pass 3 of B6: dRw, dRh from q and the dRC rows"},
+                  **hil_bwd_library),
     ], "b2_whole": {
         "bound_ms": max(per_step("b2", "bytes_ms"), per_step("b2", "ops_ms")),
         "bound_by": ("bytes" if per_step("b2", "bytes_ms") >= per_step("b2", "ops_ms")
@@ -1033,7 +1413,13 @@ def main() -> int:
         "ms": per_step("dkdv_ms") + per_step("dq_ms"), "calls": bwd_rows},
         "depthwise_calls": dw_rows,
         "serve": serve, "train": {**train, "card": smi},
-        f"serve {EFF}": eff_serve, f"train {EFF}": {**eff_train, "card": smi}}
+        f"serve {EFF}": eff_serve, f"train {EFF}": {**eff_train, "card": smi},
+        "b6_whole": {"bound_ms": max(per_aa("bwd16", "bytes_ms"), per_aa("bwd16", "ops_ms")),
+                     "bound_by": ("bytes" if per_aa("bwd16", "bytes_ms")
+                                  >= per_aa("bwd16", "ops_ms") else "operations"),
+                     "ms": per_aa("bwd16", "ms")},
+        "hil_calls": hil_rows,
+        f"serve {AA_RES}": aa_serve, f"train {AA_RES}": {**aa_train, "card": smi}}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record))
     print(smi)

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Where a served request's time goes in the PyTorch port, on one card.
 
-    python3 scripts/profile_torch_serve.py [--model aadensenet121]
+    python3 scripts/profile_torch_serve.py [--model aadensenet121] [--attn_layout bn|hil]
 
-Builds ``--model`` (aadensenet121 at 320x320 by default; efficientnet-b* at
-its own resolution in SCALING_PARAMS) with seeded random weights, serves it with chexpert_tpu_torch.cli.serve (bf16) and
+Builds ``--model`` (aadensenet121 at 320x320 by default; aaresnet152 and
+resnet152 at 320x320; efficientnet-b* at its own resolution in
+SCALING_PARAMS) with seeded random weights, serves it with
+chexpert_tpu_torch.cli.serve (bf16; ``--attn_layout`` sets the
+CHEXPERT_ATTN_LAYOUT variable that the server's model build reads) and
 measures, per request: the HTTP round trip, Engine.predict alone, its
 preprocess and its forward (host clock around work that ends in a
 synchronize; medians). Then profiles the forward with torch.profiler and
 prints the device time by kernel name, the device busy share of the
 forward's wall time, and the share of the port's forward kernels (B1
-rel_attention_fwd, B3 depthwise_fwd), then the profiler's own table. Needs
-a CUDA device.
+rel_attention_fwd, B3 depthwise_fwd, B5 hil_attention_fwd), then the
+profiler's own table. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,7 +54,10 @@ MICRO_BATCH, REQUESTS = 4, 10  # as chip_smoke.py serves
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default="aadensenet121")
+    p.add_argument("--attn_layout", default=None, choices=["bn", "hil"])
     args = p.parse_args()
+    if args.attn_layout is not None:
+        os.environ["CHEXPERT_ATTN_LAYOUT"] = args.attn_layout
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
@@ -126,7 +132,8 @@ def main() -> int:
     res.update({"model": name, "image_size": size, "profiled_wall_ms": wall_ms,
                 "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
                 **{f"{kernel}_ms": sum(t for t, _, k in dev if kernel in k)
-                   for kernel in ("rel_attention_fwd", "depthwise_fwd")},
+                   for kernel in ("rel_attention_fwd", "depthwise_fwd", "hil_attention_fwd")},
+                "attn_layout": os.environ.get("CHEXPERT_ATTN_LAYOUT", "bn"),
                 "device_kernels": sum(c for _, c, _ in dev)})
     print("device time by kernel (ms, launches, name):")
     for t, c, k in dev[:15]:

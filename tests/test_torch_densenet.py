@@ -15,7 +15,14 @@ import torch
 from chexpert_tpu.models import build_model as jax_build_model
 from chexpert_tpu.models.pretrained import export_torch_state_dict
 from chexpert_tpu_torch.checkpoint import load_model_checkpoint, save_model_checkpoint
-from chexpert_tpu_torch.models import build_model, normalize_state_dict, state_dict_from_jax
+from chexpert_tpu_torch.models import (
+    AAConv2d,
+    OptimizerSpec,
+    build_model,
+    normalize_state_dict,
+    optimizer_spec,
+    state_dict_from_jax,
+)
 
 ATOL = 5e-4
 
@@ -143,8 +150,9 @@ def test_store_round_trip_and_msgpack_refusal(tmp_path):
 def test_registry_guards():
     with pytest.raises(RuntimeError, match="not supported"):
         build_model("vgg16")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model("aaresnet152")
+    aares = build_model("aaresnet152", image_size=64)
+    assert sum(isinstance(m, AAConv2d) for m in aares.modules()) == 47
+    assert optimizer_spec("aaresnet152") == OptimizerSpec("adam")
     for flag in ("remat", "slim_bwd", "slim_block", "concat_free"):
         with pytest.raises(ValueError):
             build_model("aadensenet-tiny", image_size=32, **{flag: True})

@@ -310,5 +310,4 @@ def test_registry_routes():
         build_model("efficientnet-b0", dw_impl="xla")
     lib = build_model("efficientnet-b0", dw_impl="library")
     assert {m.dw_impl for m in lib.modules() if hasattr(m, "dw_impl")} == {"library"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        optimizer_spec("resnet152")
+    assert optimizer_spec("resnet152") == optimizer_spec("aaresnet152") == OptimizerSpec("adam")

@@ -12,7 +12,10 @@ and B2 (backward, two passes) run at the same geometries. B3 / B4 (the
 depthwise conv forward / backward) run at the ten stride-1 geometries of
 efficientnet-b4 at 380x380 and at ragged ones (odd H and W, H != W, C not a
 multiple of 32, maps smaller than one block's items, every k the kernels
-are instantiated for)."""
+are instantiated for). B5 / B6 (the heads-in-lanes attention forward and the
+backward's three passes) run at B1's geometries over the packed operand, at
+the model's slot stride, the tight one and 64, with and without relative
+logits."""
 
 import pytest
 import torch
@@ -37,6 +40,18 @@ from chexpert_tpu_torch.ops.fused_attention import (
     rel_attention_bwd_plain,
     rel_attention_fwd,
     rel_attention_fwd_plain,
+)
+
+from chexpert_tpu_torch.ops.hil_attention import (
+    BWD_PASSES,
+    FWD,
+    HilAttention,
+    hil_attention_bwd,
+    hil_attention_bwd_plain,
+    hil_attention_fwd,
+    hil_attention_fwd_plain,
+    hil_rel_operand,
+    hil_slot,
 )
 
 pytestmark = pytest.mark.cuda
@@ -207,3 +222,95 @@ def test_depthwise_kernels_reject_what_they_do_not_take(cuda):
         depthwise_fwd(x, torch.zeros(4, 1, 11, 11, device="cuda"))
     with pytest.raises(ValueError, match="must match"):
         depthwise_bwd(x, w, gy.bfloat16())
+
+
+# --- B5 / B6: heads-in-lanes attention ----------------------------------------
+
+def _hil_inputs(B, nh, H, W, dvh, dtype, slot, relative=True, seed=0):
+    """(P0, Rw, Rh): the packed operand with zero pad lanes and the f32 block
+    operands of seeded relative embeddings (None without them)."""
+    g = torch.Generator().manual_seed(seed)
+    dkh, hw = 20, H * W
+    q = torch.randn(B, hw, nh, dkh, generator=g) * dkh ** -0.5
+    k = torch.randn(B, hw, nh, dkh, generator=g)
+    v = torch.randn(B, hw, nh, dvh, generator=g)
+    pad = torch.zeros(B, hw, nh, slot - 2 * dkh - dvh)
+    P0 = torch.cat([q, k, v, pad], -1).reshape(B, hw, nh * slot).to("cuda", dtype)
+    if not relative:
+        return P0, None, None
+    rel_w = torch.randn(dkh, 2 * W - 1, generator=g).to("cuda")
+    rel_h = torch.randn(dkh, 2 * H - 1, generator=g).to("cuda")
+    return P0, hil_rel_operand(rel_w, W).contiguous(), hil_rel_operand(rel_h, H).contiguous()
+
+
+def _slot(mode, dvh):
+    return {"model": hil_slot(20, dvh), "tight": 40 + dvh, "64": 64}[mode]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("slot_mode,relative", [("model", True), ("tight", True), ("64", True),
+                                                ("model", False)])
+@pytest.mark.parametrize("B,nh,H,W,dvh", GEOMETRIES)
+def test_hil_kernels_match_plain(cuda, B, nh, H, W, dvh, slot_mode, relative, dtype):
+    slot = _slot(slot_mode, dvh)
+    P0, Rw, Rh = _hil_inputs(B, nh, H, W, dvh, dtype, slot, relative)
+    kernels.reset_launch_counts()
+    out, lse = hil_attention_fwd(P0, Rw, Rh, H, W, 20, dvh, slot)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {FWD: 1}
+    out_p, lse_p = hil_attention_fwd_plain(P0, Rw, Rh, H, W, 20, dvh, slot)
+    assert out.dtype == dtype and out.shape == (B, H * W, nh * dvh)
+    assert lse.dtype == torch.float32 and lse.shape == (B, nh, H * W)
+    assert (out.float() - out_p.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - lse_p).abs().max().item() <= TOL[dtype]
+
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to("cuda", dtype)
+    kernels.reset_launch_counts()
+    got = hil_attention_bwd(P0, Rw, Rh, out, lse, dout, H, W, 20, dvh, slot)
+    torch.cuda.synchronize()
+    passes = BWD_PASSES if relative else BWD_PASSES[:2]
+    assert kernels.launch_counts() == {p: 1 for p in passes}
+    want = hil_attention_bwd_plain(P0, Rw, Rh, out, lse, dout, H, W, 20, dvh, slot)
+    dP = got[0]
+    assert dP.dtype == dtype and dP.shape == P0.shape
+    pads = dP.view(B, H * W, nh, slot)[..., 40 + dvh:]
+    assert torch.count_nonzero(pads) == 0  # every pad lane written, as zero
+    if not relative:
+        assert got[1] is None and got[2] is None
+    for name, g, w in zip(("dP", "dRw", "dRh"), got, want):
+        if w is None:
+            continue
+        assert g.shape == w.shape and torch.isfinite(g.float()).all(), name
+        scale = max(1.0, w.float().abs().max().item())
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * scale, (name, err, scale)
+
+
+def test_hil_attention_autograd_launches_every_kernel(cuda):
+    """HilAttention.apply under autograd: B5 forward, B6's three passes, the
+    operand gradients finite; the bare forward wrapper refuses grad-requiring
+    CUDA operands."""
+    P0, Rw, Rh = _hil_inputs(1, 2, 6, 5, 3, torch.float32, 48)
+    leaves = [t.requires_grad_() for t in (P0, Rw, Rh)]
+    with pytest.raises(RuntimeError, match="HilAttention"):
+        hil_attention_fwd(*leaves, 6, 5, 20, 3, 48)
+    kernels.reset_launch_counts()
+    HilAttention.apply(*leaves, 6, 5, 20, 3, 48).sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {FWD: 1, **{p: 1 for p in BWD_PASSES}}
+    for t in leaves:
+        assert t.grad is not None and t.grad.shape == t.shape and torch.isfinite(t.grad).all()
+
+
+def test_hil_kernels_reject_what_they_do_not_take(cuda):
+    P0, Rw, Rh = _hil_inputs(2, 2, 6, 5, 3, torch.float32, 48)
+    with pytest.raises(ValueError, match="dtype"):
+        hil_attention_fwd(P0.half(), Rw, Rh, 6, 5, 20, 3, 48)
+    with pytest.raises(ValueError, match="float32"):
+        hil_attention_fwd(P0, Rw.bfloat16(), Rh.bfloat16(), 6, 5, 20, 3, 48)
+    with pytest.raises(ValueError, match="contiguous"):
+        hil_attention_fwd(P0.transpose(0, 1).contiguous().transpose(0, 1), Rw, Rh,
+                          6, 5, 20, 3, 48)
+    wide = torch.zeros(1, 30, 2 * 32, device="cuda")  # dkh 8: not instantiated
+    with pytest.raises(ValueError, match="dkh"):
+        hil_attention_fwd(wide, None, None, 6, 5, 8, 3, 32)

@@ -14,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "chexpert_tpu", "pandas", "sklearn"}
-SCRIPTS = ("profile_torch_serve.py", "profile_torch_train.py", "grad_divergence_torch.py")
+SCRIPTS = ("profile_torch_serve.py", "profile_torch_train.py", "grad_divergence_torch.py",
+           "route_noise_torch.py")
 FILES = (sorted((ROOT / "chexpert_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + [ROOT / "scripts" / name for name in SCRIPTS])
 
