@@ -14,7 +14,7 @@
 //                         [dq ; dk ; dv ; 0] per head, every lane written
 //   dRw[(c, d), m] = sum over (batch, head, tokens t of column c) q[t, d] dRC_w[t, m]
 //   dRh likewise over rows;  both f32
-// All arithmetic is f32, each output is rounded once.
+// Every sum is f32, each output is rounded once.
 //
 // The TPU kernel keeps ONE dP block per batch element resident in VMEM:
 // every query program adds its dk / dv into all key rows and its dq into
@@ -23,16 +23,15 @@
 // running in order on one core. Blocks on the GPU run concurrently, so the
 // work is three passes that each own what they write (deterministic, no
 // atomics), as rel_attention_bwd.cu splits its own:
-//   pass 1 (dkdv): a thread per key, a block per (batch, head, 128-key
-//     tile); loops over every query, 64 at a time in shared memory, whose RC
-//     rows are recomputed there; writes the k, v and pad lanes of its dP row;
-//   pass 2 (dq):   a thread per query, a block per (batch, head, 64-query
-//     tile); loops over every key, bins ds by key column and key row in its
-//     own shared-memory row (dRC), adds the relative part of dq from those
-//     bins, writes the q lanes of its dP row and its dRC row to a scratch
-//     (B, nh, hw, W+H) f32;
-//   pass 3 (drel): a thread per entry of dRw / dRh and batch element; sums
-//     q[t, d] * dRC[t, m] over the heads and the H (or W) tokens of its
+//   pass dq:   a block per (batch, head, 64-query tile) walks every key, sums
+//     ds over the keys of one image column / row into its rows' bins (dRC),
+//     adds the relative part of dq from those bins, writes the q lanes of its
+//     dP rows and its dRC rows to a scratch (B, nh, hw, W+H) f32;
+//   pass dkdv: a block per (batch, head, 128-key tile) walks every query and
+//     writes the k, v and pad lanes of its dP rows;
+//   pass drel: a block per image column (or row) and batch element, a
+//     thread per lane m of its dRC rows and share of the heads; sums
+//     q[t, d] * dRC[t, m] over the heads and the H (or W) tokens of the
 //     column (or row) in a fixed order into a per-batch partial; one torch
 //     sum over the batch follows.
 // Why a scratch and not per-block partials of dRw / dRh: a token adds an
@@ -40,18 +39,451 @@
 // shrinks only by the number of tokens of one column that a block holds. A
 // 64-token tile of a 40-wide map holds at most two: its partial is the
 // whole 128 KB operand, 410 MB over batch 16 x 8 heads x 25 tiles. The dRC
-// rows are 65 MB there (f32), written once and read once (~40 us of memory
-// time beside milliseconds of arithmetic), and pass 3's partials 4 MB.
+// rows are 65 MB there (f32), written once and read once.
+//
+// Two sets of dq / dkdv kernels, chosen by the operand dtype:
+//   bf16 (what autocast training hands over): the tensor-core passes of
+//     attention_bwd_mma.cuh (see there), 4 warps / 64 queries (dq) and 8
+//     warps / 128 keys (dkdv) a block. What is this file's own:
+//     - RC as a product: with E_w[x][d] = rel_w[d, x], read back out of the
+//       block operand Rw, RC_w[t, m] = (q E_w^T)[t, m - col(t) + W - 1]: one
+//       product per tile and a skewed store, E split into hi + lo bf16 so RC
+//       keeps f32 accuracy; dq's relative part is the skewed bins (hi + lo)
+//       times E. Pass dq computes each query's RC rows exactly once and
+//       leaves them in a second f32 scratch rc (B, nh, hw, W+H), which pass
+//       dkdv reads back (16-byte cp.async): so dq runs first. (The CUDA-core
+//       dkdv recomputed every tile's RC in every key block.)
+//     - q / k rows of a slot are staged by 8-byte cp.async where the slot is
+//       a multiple of 4 lanes (the model's 48 is), else by 2-byte loads: any
+//       slot >= 2*dkh + dvh works. One head per block: a row's q or k lanes
+//       are 40 contiguous bytes.
+//     A map with ceil(W/8) + ceil(H/8) > 16 (past 64x64) takes the CUDA-core
+//     kernels below, which need no rc.
+//   f32 (the card's own reference route, held to 1e-4): the CUDA-core passes,
+//     a thread per key (dkdv) or per query (dq), all arithmetic f32.
+// Pass drel is one CUDA-core kernel for both dtypes.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 tensor), bf16, slot 48, batch
 // 16 x 8 heads, counting 6*dkh + 4*dvh + 8 operations per (query, key) pair
 // for the whole backward: 40x40 dvh 1 -> 43 GFLOP, 0.044 ms, against 41 MB,
-// 0.012 ms (operations); 20x20 and 10x10 are bound by bytes. This first
-// version computes on the f32 CUDA cores (floor ~0.65 ms at 40x40) and
-// recomputes S in both passes; moving the dots onto mma.sync / wgmma is a
-// later change.
+// 0.012 ms (operations); 20x20 and 10x10 are bound by bytes. The CUDA-core
+// bf16 passes took 3.50 (dkdv) and 4.77 ms (dq) at 40x40; the tensor-core
+// passes take about 0.55 and 0.70 ms (0.053 / 0.069 at 20x20, 0.011 / 0.016
+// at 10x10; scripts/bench_attention_bwd_torch.py, NVIDIA H100 80GB HBM3 at
+// 700 W). As in rel_attention_bwd.cu the scalar work around the MMAs
+// bounds them; dq pays 0.1 ms more than the head-major dq for E's staging,
+// the RC and dq products with E, the two scratch rows it writes and its f32
+// RC reads (two-way bank conflicts). -Xptxas -v: dq 120 / 124 / 156
+// registers (<= 4 / 10 / 16 bin tiles), 53 KB of shared memory at 40x40 (the
+// queries' tiles and E's lo parts share theirs with the key tiles: 4 blocks
+// of 128 threads per SM); dkdv 128 registers under __launch_bounds__(256,
+// 2), 67 KB for its two query-tile buffers; drel 56.
 
+#include "attention_bwd_mma.cuh"
 #include "hil_attention_common.cuh"
+
+// ---------------------------------------------------------------------------
+// The bf16 passes dq and dkdv on the tensor cores (attention_bwd_mma.cuh).
+
+namespace {
+namespace mma_passes {
+
+using namespace amma;
+
+// The relative logits as products. With E_w[x][d] = rel_w[d, x] the (dkh, 2W-1)
+// embedding that the block operand was built from (Rw[(j, d), m] =
+// rel_w[d, m - j + W - 1]), a query at image column c has
+//   RC_w[t, m] = G[t, m - c + W - 1],  G = q E_w^T,
+// one product for the whole tile and a skewed store; its backward is
+//   dq[t, d] += sum_x dG[t, x] E_w[x][d],  dG[t, x] = dRC_w[t, x + c - (W - 1)],
+// a product of the skewed bins with E_w. The same over rows with E_h.
+// E is staged once per block as bf16 rows of stride KS (x rows: the W part
+// padded to a multiple of 16 rows, then the H part), split into hi + lo so
+// that RC keeps f32 accuracy; rows and columns of padding are zero.
+__host__ __device__ inline int emb_rows(int n) { return (2 * n - 1 + 15) / 16 * 16; }
+
+__device__ __forceinline__ void stage_emb(bf16* e_hi, bf16* e_lo, const float* __restrict__ R,
+                                          int n, int rows, int tid, int nthreads) {
+  for (int e = tid; e < rows * KW; e += nthreads) {
+    const int x = e / KW, d = e - x * KW;
+    float val = 0.f;
+    if (x < 2 * n - 1 && d < DKH)
+      val = x >= n - 1 ? __ldg(R + static_cast<size_t>(d) * n + (x - (n - 1)))
+                       : __ldg(R + (static_cast<size_t>(n - 1 - x) * DKH + d) * n);
+    const bf16 hi = __float2bfloat16(val);
+    e_hi[x * KS + d] = hi;
+    e_lo[x * KS + d] = __float2bfloat16(val - __bfloat162float(hi));
+  }
+}
+
+// RC rows of the warp's 16 queries (A fragments qa of dq_init) for one image
+// axis: n = W (pos = the query's column) or H (its row); the n lanes at off.
+__device__ __forceinline__ void rc_axis(const uint32_t (&qa)[2][4], const bf16* e_hi,
+                                        const bf16* e_lo, int n, int rows, const int (&pos)[2],
+                                        const bool (&ok)[2], float* rel_rows, int rel_stride,
+                                        int off, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int nt = 0; nt < rows / 8; ++nt) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const bf16* hi = e_hi + (nt * 8 + g) * KS + 2 * t;
+    const bf16* lo = e_lo + (nt * 8 + g) * KS + 2 * t;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      mma16816(acc, qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3], lds32(hi + ks * 16),
+               lds32(hi + ks * 16 + 8));
+      mma16816(acc, qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3], lds32(lo + ks * 16),
+               lds32(lo + ks * 16 + 8));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = i >> 1;  // row g (0) or g + 8 (1)
+      const int m = nt * 8 + 2 * t + (i & 1) - (n - 1) + pos[rr];
+      if (ok[rr] && m >= 0 && m < n) rel_rows[(g + 8 * rr) * rel_stride + off + m] = acc[i];
+    }
+  }
+}
+
+// dq += dG E for one image axis, dG the skewed bins of the warp's rows
+// (bin_rows: f32, the axis' n lanes at off), split into hi + lo bf16.
+__device__ __forceinline__ void dq_rel_axis(float (&dq)[ND][4], const bf16* e_hi, int n,
+                                            int rows, const int (&pos)[2],
+                                            const float* bin_rows, int rel_stride, int off,
+                                            int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int kx = 0; kx < rows / 16; ++kx) {
+    uint32_t ahi[4], alo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = i & 1;  // a0, a2: row g; a1, a3: row g + 8
+      const int x = kx * 16 + 2 * t + (i >> 1) * 8;
+      const int m = x - (n - 1) + pos[rr];
+      const float* bin = bin_rows + (g + 8 * rr) * rel_stride + off;
+      const float v0 = (m >= 0 && m < n) ? bin[m] : 0.f;
+      const float v1 = (m + 1 >= 0 && m + 1 < n) ? bin[m + 1] : 0.f;
+      const bf16 h0 = __float2bfloat16(v0), h1 = __float2bfloat16(v1);
+      ahi[i] = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
+      alo[i] = pack_bf16(v0 - __bfloat162float(h0), v1 - __bfloat162float(h1));
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      uint32_t b0, b1;
+      ldsm_x2_trans(b0, b1, e_hi + (kx * 16 + (lane & 15)) * KS + nd * 8);
+      mma16816(dq[nd], ahi[0], ahi[1], ahi[2], ahi[3], b0, b1);
+      mma16816(dq[nd], alo[0], alo[1], alo[2], alo[3], b0, b1);
+    }
+  }
+}
+
+// Pass dq. A block owns DQ_ROWS queries of one (batch, head): it computes
+// their RC rows once (and leaves them in the rc scratch for pass dkdv), walks
+// the keys TN at a time, then adds the relative logits' part of dq from its
+// own bins and writes the q lanes of dP and its dRC rows. vec: the slots are
+// 8-byte aligned, so q and k rows are staged by cp.async.
+template <int NBT>
+__global__ void __launch_bounds__(DQ_WARPS * 32)
+hil_attention_bwd_dq_mma_kernel(const bf16* __restrict__ P, const float* __restrict__ Rw,
+                                const float* __restrict__ Rh, const bf16* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                const int* __restrict__ tab, bf16* __restrict__ dP,
+                                float* __restrict__ drc, float* __restrict__ rc, int hw, int H,
+                                int W, int nh, int slot, int dvh, int rel_stride, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* rel_s = reinterpret_cast<float*>(smem_raw);  // DQ_ROWS x rel_stride: RC, then the bins
+  float* ld_s = rel_s + DQ_ROWS * rel_stride;         // DQ_ROWS x 2
+  const int nbw = (W + 7) / 8, nbt = nbw + (H + 7) / 8;
+  const int xw = emb_rows(W), xh = emb_rows(H);
+  bf16* e_hi = reinterpret_cast<bf16*>(ld_s + DQ_ROWS * 2);  // (xw + xh) x KS: [E_w ; E_h], hi
+  // what follows holds the queries' tiles and E's lo parts until the RC rows
+  // are made, then the key tiles
+  bf16* q_s = e_hi + (xw + xh) * KS;                  // DQ_ROWS x KS
+  bf16* do_s = q_s + DQ_ROWS * KS;                    // DQ_ROWS x VS
+  bf16* e_lo = do_s + DQ_ROWS * VS;                   // (xw + xh) x KS
+  int* tab_s = reinterpret_cast<int*>(q_s);           // one row of the key table
+  bf16* k_s = reinterpret_cast<bf16*>(tab_s + key_table_words(nbt));  // TN x KS
+  bf16* v_s = k_s + TN * KS;                          // TN x VS
+
+  constexpr int NT = DQ_WARPS * 32;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = blockIdx.x * DQ_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qn = min(DQ_ROWS, hw - q0);
+  const bool relative = Rw != nullptr;
+  const int WH = W + H;
+  const size_t row = static_cast<size_t>(nh) * slot;  // elements per token
+  const size_t bh = static_cast<size_t>(b) * hw * row + static_cast<size_t>(h) * slot;
+  const bf16* P_bh = P + bh;
+  const size_t do_row = static_cast<size_t>(nh) * dvh;
+  const bf16* do_bh = dout + static_cast<size_t>(b) * hw * do_row + static_cast<size_t>(h) * dvh;
+  const size_t bh_tok = (static_cast<size_t>(b) * nh + h) * hw;  // offset in lse / delta rows
+
+  zero_tile(q_s, DQ_ROWS * KS, tid, NT);  // the columns past DKH and the rows past hw stay zero
+  __syncthreads();
+  stage_rows(q_s, KS, P_bh + q0 * row, row, qn, DKH, vec, tid, NT);
+  stage_dv(do_s, do_bh + q0 * do_row, do_row, dvh, qn, DQ_ROWS, tid, NT);
+  stage_ld(ld_s, lse + bh_tok + q0, delta + bh_tok + q0, qn, DQ_ROWS, tid, NT);
+  for (int e = tid; e < DQ_ROWS * rel_stride; e += NT) rel_s[e] = 0.f;
+  if (relative) {
+    stage_emb(e_hi, e_lo, Rw, W, xw, tid, NT);
+    stage_emb(e_hi + xw * KS, e_lo + xw * KS, Rh, H, xh, tid, NT);
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  DqWarp<NBT> st;
+  dq_init(st, q_s, KS, do_s, ld_s, warp, lane);
+  // image column and row of the warp's query rows g and g + 8
+  const int i0 = q0 + warp * 16 + (lane >> 2);
+  const int pos_w[2] = {i0 % W, (i0 + 8) % W}, pos_h[2] = {i0 / W, (i0 + 8) / W};
+  const bool row_ok[2] = {i0 < hw, i0 + 8 < hw};
+  float* rel_rows = rel_s + warp * 16 * rel_stride;
+  if (relative) {
+    rc_axis(st.qa, e_hi, e_lo, W, xw, pos_w, row_ok, rel_rows, rel_stride, 0, lane);
+    rc_axis(st.qa, e_hi + xw * KS, e_lo + xw * KS, H, xh, pos_h, row_ok, rel_rows, rel_stride,
+            W, lane);
+    __syncthreads();
+    float* rc_b = rc + (bh_tok + q0) * WH;
+    for (int e = tid; e < qn * WH; e += NT) {
+      const int r = e / WH, c = e - r * WH;
+      rc_b[e] = rel_s[r * rel_stride + c];
+    }
+  }
+
+  __syncthreads();  // the queries' tiles and E's lo parts are consumed
+  zero_tile(k_s, TN * KS, tid, NT);  // the columns past DKH stay zero
+  for (int j0 = 0; j0 < hw; j0 += TN) {
+    const int kn = min(TN, hw - j0);
+    __syncthreads();  // the previous key tile is consumed
+    stage_rows(k_s, KS, P_bh + j0 * row + DKH, row, kn, DKH, vec, tid, NT);
+    if (kn < TN) zero_rows(k_s, KS, kn, TN, DKH, tid, NT);
+    stage_dv(v_s, P_bh + j0 * row + 2 * DKH, row, dvh, kn, TN, tid, NT);
+    stage_key_table(tab_s, tab, j0 / TN, nbt, tid, NT);
+    cp_async_wait();
+    __syncthreads();
+    dq_step(st, k_s, v_s, key_table_at(tab_s, nbt), rel_s, rel_stride, W, nbt, kn, warp, lane);
+  }
+  __syncthreads();  // every warp has read its last RC row: rel_s becomes the bins
+  float* bin_s = rel_s;
+  bins_dump(st, bin_s, rel_stride, W, H, nbw, warp, lane);
+  __syncthreads();
+
+  // dq = ds k + the relative logits' part, from the warp's own bins
+  if (relative) {
+    dq_rel_axis(st.dq, e_hi, W, xw, pos_w, rel_rows, rel_stride, 0, lane);
+    dq_rel_axis(st.dq, e_hi + xw * KS, H, xh, pos_h, rel_rows, rel_stride, W, lane);
+  }
+  {
+    const int t = lane & 3;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (row_ok[rr]) {
+        bf16* dq_i = dP + bh + (i0 + 8 * rr) * row;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          const int d = nd * 8 + 2 * t;
+          if (d < DKH) {
+            dq_i[d] = __float2bfloat16(st.dq[nd][2 * rr]);
+            dq_i[d + 1] = __float2bfloat16(st.dq[nd][2 * rr + 1]);
+          }
+        }
+      }
+    }
+  }
+  if (!relative) return;
+  float* drc_b = drc + (bh_tok + q0) * WH;
+  for (int e = tid; e < qn * WH; e += NT) {
+    const int r = e / WH, c = e - r * WH;
+    drc_b[e] = bin_s[r * rel_stride + c];
+  }
+}
+
+// Pass dkdv. A block owns DKDV_ROWS keys of one (batch, head) and walks the
+// queries TN at a time; their RC rows come from the rc scratch that pass dq
+// left (each row was computed once there), by 16-byte cp.async where W + H is
+// a multiple of 4 (rc16). Writes the k, v and pad lanes of its dP rows.
+__global__ void __launch_bounds__(DKDV_WARPS * 32, 2)
+hil_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ P, const bf16* __restrict__ dout,
+                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                  const float* __restrict__ rc, bf16* __restrict__ dP, int hw,
+                                  int H, int W, int nh, int slot, int dvh, int rel_stride, int vec,
+                                  int rc16) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // two buffers of a query tile: RC (TN x rel_stride f32), ld (TN x 2 f32),
+  // q (TN x KS), dout (TN x VS)
+  const int tile_words = TN * rel_stride + TN * 2 + (TN * (KS + VS)) / 2;
+  float* tile_s = reinterpret_cast<float*>(smem_raw);
+  bf16* k_s = reinterpret_cast<bf16*>(tile_s + 2 * tile_words);  // DKDV_ROWS x KS
+  bf16* v_s = k_s + DKDV_ROWS * KS;                   // DKDV_ROWS x VS
+
+  constexpr int NT = DKDV_WARPS * 32;
+  constexpr int NDV = TN * VS / NT;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int key0 = blockIdx.x * DKDV_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kn = min(DKDV_ROWS, hw - key0);
+  const bool relative = rc != nullptr;
+  const int WH = W + H;
+  const size_t row = static_cast<size_t>(nh) * slot;
+  const size_t bh = static_cast<size_t>(b) * hw * row + static_cast<size_t>(h) * slot;
+  const bf16* P_bh = P + bh;
+  const size_t do_row = static_cast<size_t>(nh) * dvh;
+  const bf16* do_bh = dout + static_cast<size_t>(b) * hw * do_row + static_cast<size_t>(h) * dvh;
+  const size_t bh_tok = (static_cast<size_t>(b) * nh + h) * hw;
+
+  // zeros: RC without relative logits and past hw, q's columns past DKH and rows past hw
+  for (int e = tid; e < 2 * tile_words; e += NT) tile_s[e] = 0.f;
+  zero_tile(k_s, DKDV_ROWS * KS, tid, NT);
+  __syncthreads();
+  stage_rows(k_s, KS, P_bh + key0 * row + DKH, row, kn, DKH, vec, tid, NT);
+  stage_dv(v_s, P_bh + key0 * row + 2 * DKH, row, dvh, kn, DKDV_ROWS, tid, NT);
+
+  // the cp.async part of query tile i0 into buffer buf
+  auto stage_async = [&](int i0, int buf) {
+    float* rel_s = tile_s + buf * tile_words;
+    float* ld_s = rel_s + TN * rel_stride;
+    bf16* q_s = reinterpret_cast<bf16*>(ld_s + TN * 2);
+    const int qn = min(TN, hw - i0);
+    stage_rows(q_s, KS, P_bh + i0 * row, row, qn, DKH, vec, tid, NT);
+    if (qn < TN) zero_rows(q_s, KS, qn, TN, DKH, tid, NT);
+    stage_ld(ld_s, lse + bh_tok + i0, delta + bh_tok + i0, qn, TN, tid, NT);
+    if (relative) {  // rows past hw keep finite values (zeros, or an earlier tile's): their p is 0
+      const float* rc_b = rc + (bh_tok + i0) * WH;
+      if (rc16)
+        cp_rows<16>(rel_s, rel_stride * 4, rc_b, static_cast<size_t>(WH) * 4, qn, WH >> 2, tid,
+                    NT);
+      else
+        cp_rows<4>(rel_s, rel_stride * 4, rc_b, static_cast<size_t>(WH) * 4, qn, WH, tid, NT);
+    }
+  };
+  auto dout_of = [&](int buf) {
+    return reinterpret_cast<bf16*>(tile_s + buf * tile_words + TN * rel_stride + TN * 2) +
+           TN * KS;
+  };
+  bf16 dv_regs[NDV];
+  stage_async(0, 0);
+  load_dv(dv_regs, do_bh, do_row, dvh, min(TN, hw), tid, NT);
+  store_dv(dout_of(0), dv_regs, tid, NT);
+  cp_async_wait();
+  __syncthreads();
+  DkdvWarp st;
+  dkdv_init(st, k_s, v_s, key0, hw, W, warp, lane);
+
+  int buf = 0;
+  for (int i0 = 0; i0 < hw; i0 += TN, buf ^= 1) {
+    cp_async_wait();
+    __syncthreads();  // tile i0 has landed; the other buffer's tile is consumed
+    const int next = i0 + TN;
+    if (next < hw) {
+      stage_async(next, buf ^ 1);
+      load_dv(dv_regs, do_bh + next * do_row, do_row, dvh, min(TN, hw - next), tid, NT);
+    }
+    const float* rel_s = tile_s + buf * tile_words;
+    const float* ld_s = rel_s + TN * rel_stride;
+    const bf16* q_s = reinterpret_cast<const bf16*>(ld_s + TN * 2);
+    dkdv_step(st, q_s, KS, dout_of(buf), ld_s, rel_s, rel_stride, W, min(TN, hw - i0), lane);
+    if (next < hw) store_dv(dout_of(buf ^ 1), dv_regs, tid, NT);
+  }
+
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = key0 + dkdv_key(warp, lane, i);
+    if (j < hw) {
+      bf16* dkv = dP + bh + j * row + DKH;  // [dk ; dv ; 0-pad] of key j
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        const int d = nd * 8 + 2 * t;
+        if (d < DKH) {
+          dkv[d] = __float2bfloat16(st.dk[nd][2 * i]);
+          dkv[d + 1] = __float2bfloat16(st.dk[nd][2 * i + 1]);
+        }
+      }
+      if (2 * t < dvh) dkv[DKH + 2 * t] = __float2bfloat16(st.dv[2 * i]);
+      if (2 * t + 1 < dvh) dkv[DKH + 2 * t + 1] = __float2bfloat16(st.dv[2 * i + 1]);
+      // the pad lanes meet zero weight rows in the projection's backward:
+      // they are written, as zeros, so that nothing uninitialized reaches it
+      for (int e = DKH + dvh + t; e < slot - DKH; e += 4) dkv[e] = __float2bfloat16(0.f);
+    }
+  }
+}
+
+inline size_t dq_smem(int rel_stride, int W, int H) {
+  const size_t emb = static_cast<size_t>(emb_rows(W) + emb_rows(H)) * KS * sizeof(bf16);
+  const size_t queries = static_cast<size_t>(DQ_ROWS * (KS + VS)) * sizeof(bf16) + emb;
+  const size_t keys = key_table_words(bin_tiles(W, H)) * sizeof(int) +
+                      static_cast<size_t>(TN * (KS + VS)) * sizeof(bf16);
+  return static_cast<size_t>(DQ_ROWS * rel_stride + DQ_ROWS * 2) * sizeof(float) + emb +
+         (queries > keys ? queries : keys);
+}
+
+inline size_t dkdv_smem(int rel_stride) {
+  return 2 * (static_cast<size_t>(TN * rel_stride + TN * 2) * sizeof(float) +
+              static_cast<size_t>(TN * (KS + VS)) * sizeof(bf16)) +
+         static_cast<size_t>(DKDV_ROWS * (KS + VS)) * sizeof(bf16);
+}
+
+// Whether the q / k rows of P can be copied 8 bytes at a time.
+inline int slots_aligned(const void* P, int slot) {
+  return slot % 4 == 0 && reinterpret_cast<uintptr_t>(P) % 8 == 0;
+}
+
+template <int NBT>
+int launch_dq_nbt(const void* P, const void* Rw, const void* Rh, const void* dout,
+                  const void* lse, const void* delta, const void* tab, void* dP, void* drc,
+                  void* rc, int B, int hw, int H, int W, int nh, int slot, int dvh,
+                  void* stream) {
+  const int rel_stride = rel_stride_of(W, H);
+  const size_t smem = dq_smem(rel_stride, W, H);
+  auto kern = hil_attention_bwd_dq_mma_kernel<NBT>;
+  const cudaError_t e = amma::allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((hw + DQ_ROWS - 1) / DQ_ROWS, nh, B);
+  kern<<<grid, DQ_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(P), static_cast<const float*>(Rw), static_cast<const float*>(Rh),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(tab), static_cast<bf16*>(dP),
+      static_cast<float*>(drc), static_cast<float*>(rc), hw, H, W, nh, slot, dvh, rel_stride,
+      slots_aligned(P, slot));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dq(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
+              const void* delta, const void* tab, void* dP, void* drc, void* rc, int B, int hw,
+              int H, int W, int nh, int slot, int dvh, void* stream) {
+  if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = bin_tiles(W, H);
+  if (nb <= 4)
+    return launch_dq_nbt<4>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W, nh,
+                            slot, dvh, stream);
+  if (nb <= 10)
+    return launch_dq_nbt<10>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W, nh,
+                             slot, dvh, stream);
+  return launch_dq_nbt<MAX_BIN_TILES>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H,
+                                      W, nh, slot, dvh, stream);
+}
+
+int launch_dkdv(const void* P, const void* dout, const void* lse, const void* delta,
+                const void* rc, void* dP, int B, int hw, int H, int W, int nh, int slot,
+                int dvh, void* stream) {
+  const int rel_stride = rel_stride_of(W, H);
+  const size_t smem = dkdv_smem(rel_stride);
+  auto kern = hil_attention_bwd_dkdv_mma_kernel;
+  const cudaError_t e = amma::allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((hw + DKDV_ROWS - 1) / DKDV_ROWS, nh, B);
+  const int rc16 = (W + H) % 4 == 0 && reinterpret_cast<uintptr_t>(rc) % 16 == 0;
+  kern<<<grid, DKDV_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(P), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(rc), static_cast<bf16*>(dP), hw, H, W, nh, slot, dvh,
+      rel_stride, slots_aligned(P, slot), rc16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mma_passes
+}  // namespace
 
 namespace {
 
@@ -61,7 +493,6 @@ constexpr int T1 = 128;   // pass 1: keys per block, one thread each
 constexpr int TQ1 = 64;   // pass 1: queries per shared-memory tile
 constexpr int T2 = 64;    // pass 2: queries per block, one thread each
 constexpr int TK2 = 64;   // pass 2: keys per shared-memory tile
-constexpr int T3 = 256;   // pass 3: entries of dRw / dRh per block
 
 template <typename T>
 __global__ void __launch_bounds__(T1)
@@ -267,41 +698,58 @@ hil_attention_bwd_dq_kernel(const T* __restrict__ P, const float* __restrict__ R
   }
 }
 
-// One entry of dRw (blockIdx.y < W: the block of column blockIdx.y) or of dRh
-// (above: the block of row blockIdx.y - W) for one batch element.
+// The (dkh, n) block of dRw (blockIdx.x < W: image column blockIdx.x, n = W)
+// or of dRh (above: image row blockIdx.x - W, n = H) for one batch element. A
+// thread owns one lane m of the block's dRC rows and a share of the heads, and
+// holds all dkh sums of that lane: each dRC entry is read once, the q lanes of
+// a token are the same address for every thread of a head. The heads' partial
+// sums meet in shared memory and are added in a fixed order.
 template <typename T>
-__global__ void __launch_bounds__(T3)
-hil_attention_bwd_drel_kernel(const T* __restrict__ P, const float* __restrict__ drc,
-                              float* __restrict__ part, int hw, int H, int W, int nh,
-                              int slot) {
-  const int b = blockIdx.z;
-  const bool is_w = static_cast<int>(blockIdx.y) < W;
+__global__ void hil_attention_bwd_drel_kernel(const T* __restrict__ P,
+                                              const float* __restrict__ drc,
+                                              float* __restrict__ part, int hw, int H, int W,
+                                              int nh, int slot, int hsplit) {
+  extern __shared__ float red_s[];  // hsplit x DKH x n
+  const int b = blockIdx.y;
+  const bool is_w = static_cast<int>(blockIdx.x) < W;
   const int n = is_w ? W : H;                      // width of the block's rows
-  const int idx = is_w ? blockIdx.y : blockIdx.y - W;
-  const int e = blockIdx.x * T3 + threadIdx.x;
-  if (e >= DKH * n) return;
-  const int d = e / n, m = e - d * n;
+  const int idx = is_w ? blockIdx.x : blockIdx.x - W;
+  const int m = threadIdx.x % n, hy = threadIdx.x / n;
   const int WH = W + H;
   const int ntok = is_w ? H : W;                   // tokens of one column / row
   const int t0 = is_w ? idx : idx * W;
   const int tstep = is_w ? W : 1;
-  const int lane = is_w ? m : W + m;               // this entry's dRC lane
+  const int lane = is_w ? m : W + m;               // this thread's dRC lane
   const size_t row = static_cast<size_t>(nh) * slot;
-  float acc = 0.f;
-  for (int h = 0; h < nh; ++h) {
-    const T* q = P + static_cast<size_t>(b) * hw * row + static_cast<size_t>(h) * slot + d;
+  float acc[DKH];
+#pragma unroll
+  for (int d = 0; d < DKH; ++d) acc[d] = 0.f;
+  // the block has max(W, H) * hsplit threads: on the shorter axis some are spare
+  for (int h = hy < hsplit ? hy : nh; h < nh; h += hsplit) {
+    const T* q = P + static_cast<size_t>(b) * hw * row + static_cast<size_t>(h) * slot;
     const float* g = drc + (static_cast<size_t>(b) * nh + h) * hw * WH + lane;
 #pragma unroll 4
     for (int u = 0; u < ntok; ++u) {
       const size_t t = t0 + u * tstep;
-      acc = fmaf(to_f32(q[t * row]), g[t * WH], acc);
+      const float gv = g[t * WH];
+      const T* qt = q + t * row;
+#pragma unroll
+      for (int d = 0; d < DKH; ++d) acc[d] = fmaf(to_f32(qt[d]), gv, acc[d]);
     }
   }
+  if (hy < hsplit) {
+#pragma unroll
+    for (int d = 0; d < DKH; ++d) red_s[(hy * DKH + d) * n + m] = acc[d];
+  }
+  __syncthreads();
   const size_t per_b = static_cast<size_t>(DKH) * (W * W + H * H);
-  const size_t off = is_w ? static_cast<size_t>(idx * DKH + d) * W + m
-                          : static_cast<size_t>(DKH) * W * W +
-                                static_cast<size_t>(idx * DKH + d) * H + m;
-  part[b * per_b + off] = acc;
+  const size_t off = is_w ? static_cast<size_t>(idx) * DKH * W
+                          : static_cast<size_t>(DKH) * W * W + static_cast<size_t>(idx) * DKH * H;
+  for (int e = threadIdx.x; e < DKH * n; e += blockDim.x) {  // e = d * n + m
+    float sum = 0.f;
+    for (int y = 0; y < hsplit; ++y) sum += red_s[y * DKH * n + e];
+    part[b * per_b + off + e] = sum;
+  }
 }
 
 template <typename T>
@@ -353,38 +801,98 @@ int launch_drel(const void* P, const void* drc, void* part, int B, int hw, int H
   if (bad_shape(B, hw, H, W, nh, slot, dkh, 1) || W + H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n = W > H ? W : H;
-  const dim3 grid((DKH * n + T3 - 1) / T3, W + H, B);
-  hil_attention_bwd_drel_kernel<T><<<grid, T3, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  int hsplit = 1024 / n < nh ? 1024 / n : nh;  // heads that work side by side in a block
+  while (static_cast<size_t>(hsplit) * DKH * n * sizeof(float) > 48 * 1024 && hsplit > 1) --hsplit;
+  const size_t smem = static_cast<size_t>(hsplit) * DKH * n * sizeof(float);
+  auto kern = hil_attention_bwd_drel_kernel<T>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(W + H, B);
+  kern<<<grid, n * hsplit, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(P), static_cast<const float*>(drc), static_cast<float*>(part), hw,
-      H, W, nh, slot);
+      H, W, nh, slot, hsplit);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 entries take the tensor-core passes wherever pass dq is
+// instantiated for the map (ceil(W/8) + ceil(H/8) <= 16 bin tiles: every map
+// up to 64x64); a larger map takes the CUDA-core kernels above. rc is the RC
+// scratch (B, nh, hw, W+H) f32 that the tensor-core dq leaves and the
+// tensor-core dkdv reads, tab the key table of the map
+// (ops/fused_attention.py::key_table) that the tensor-core dq reads; the
+// CUDA-core kernels ignore both.
+bool mma_fits(int W, int H) { return amma::bin_tiles(W, H) <= amma::MAX_BIN_TILES; }
+
+int dkdv_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
+              const void* delta, void* dP, const void* rc, int B, int hw, int H, int W, int nh,
+              int slot, int dkh, int dvh, void* stream) {
+  if (!mma_fits(W, H))
+    return launch_dkdv<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, dP, B, hw, H, W, nh, slot,
+                                      dkh, dvh, stream);
+  if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr) ||
+      (Rw == nullptr) != (rc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return mma_passes::launch_dkdv(P, dout, lse, delta, rc, dP, B, hw, H, W, nh, slot, dvh,
+                                 stream);
+}
+
+int dq_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
+            const void* delta, const void* tab, void* dP, void* drc, void* rc, int B, int hw,
+            int H, int W, int nh, int slot, int dkh, int dvh, void* stream) {
+  if (!mma_fits(W, H))
+    return launch_dq<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, dP, drc, B, hw, H, W, nh, slot,
+                                    dkh, dvh, stream);
+  if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr) ||
+      (Rw == nullptr) != (drc == nullptr) || (Rw == nullptr) != (rc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return mma_passes::launch_dq(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W, nh,
+                               slot, dvh, stream);
 }
 
 }  // namespace
 
-#define DKDV_ENTRY(NAME, T)                                                                  \
-  extern "C" int NAME(const void* P, const void* Rw, const void* Rh, const void* dout,       \
-                      const void* lse, const void* delta, void* dP, int B, int hw, int H,    \
-                      int W, int nh, int slot, int dkh, int dvh, void* stream) {             \
-    return launch_dkdv<T>(P, Rw, Rh, dout, lse, delta, dP, B, hw, H, W, nh, slot, dkh, dvh,  \
-                          stream);                                                           \
-  }
-#define DQ_ENTRY(NAME, T)                                                                    \
-  extern "C" int NAME(const void* P, const void* Rw, const void* Rh, const void* dout,       \
-                      const void* lse, const void* delta, void* dP, void* drc, int B, int hw, \
-                      int H, int W, int nh, int slot, int dkh, int dvh, void* stream) {      \
-    return launch_dq<T>(P, Rw, Rh, dout, lse, delta, dP, drc, B, hw, H, W, nh, slot, dkh,    \
-                        dvh, stream);                                                        \
-  }
+extern "C" int hil_attention_bwd_dkdv_f32(const void* P, const void* Rw, const void* Rh,
+                                          const void* dout, const void* lse, const void* delta,
+                                          void* dP, const void* rc, int B, int hw, int H, int W,
+                                          int nh, int slot, int dkh, int dvh, void* stream) {
+  (void)rc;
+  return launch_dkdv<float>(P, Rw, Rh, dout, lse, delta, dP, B, hw, H, W, nh, slot, dkh, dvh,
+                            stream);
+}
+
+extern "C" int hil_attention_bwd_dkdv_bf16(const void* P, const void* Rw, const void* Rh,
+                                           const void* dout, const void* lse, const void* delta,
+                                           void* dP, const void* rc, int B, int hw, int H, int W,
+                                           int nh, int slot, int dkh, int dvh, void* stream) {
+  return dkdv_bf16(P, Rw, Rh, dout, lse, delta, dP, rc, B, hw, H, W, nh, slot, dkh, dvh, stream);
+}
+
+extern "C" int hil_attention_bwd_dq_f32(const void* P, const void* Rw, const void* Rh,
+                                        const void* dout, const void* lse, const void* delta,
+                                        const void* tab, void* dP, void* drc, void* rc, int B,
+                                        int hw, int H, int W, int nh, int slot, int dkh,
+                                        int dvh, void* stream) {
+  (void)tab;
+  (void)rc;
+  return launch_dq<float>(P, Rw, Rh, dout, lse, delta, dP, drc, B, hw, H, W, nh, slot, dkh, dvh,
+                          stream);
+}
+
+extern "C" int hil_attention_bwd_dq_bf16(const void* P, const void* Rw, const void* Rh,
+                                         const void* dout, const void* lse, const void* delta,
+                                         const void* tab, void* dP, void* drc, void* rc, int B,
+                                         int hw, int H, int W, int nh, int slot, int dkh,
+                                         int dvh, void* stream) {
+  return dq_bf16(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W, nh, slot, dkh, dvh,
+                 stream);
+}
+
 #define DREL_ENTRY(NAME, T)                                                                  \
   extern "C" int NAME(const void* P, const void* drc, void* part, int B, int hw, int H,      \
                       int W, int nh, int slot, int dkh, void* stream) {                      \
     return launch_drel<T>(P, drc, part, B, hw, H, W, nh, slot, dkh, stream);                 \
   }
 
-DKDV_ENTRY(hil_attention_bwd_dkdv_f32, float)
-DKDV_ENTRY(hil_attention_bwd_dkdv_bf16, __nv_bfloat16)
-DQ_ENTRY(hil_attention_bwd_dq_f32, float)
-DQ_ENTRY(hil_attention_bwd_dq_bf16, __nv_bfloat16)
 DREL_ENTRY(hil_attention_bwd_drel_f32, float)
 DREL_ENTRY(hil_attention_bwd_drel_bf16, __nv_bfloat16)

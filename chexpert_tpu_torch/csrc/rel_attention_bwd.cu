@@ -9,39 +9,296 @@
 //   dv = p^T dout,  dp = dout v^T,  ds = p (dp - delta),  dk = ds^T q
 //   dqr = [ds k ; dRW ; dRH],  dRW[i, c] = sum_{col(j)=c} ds[i, j],
 //                              dRH[i, r] = sum_{row(j)=r} ds[i, j]
-// Outputs are in the operand dtype; all arithmetic is f32.
+// Outputs are in the operand dtype; every sum is f32.
 //
 // The TPU kernel accumulates dqr across key-block programs into one block
 // that stays resident in VMEM, relying on its sequential grid (:283-299).
 // Blocks on the GPU run concurrently and see no partial sums of others, so
 // the work is split into two passes, each owning its outputs outright
-// (FlashAttention-2 style; deterministic, no atomics):
-//   pass 1 (dkdv): one thread per key, a block per (bn, 128-key tile); the
-//     thread loops over every query, staged 64 at a time in shared memory,
-//     and writes its key's dk and dv once;
-//   pass 2 (dq):   one thread per query, a block per (bn, 64-query tile);
-//     the thread loops over every key, staged 64 at a time, and accumulates
-//     dq in registers and its own row of W+H bins (dRW by key column, dRH
-//     by key row) in shared memory, which no other thread touches; dRH is
-//     summed in a register along a key row and flushed when the row ends.
-// Both passes recompute S and p. The ragged key/query tails are skipped by
-// index and padded rows are never written; no padded copy exists. dvh 1..8
-// share one path (the TPU's dv1 row layout is a lane trick with no GPU
-// counterpart). No one-hot operand exists: RW/RH are read by index.
+// (FlashAttention-2 style; deterministic, no atomics): pass dkdv owns a tile
+// of keys and walks every query, pass dq owns a tile of queries and walks
+// every key; both recompute S and p. The ragged tails are masked and padded
+// rows are never written; no padded copy exists. dvh 1..8 share one path.
 //
-// Bound on the H100 (SXM: 3.35 TB/s, 989 TFLOP/s bf16 tensor, 67 TFLOP/s f32
-// non-tensor) at the aadensenet121 320x320 training geometries, bn = 128
+// Two sets of kernels, chosen by the operand dtype:
+//   bf16 (what autocast training hands over): the tensor-core passes of
+//     attention_bwd_mma.cuh. dkdv: 8 warps own 128 keys, S^T = k q^T with the
+//     keys as fragment rows; dq: 4 warps own 64 queries, S = q k^T; p and ds
+//     stay in registers as A fragments of the next products; the dRW / dRH
+//     bins are ds times a one-hot of the keys' image column and row, whose B
+//     fragments come ready-made from a table of the map (KeyTable). A tile of
+//     queries is staged as whole qr rows (8-byte cp.async where L is a
+//     multiple of 4): q and the bf16 RC lanes are read from the same rows. A
+//     map with ceil(W/8) + ceil(H/8) > 16 (past 64x64) takes the CUDA-core
+//     kernels below.
+//   f32 (the card's own reference route, held to 1e-4): the CUDA-core passes,
+//     one thread per key (dkdv, 128-key blocks) or per query (dq, 64-query
+//     blocks, its own row of W+H bins in shared memory), all arithmetic f32.
+//
+// Bound on the H100 (SXM: 3.35 TB/s, 989 TFLOP/s bf16 tensor) at bn = 128
 // (batch 16 x 8 heads), bf16, counting 6*dkh + 4*dvh + 8 operations per
 // (query, key) pair for the whole backward: 40x40 dvh 1 -> 43 GFLOP, 0.044 ms
-// at the bf16 rate against ~0.020 ms of bytes (bound by operations); 20x20
-// and 10x10 are bound by bytes. This first version computes on the f32 CUDA
-// cores (floor ~0.65 ms at 40x40); moving the dots onto mma.sync / wgmma is
-// a later change.
+// against ~0.020 ms of bytes (operations); 20x20 and 10x10 are bound by
+// bytes. The CUDA-core bf16 passes took 1.84 (dkdv) and 2.53 ms (dq) at 40x40;
+// the tensor-core passes take about 0.54 and 0.58 ms (0.050 / 0.053 at 20x20,
+// 0.010 / 0.010 at 10x10; scripts/bench_attention_bwd_torch.py, NVIDIA H100
+// 80GB HBM3 at 700 W). What bounds them now is the scalar work around
+// the MMAs, not the tensor pipe (the padded products, dkh 20 -> 32, dvh ->
+// 16, the 8-wide bin tiles, are ~400 tensor operations per pair, 0.13 ms at
+// the card's peak): per 16 x 8 piece of S a warp runs 3 MMAs, 5 fragment
+// reads, 6-8 reads and conversions of RC lanes, 4 ex2 and the pack to bf16,
+// about 80 operations, then per 16 keys 3-4 ldmatrix and MMAs (dq or dk,
+// dv) and in dq 4-5 table reads with their bin MMAs; the SMs start about 2
+// of the 4 operations a clock they could, at 16 warps each. -Xptxas -v: dq
+// 94 / 124 / 141 registers (for <= 4 / 10 / 16 bin tiles), 32 KB of shared
+// memory at 40x40 (4 blocks of 128 threads per SM, by registers); dkdv 128
+// registers under __launch_bounds__(256, 2), 42 KB (tighter bounds spill and
+// lose).
+// dkdv double-buffers its query tiles (0.605 -> 0.541 ms at 40x40) and gives
+// a thread two neighbouring keys, whose RC lanes come in one load (-> 0.537).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attention_bwd_mma.cuh"
 
-#include <cstddef>
+// ---------------------------------------------------------------------------
+// The bf16 passes dq and dkdv on the tensor cores (attention_bwd_mma.cuh).
+
+namespace {
+namespace mma_passes {
+
+using namespace amma;
+
+// The bf16 row stride of a tile of whole qr rows [q ; RW ; RH]: >= L and >= 32
+// (the q fragments read 32 columns; what lies past DKH meets the zeros of k),
+// and = 8 mod 16, which keeps rows 16-byte aligned for ldmatrix and spreads
+// the fragment reads (rows g, words t) and the RC reads over the banks.
+inline int qr_stride_of(int L) {
+  const int x = L > 32 ? L : 32;
+  return x + ((8 - x % 16) + 16) % 16;
+}
+
+// Pass dq. A block owns DQ_ROWS queries of one (batch, head), walks the keys
+// TN at a time and writes its dqr rows [ds k ; dRW ; dRH] once. Its qr rows
+// are staged whole: q and the RC lanes (bf16) are read from the same tile.
+// vecq / veck: the qr rows / the k rows are 8-byte aligned (cp.async).
+template <int NBT>
+__global__ void __launch_bounds__(DQ_WARPS * 32)
+rel_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qr, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                const int* __restrict__ tab, bf16* __restrict__ dqr, int hw, int H,
+                                int W, int dvh, int LP, int vecq, int veck) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int WH = W + H, L = DKH + WH, nbw = (W + 7) / 8, nbt = nbw + (H + 7) / 8;
+  float* ld_s = reinterpret_cast<float*>(smem_raw);   // DQ_ROWS x 2
+  int* tab_s = reinterpret_cast<int*>(ld_s + DQ_ROWS * 2);  // one row of the key table
+  bf16* qr_s = reinterpret_cast<bf16*>(tab_s + key_table_words(nbt));  // DQ_ROWS x LP
+  bf16* do_s = qr_s + DQ_ROWS * LP;                   // DQ_ROWS x VS
+  bf16* k_s = do_s + DQ_ROWS * VS;                    // TN x KS
+  bf16* v_s = k_s + TN * KS;                          // TN x VS
+  // after the loop the same memory holds the block's sums
+  float* bin_s = reinterpret_cast<float*>(smem_raw);  // DQ_ROWS x WH
+  float* dq_s = bin_s + DQ_ROWS * WH;                 // DQ_ROWS x DQS
+
+  constexpr int NT = DQ_WARPS * 32;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * DQ_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qn = min(DQ_ROWS, hw - q0);
+  const size_t tok = static_cast<size_t>(b) * hw;  // first token row of this (batch, head)
+  const bf16* k_b = k + tok * DKH;
+  const bf16* v_b = v + tok * dvh;
+
+  zero_tile(qr_s, DQ_ROWS * LP, tid, NT);  // the rows past hw and the columns past L
+  zero_tile(k_s, TN * KS, tid, NT);        // the columns past DKH stay zero
+  __syncthreads();
+  stage_rows(qr_s, LP, qr + (tok + q0) * L, L, qn, L, vecq, tid, NT);
+  stage_dv(do_s, dout + (tok + q0) * dvh, dvh, dvh, qn, DQ_ROWS, tid, NT);
+  stage_ld(ld_s, lse + tok + q0, delta + tok + q0, qn, DQ_ROWS, tid, NT);
+  cp_async_wait();
+  __syncthreads();
+
+  DqWarp<NBT> st;
+  dq_init(st, qr_s, LP, do_s, ld_s, warp, lane);
+  for (int j0 = 0; j0 < hw; j0 += TN) {
+    const int kn = min(TN, hw - j0);
+    __syncthreads();  // the previous key tile is consumed
+    stage_rows(k_s, KS, k_b + static_cast<size_t>(j0) * DKH, DKH, kn, DKH, veck, tid, NT);
+    if (kn < TN) zero_rows(k_s, KS, kn, TN, DKH, tid, NT);
+    stage_dv(v_s, v_b + static_cast<size_t>(j0) * dvh, dvh, dvh, kn, TN, tid, NT);
+    stage_key_table(tab_s, tab, j0 / TN, nbt, tid, NT);
+    cp_async_wait();
+    __syncthreads();
+    dq_step(st, k_s, v_s, key_table_at(tab_s, nbt), qr_s + DKH, LP, W, nbt, kn, warp, lane);
+  }
+  __syncthreads();  // every warp is done with the tiles: their memory becomes the sums
+  dq_dump(st, dq_s, warp, lane);
+  bins_dump(st, bin_s, WH, W, H, nbw, warp, lane);
+  __syncthreads();
+
+  bf16* dqr_q = dqr + (tok + q0) * L;
+  for (int e = tid; e < qn * L; e += NT) {
+    const int r = e / L, c = e - r * L;
+    const float x = c < DKH ? dq_s[r * DQS + c] : bin_s[r * WH + c - DKH];
+    dqr_q[e] = __float2bfloat16(x);
+  }
+}
+
+// Pass dkdv. A block owns DKDV_ROWS keys of one (batch, head), walks the
+// queries TN at a time (whole qr rows, as in pass dq) and writes its keys' dk
+// and dv once.
+__global__ void __launch_bounds__(DKDV_WARPS * 32, 2)
+rel_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ qr, const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                  bf16* __restrict__ dk, bf16* __restrict__ dv, int hw, int H,
+                                  int W, int dvh, int LP, int vecq, int veck) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // two buffers of a query tile: ld (TN x 2 f32), qr (TN x LP), dout (TN x VS)
+  const int tile_words = TN * 2 + (TN * (LP + VS)) / 2;
+  float* tile_s = reinterpret_cast<float*>(smem_raw);
+  bf16* k_s = reinterpret_cast<bf16*>(tile_s + 2 * tile_words);  // DKDV_ROWS x KS
+  bf16* v_s = k_s + DKDV_ROWS * KS;                   // DKDV_ROWS x VS
+
+  constexpr int NT = DKDV_WARPS * 32;
+  constexpr int NDV = TN * VS / NT;
+  const int b = blockIdx.y;
+  const int key0 = blockIdx.x * DKDV_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kn = min(DKDV_ROWS, hw - key0);
+  const int L = DKH + W + H;
+  const size_t tok = static_cast<size_t>(b) * hw;
+  const bf16* qr_b = qr + tok * L;
+  const bf16* do_b = dout + tok * dvh;
+
+  for (int e = tid; e < 2 * tile_words; e += NT) tile_s[e] = 0.f;  // rows past hw, columns past L
+  zero_tile(k_s, DKDV_ROWS * KS, tid, NT);   // the columns past DKH and the rows past hw
+  __syncthreads();
+  stage_rows(k_s, KS, k + (tok + key0) * DKH, DKH, kn, DKH, veck, tid, NT);
+  stage_dv(v_s, v + (tok + key0) * dvh, dvh, dvh, kn, DKDV_ROWS, tid, NT);
+
+  // the cp.async part of query tile i0 into buffer buf
+  auto stage_async = [&](int i0, int buf) {
+    float* ld_s = tile_s + buf * tile_words;
+    bf16* qr_s = reinterpret_cast<bf16*>(ld_s + TN * 2);
+    const int qn = min(TN, hw - i0);
+    stage_rows(qr_s, LP, qr_b + static_cast<size_t>(i0) * L, L, qn, L, vecq, tid, NT);
+    if (qn < TN) zero_rows(qr_s, LP, qn, TN, L, tid, NT);
+    stage_ld(ld_s, lse + tok + i0, delta + tok + i0, qn, TN, tid, NT);
+  };
+  auto dout_of = [&](int buf) {
+    return reinterpret_cast<bf16*>(tile_s + buf * tile_words + TN * 2) + TN * LP;
+  };
+  bf16 dv_regs[NDV];
+  stage_async(0, 0);
+  load_dv(dv_regs, do_b, dvh, dvh, min(TN, hw), tid, NT);
+  store_dv(dout_of(0), dv_regs, tid, NT);
+  cp_async_wait();
+  __syncthreads();
+  DkdvWarp st;
+  dkdv_init(st, k_s, v_s, key0, hw, W, warp, lane);
+
+  int buf = 0;
+  for (int i0 = 0; i0 < hw; i0 += TN, buf ^= 1) {
+    cp_async_wait();
+    __syncthreads();  // tile i0 has landed; the other buffer's tile is consumed
+    const int next = i0 + TN;
+    if (next < hw) {
+      stage_async(next, buf ^ 1);
+      load_dv(dv_regs, do_b + static_cast<size_t>(next) * dvh, dvh, dvh, min(TN, hw - next), tid,
+              NT);
+    }
+    const float* ld_s = tile_s + buf * tile_words;
+    const bf16* qr_s = reinterpret_cast<const bf16*>(ld_s + TN * 2);
+    dkdv_step(st, qr_s, LP, dout_of(buf), ld_s, qr_s + DKH, LP, W, min(TN, hw - i0), lane);
+    if (next < hw) store_dv(dout_of(buf ^ 1), dv_regs, tid, NT);
+  }
+
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = key0 + dkdv_key(warp, lane, i);
+    if (j < hw) {
+      bf16* dk_j = dk + (tok + j) * DKH;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        const int d = nd * 8 + 2 * t;
+        if (d < DKH) {
+          dk_j[d] = __float2bfloat16(st.dk[nd][2 * i]);
+          dk_j[d + 1] = __float2bfloat16(st.dk[nd][2 * i + 1]);
+        }
+      }
+      bf16* dv_j = dv + (tok + j) * dvh;
+      if (2 * t < dvh) dv_j[2 * t] = __float2bfloat16(st.dv[2 * i]);
+      if (2 * t + 1 < dvh) dv_j[2 * t + 1] = __float2bfloat16(st.dv[2 * i + 1]);
+    }
+  }
+}
+
+inline int aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
+
+template <int NBT>
+int launch_dq_nbt(const void* qr, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, const void* tab, void* dqr, int bn, int hw,
+                  int H, int W, int dvh, void* stream) {
+  const int L = DKH + W + H, LP = qr_stride_of(L);
+  const size_t loop_bytes =
+      static_cast<size_t>(DQ_ROWS * 2) * sizeof(float) +
+      key_table_words(bin_tiles(W, H)) * sizeof(int) +
+      static_cast<size_t>(DQ_ROWS * (LP + VS) + TN * (KS + VS)) * sizeof(bf16);
+  const size_t sums_bytes = static_cast<size_t>(DQ_ROWS * (W + H + DQS)) * sizeof(float);
+  const size_t smem = loop_bytes > sums_bytes ? loop_bytes : sums_bytes;
+  auto kern = rel_attention_bwd_dq_mma_kernel<NBT>;
+  const cudaError_t e = amma::allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((hw + DQ_ROWS - 1) / DQ_ROWS, bn);
+  kern<<<grid, DQ_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qr), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(tab), static_cast<bf16*>(dqr),
+      hw, H, W, dvh, LP, L % 4 == 0 && aligned8(qr), aligned8(k));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dq(const void* qr, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, const void* tab, void* dqr, int bn, int hw, int H, int W,
+              int dvh, void* stream) {
+  if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = bin_tiles(W, H);
+  if (nb <= 4)
+    return launch_dq_nbt<4>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dvh, stream);
+  if (nb <= 10)
+    return launch_dq_nbt<10>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dvh, stream);
+  return launch_dq_nbt<MAX_BIN_TILES>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dvh,
+                                      stream);
+}
+
+int launch_dkdv(const void* qr, const void* k, const void* v, const void* dout, const void* lse,
+                const void* delta, void* dk, void* dv, int bn, int hw, int H, int W, int dvh,
+                void* stream) {
+  const int L = DKH + W + H, LP = qr_stride_of(L);
+  const size_t smem =
+      2 * (static_cast<size_t>(TN * 2) * sizeof(float) +
+           static_cast<size_t>(TN * (LP + VS)) * sizeof(bf16)) +
+      static_cast<size_t>(DKDV_ROWS * (KS + VS)) * sizeof(bf16);
+  auto kern = rel_attention_bwd_dkdv_mma_kernel;
+  const cudaError_t e = amma::allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((hw + DKDV_ROWS - 1) / DKDV_ROWS, bn);
+  kern<<<grid, DKDV_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qr), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), hw, H,
+      W, dvh, LP, L % 4 == 0 && aligned8(qr), aligned8(k));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mma_passes
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// The CUDA-core passes: the f32 entries, and bf16 maps too large for the
+// instantiations above.
 
 namespace {
 
@@ -313,23 +570,48 @@ int launch_dq(const void* qr, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 entries take the tensor-core passes wherever pass dq is
+// instantiated for the map (ceil(W/8) + ceil(H/8) <= 16 bin tiles: every map
+// up to 64x64); a larger map takes the CUDA-core kernels above.
+bool mma_fits(int W, int H) { return amma::bin_tiles(W, H) <= amma::MAX_BIN_TILES; }
+
 }  // namespace
 
-#define DKDV_ENTRY(NAME, T)                                                               \
-  extern "C" int NAME(const void* qr, const void* k, const void* v, const void* dout,     \
-                      const void* lse, const void* delta, void* dk, void* dv, int bn,     \
-                      int hw, int H, int W, int dkh, int dvh, void* stream) {             \
-    return launch_dkdv<T>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh,     \
-                          stream);                                                        \
-  }
-#define DQ_ENTRY(NAME, T)                                                                 \
-  extern "C" int NAME(const void* qr, const void* k, const void* v, const void* dout,     \
-                      const void* lse, const void* delta, void* dqr, int bn, int hw,      \
-                      int H, int W, int dkh, int dvh, void* stream) {                     \
-    return launch_dq<T>(qr, k, v, dout, lse, delta, dqr, bn, hw, H, W, dkh, dvh, stream); \
-  }
+extern "C" int rel_attention_bwd_dkdv_f32(const void* qr, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* delta,
+                                          void* dk, void* dv, int bn, int hw, int H, int W,
+                                          int dkh, int dvh, void* stream) {
+  return launch_dkdv<float>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh, stream);
+}
 
-DKDV_ENTRY(rel_attention_bwd_dkdv_f32, float)
-DKDV_ENTRY(rel_attention_bwd_dkdv_bf16, __nv_bfloat16)
-DQ_ENTRY(rel_attention_bwd_dq_f32, float)
-DQ_ENTRY(rel_attention_bwd_dq_bf16, __nv_bfloat16)
+extern "C" int rel_attention_bwd_dkdv_bf16(const void* qr, const void* k, const void* v,
+                                           const void* dout, const void* lse, const void* delta,
+                                           void* dk, void* dv, int bn, int hw, int H, int W,
+                                           int dkh, int dvh, void* stream) {
+  if (!mma_fits(W, H))
+    return launch_dkdv<__nv_bfloat16>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh,
+                                      stream);
+  if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
+  return mma_passes::launch_dkdv(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dvh, stream);
+}
+
+// tab: the key table of the map (ops/fused_attention.py::key_table), read by
+// the tensor-core pass alone.
+extern "C" int rel_attention_bwd_dq_f32(const void* qr, const void* k, const void* v,
+                                        const void* dout, const void* lse, const void* delta,
+                                        const void* tab, void* dqr, int bn, int hw, int H,
+                                        int W, int dkh, int dvh, void* stream) {
+  (void)tab;
+  return launch_dq<float>(qr, k, v, dout, lse, delta, dqr, bn, hw, H, W, dkh, dvh, stream);
+}
+
+extern "C" int rel_attention_bwd_dq_bf16(const void* qr, const void* k, const void* v,
+                                         const void* dout, const void* lse, const void* delta,
+                                         const void* tab, void* dqr, int bn, int hw, int H,
+                                         int W, int dkh, int dvh, void* stream) {
+  if (!mma_fits(W, H))
+    return launch_dq<__nv_bfloat16>(qr, k, v, dout, lse, delta, dqr, bn, hw, H, W, dkh, dvh,
+                                    stream);
+  if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
+  return mma_passes::launch_dq(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dvh, stream);
+}

@@ -13,6 +13,10 @@ Ports of the TPU kernels chexpert_tpu/ops/pallas_attention.py::_fwd_kernel
     torch ops. Nothing on the card path calls it; ``chip_smoke.py`` holds the
     kernels against it on the card.
 
+B2's two passes have two sets of kernels, chosen by the operand dtype alone:
+bf16 runs the tensor-core kernels (``csrc/attention_bwd_mma.cuh``), f32 the
+CUDA-core kernels, the card's reference route.
+
 ``RelAttention.apply`` is what a model calls: its forward is B1 and its
 backward B2, and it returns the packed cotangent d[q ; RW ; RH] whole, so the
 pack's own autograd carries dRW/dRH on to q and the relative embeddings (as
@@ -23,6 +27,7 @@ mode is on: its output has no ``grad_fn``, so gradients would be dropped.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -35,13 +40,70 @@ BWD_DKDV = "rel_attention_bwd_dkdv"
 BWD_DQ = "rel_attention_bwd_dq"
 SUPPORTED_DKH = (20,)  # head widths the kernels are instantiated for
 MAX_DVH = 8
+MMA_MAX_BIN_TILES = 16  # csrc/attention_bwd_mma.cuh MAX_BIN_TILES
+KEY_TILE = 64           # csrc/attention_bwd_mma.cuh TN: keys per row of the key table
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_BF16_ONE = 0x3F80      # 1.0 in bf16
 
 
 def key_positions(hw: int, W: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(col, row) image coordinates of each key token, row-major."""
     j = torch.arange(hw, device=device)
     return j % W, j // W
+
+
+def bin_tiles(H: int, W: int) -> int:
+    """8-wide tiles of the bins [dRC_w (W) | dRC_h (H)]: columns, then rows."""
+    return -(-W // 8) + -(-H // 8)
+
+
+def bwd_on_tensor_cores(dtype, H: int, W: int) -> bool:
+    """Whether the backward's dkdv and dq passes (B2's and B6's alike) run the
+    tensor-core kernels for this operand dtype and map: bf16, and a number of
+    bin tiles that pass dq is instantiated for (every map up to 64x64).
+    Otherwise the entries run the CUDA-core kernels (f32 always does). The
+    same rule is in the sources (``mma_fits``)."""
+    return dtype == torch.bfloat16 and bin_tiles(H, W) <= MMA_MAX_BIN_TILES
+
+
+@functools.lru_cache(maxsize=64)
+def key_table(H: int, W: int, device: torch.device) -> torch.Tensor:
+    """What the tensor-core dq pass needs to know of each tile of 64 keys: an
+    int32 table (tiles, words) that depends on the map alone, so it is built
+    once per (H, W, device) and kept. Per row (``KeyTable`` in
+    csrc/attention_bwd_mma.cuh):
+
+      [4 chunks of 16 keys][bin tiles][32 lanes][2]  the B fragments (b0, b1)
+          of mma.m16n8k16 for onehot(16 keys -> 8 bins) in bf16: lane 4g + t
+          holds bin 8*tile + g against keys 2t, 2t+1 (b0) and 2t+8, 2t+9 (b1),
+          the lower key in the low half; the bin tiles are those of the image
+          columns, then those of the image rows
+      [4]   per chunk, bit ``tile`` set where its keys touch that bin tile
+      [64]  per key, image column | row << 16 (0 past the last key)
+    """
+    hw, nbw, nbt = H * W, -(-W // 8), bin_tiles(H, W)
+    tiles = -(-hw // KEY_TILE)
+    key = torch.arange(tiles * KEY_TILE)
+    col = torch.where(key < hw, key % W, -1)
+    row = torch.where(key < hw, key // W, -1)
+    lane = torch.arange(32)
+    g, t = lane >> 2, lane & 3
+    tile = torch.arange(nbt)
+    is_col = tile < nbw
+    bins = (torch.where(is_col, tile, tile - nbw) * 8)[:, None] + g[None, :]  # (nbt, 32)
+    chunk0 = torch.arange(tiles * (KEY_TILE // 16)) * 16
+
+    def hit(offset):  # (chunks, nbt, 32): does key chunk0 + 2t + offset fall into the lane's bin
+        k = chunk0[:, None, None] + 2 * t[None, None, :] + offset
+        return (torch.where(is_col[None, :, None], col[k], row[k]) == bins[None]).long()
+
+    frags = torch.stack([hit(0) * _BF16_ONE | hit(1) * (_BF16_ONE << 16),
+                         hit(8) * _BF16_ONE | hit(9) * (_BF16_ONE << 16)], dim=-1)
+    touched = ((frags != 0).any(-1).any(-1).long() << tile[None, :]).sum(-1)  # (chunks,)
+    kpos = torch.where(key < hw, col | (row << 16), 0)
+    table = torch.cat([frags.reshape(tiles, -1), touched.reshape(tiles, -1),
+                       kpos.reshape(tiles, -1)], dim=1)
+    return table.to(torch.int32).contiguous().to(device)
 
 
 def _logits_plain(qr, k, H: int, W: int, dkh: int) -> torch.Tensor:
@@ -189,7 +251,10 @@ def rel_attention_bwd_dq(qr, k, v, dout, lse, delta, H: int, W: int, dkh: int):
     bn, hw, _ = qr.shape
     fn = _kernel_entry(BWD_DQ, BWD_SOURCE, (qr, k, v, dout), (lse, delta), dkh, v.shape[-1])
     dqr = torch.empty_like(qr)
-    kernels.launch(BWD_DQ, fn, [t.data_ptr() for t in (qr, k, v, dout, lse, delta, dqr)],
+    tab = key_table(H, W, qr.device) if bwd_on_tensor_cores(qr.dtype, H, W) else None
+    kernels.launch(BWD_DQ, fn,
+                   [None if t is None else t.data_ptr()
+                    for t in (qr, k, v, dout, lse, delta, tab, dqr)],
                    [bn, hw, H, W, dkh, v.shape[-1]], qr.device)
     return dqr
 

@@ -27,6 +27,12 @@ choice, the next multiple of 8 (16 bytes in bf16, so every slot starts on a
     torch ops. Nothing on the card path calls them; ``chip_smoke.py`` holds
     the kernels against them on the card.
 
+B6's dkdv and dq passes have two sets of kernels, chosen by the operand
+dtype alone: bf16 runs the tensor-core kernels (``bwd_on_tensor_cores``),
+whose dq pass computes each query's relative logits once and leaves them in
+an f32 scratch that the dkdv pass reads, so dq runs first; f32 runs the
+CUDA-core kernels, the card's reference route.
+
 ``HilAttention.apply`` is what a model calls: forward B5, backward B6's
 three passes, returning (dP, dRw, dRh); building Rw / Rh from the embeddings
 stays outside, under autograd, so dRw / dRh flow back to ``key_rel_w/h``.
@@ -41,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from chexpert_tpu_torch import kernels
-from chexpert_tpu_torch.ops.fused_attention import key_positions
+from chexpert_tpu_torch.ops.fused_attention import bwd_on_tensor_cores, key_positions, key_table
 
 FWD = "hil_attention_fwd"
 BWD_SOURCE = "hil_attention_bwd"  # one source, three kernels (passes)
@@ -249,26 +255,41 @@ def _check_bwd(P0, nh: int, dvh: int, dout, lse, delta):
                          f"{tuple(delta.shape)} do not match P0 {tuple(P0.shape)}")
 
 
-def hil_attention_bwd_dkdv(P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slot) -> None:
-    """Pass 1 of B6 on the card: writes the k, v and pad lanes of ``dP``."""
+def hil_attention_bwd_dkdv(P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slot,
+                           rc=None) -> None:
+    """Pass 1 of B6 on the card: writes the k, v and pad lanes of ``dP``. The
+    tensor-core kernel (``bwd_on_tensor_cores``) reads the queries' RC rows
+    from ``rc``, the scratch that pass 2 returns, so pass 2 runs first."""
     nh = _geometry(P0, Rw, Rh, H, W, dkh, dvh, slot)
     _check_bwd(P0, nh, dvh, dout, lse, delta)
-    fn = _kernel_entry(BWD_DKDV, BWD_SOURCE, (P0, dout, dP), (Rw, Rh, lse, delta), dkh, dvh)
-    kernels.launch(BWD_DKDV, fn, [_ptr(t) for t in (P0, Rw, Rh, dout, lse, delta, dP)],
+    if Rw is None or not bwd_on_tensor_cores(P0.dtype, H, W):
+        rc = None
+    elif rc is None or rc.shape != (P0.shape[0], nh, H * W, W + H):
+        raise ValueError(f"{BWD_DKDV}: needs the RC scratch (B, nh, HW, W+H) of "
+                         f"{BWD_DQ}, got {None if rc is None else tuple(rc.shape)}")
+    fn = _kernel_entry(BWD_DKDV, BWD_SOURCE, (P0, dout, dP), (Rw, Rh, lse, delta, rc), dkh, dvh)
+    kernels.launch(BWD_DKDV, fn, [_ptr(t) for t in (P0, Rw, Rh, dout, lse, delta, dP, rc)],
                    [P0.shape[0], H * W, H, W, nh, slot, dkh, dvh], P0.device)
 
 
 def hil_attention_bwd_dq(P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slot):
-    """Pass 2 of B6 on the card: writes the q lanes of ``dP``; returns the
-    dRC rows (B, nh, HW, W+H) f32 that pass 3 reads (None without Rw)."""
+    """Pass 2 of B6 on the card: writes the q lanes of ``dP``; returns
+    (dRC, RC), both (B, nh, HW, W+H) f32: the dRC rows that pass 3 reads (None
+    without Rw) and the RC rows that the tensor-core pass 1 reads (None
+    without Rw or where the CUDA-core kernels run)."""
     nh = _geometry(P0, Rw, Rh, H, W, dkh, dvh, slot)
     _check_bwd(P0, nh, dvh, dout, lse, delta)
     fn = _kernel_entry(BWD_DQ, BWD_SOURCE, (P0, dout, dP), (Rw, Rh, lse, delta), dkh, dvh)
-    drc = None if Rw is None else torch.empty((P0.shape[0], nh, H * W, W + H),
-                                              dtype=torch.float32, device=P0.device)
-    kernels.launch(BWD_DQ, fn, [_ptr(t) for t in (P0, Rw, Rh, dout, lse, delta, dP, drc)],
+    shape = (P0.shape[0], nh, H * W, W + H)
+    drc = None if Rw is None else torch.empty(shape, dtype=torch.float32, device=P0.device)
+    mma = bwd_on_tensor_cores(P0.dtype, H, W)
+    rc = (torch.empty(shape, dtype=torch.float32, device=P0.device)
+          if Rw is not None and mma else None)
+    tab = key_table(H, W, P0.device) if mma else None
+    kernels.launch(BWD_DQ, fn,
+                   [_ptr(t) for t in (P0, Rw, Rh, dout, lse, delta, tab, dP, drc, rc)],
                    [P0.shape[0], H * W, H, W, nh, slot, dkh, dvh], P0.device)
-    return drc
+    return drc, rc
 
 
 def hil_attention_bwd_drel(P0, drc, H: int, W: int, dkh: int, slot: int):
@@ -297,8 +318,8 @@ def hil_attention_bwd(P0, Rw, Rh, out, lse, dout, H: int, W: int, dkh: int, dvh:
     delta = hil_attention_delta(out, dout, nh)
     dP = torch.empty_like(P0)  # every lane is written by exactly one pass
     args = (P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slot)
-    hil_attention_bwd_dkdv(*args)
-    drc = hil_attention_bwd_dq(*args)
+    drc, rc = hil_attention_bwd_dq(*args)
+    hil_attention_bwd_dkdv(*args, rc=rc)
     if Rw is None:
         return dP, None, None
     return (dP, *hil_attention_bwd_drel(P0, drc, H, W, dkh, slot))

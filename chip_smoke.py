@@ -15,9 +15,12 @@ Run from the root of a checkout. Phases, each failing the run on error:
    (scaled_dot_product_attention with the relative bias materialized).
 3. kernel B2: B1 and the backward kernel's two passes (dk/dv, then dq with
    the dRW/dRH bins) at the same geometries with bn = 128 (the training
-   batch 16 x 8 heads), in f32 and bf16, against their plain versions; times
-   each pass, its plain version, B1 at bn 128, and the backward of the
-   library call with a bias that requires grad.
+   batch 16 x 8 heads), in f32 and bf16, against their plain versions; device
+   time (CUDA-graph replay) of each pass beside its eager time, its plain
+   version, B1 at bn 128, and the backward of the library call with a bias
+   that requires grad (device time: the profiler's sum over the kernels of
+   eager calls; events around them beside it). The bf16 passes are the
+   tensor-core kernels, the f32 passes the CUDA-core ones.
 4. serve: aadensenet121 at 320x320 with seeded random weights, saved by the
    port's checkpoint store and served by chexpert_tpu_torch.cli.serve on the
    card in bf16; JPEG requests over HTTP; launch counts must show every
@@ -71,8 +74,8 @@ Run from the root of a checkout. Phases, each failing the run on error:
    lane of dP, the pad lanes exactly 0; dRw, dRh); device time of each
    beside its plain version, its bound, the library call
    (scaled_dot_product_attention with the bias materialized, the head-split
-   and head-merge copies from and to the packed layout included) and B1 /
-   B2 at the same geometry and batch.
+   and head-merge copies from and to the packed layout included; its backward
+   by device time as in phase 3) and B1 / B2 at the same geometry and batch.
 12. serve aaresnet152 (Bottleneck (3, 8, 36, 3), 47 AA convs) at 320x320,
    bf16, micro-batch 4, over HTTP as in phase 4, once under
    CHEXPERT_ATTN_LAYOUT=hil (47 B5 launches per forward and no other
@@ -89,8 +92,8 @@ Run from the root of a checkout. Phases, each failing the run on error:
    einsum route, over all 47 AA convs on their captured inputs and upstream
    gradients: every gradient within 1e-3; whole model reported.
 
-The phases take about 110 s on an H100, the build included (the run prints
-its own time). The last lines are one {"kernels": [...]} JSON line, the nvidia-smi line, and
+The phases take two to three minutes on an H100, the build included (the run
+prints its own time). The last lines are one {"kernels": [...]} JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is available or the port is not importable.
 """
@@ -231,6 +234,30 @@ def device_ms(fn, reps: int = 10, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def profiled_device_ms(fn, reps: int = 5) -> float:
+    """Device time per call of an eager function that cannot be captured in a
+    CUDA graph (autograd's engine syncs with the stream its leaves were made
+    on, which a capture forbids): the profiler's sum of device time over every
+    kernel and copy of reps calls, host gaps between them left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    total_us = sum(getattr(e, attr) for e in avgs
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    if total_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total_us / 1e3 / reps
+
+
 def kernel_inputs(H, W, dvh, dtype, gen, batch=B):
     from chexpert_tpu_torch.ops.attention import pack_query
 
@@ -353,7 +380,11 @@ def bwd_kernel_phase():
             bias = (qr[..., DKH:DKH + W][..., col] + qr[..., DKH + W:][..., row]).detach()
             leaves = [t.detach().clone().requires_grad_()
                       for t in (qr[..., :DKH].contiguous(), k, v, bias)]
-            lib_out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+
+            def library_fwd(q_, k_, v_, bias_):
+                return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias_, scale=1.0)
+
+            lib_out = library_fwd(*leaves)
 
             def library():
                 return torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)
@@ -361,17 +392,23 @@ def bwd_kernel_phase():
             es = qr.element_size()
             pairs = bn * hw * hw
             ins = (qr.numel() + k.numel() + v.numel() + dout.numel()) * es + 2 * bn * hw * 4
+            slow = {"reps": 5, "inner": 3}
             rows.append({
-                "geometry": f"{H}x{W}", "hw": hw, "bn": bn, "dkh": DKH, "dvh": dvh,
+                "geometry": f"{H}x{W}", "H": H, "W": W, "hw": hw, "bn": bn, "dkh": DKH,
+                "dvh": dvh, "layers": AA_LAYERS[(H, W, dvh)],
                 "dtype": str(dtype).replace("torch.", ""), "abs_err": errs, "rel_err": rel,
                 "tol": BWD_TOL[dtype], "ok": ok and fwd_ok,
                 "fwd_abs_err": fwd_err, "fwd_tol": TOL[dtype], "fwd_ok": fwd_ok,
-                "dkdv_ms": time_ms(lambda: rel_attention_bwd_dkdv(*args)),
-                "dq_ms": time_ms(lambda: rel_attention_bwd_dq(*args)),
+                # device time (CUDA-graph replay); events around eager calls as host_ms
+                "dkdv_ms": device_ms(lambda: rel_attention_bwd_dkdv(*args), **slow),
+                "dq_ms": device_ms(lambda: rel_attention_bwd_dq(*args), **slow),
+                "dkdv_host_ms": time_ms(lambda: rel_attention_bwd_dkdv(*args)),
+                "dq_host_ms": time_ms(lambda: rel_attention_bwd_dq(*args)),
                 "dkdv_plain_ms": time_ms(lambda: rel_attention_bwd_dkdv_plain(*args)),
                 "dq_plain_ms": time_ms(lambda: rel_attention_bwd_dq_plain(*args)),
                 "fwd_ms": time_ms(lambda: rel_attention_fwd(qr, k, v, H, W, DKH)),
-                "library_ms": time_ms(library),
+                "library_ms": profiled_device_ms(library),
+                "library_host_ms": time_ms(library),
                 # pass 1 per (query, key): S 2*dkh+2, exp 2, dp and dv 4*dvh, ds 2, dk 2*dkh
                 "dkdv": bound(ins + (k.numel() + v.numel()) * es,
                               pairs * (4 * DKH + 4 * dvh + 6), dtype),
@@ -385,9 +422,10 @@ def bwd_kernel_phase():
             r = rows[-1]
             print(f"kernel rel_attention_bwd {H}x{W} dvh={dvh} bn={bn} {r['dtype']}: rel err "
                   f"{ {n: float(f'{e:.3g}') for n, e in rel.items()} } (tol {r['tol']}) "
-                  f"dkdv {r['dkdv_ms']:.4f} ms (plain {r['dkdv_plain_ms']:.4f}) "
-                  f"dq {r['dq_ms']:.4f} ms (plain {r['dq_plain_ms']:.4f}) library bwd "
-                  f"{r['library_ms']:.4f} ms; bound dkdv {r['dkdv']['bound_ms']:.5f} "
+                  f"device ms dkdv {r['dkdv_ms']:.4f} (eager {r['dkdv_host_ms']:.4f}, plain "
+                  f"{r['dkdv_plain_ms']:.4f}) dq {r['dq_ms']:.4f} (eager {r['dq_host_ms']:.4f}, "
+                  f"plain {r['dq_plain_ms']:.4f}) library bwd {r['library_ms']:.4f} (eager "
+                  f"{r['library_host_ms']:.4f}); bound dkdv {r['dkdv']['bound_ms']:.5f} "
                   f"dq {r['dq']['bound_ms']:.5f} ms; B1 at bn {bn} {r['fwd_ms']:.4f} ms, "
                   f"err out {fwd_err['out']:.3g} lse {fwd_err['lse']:.3g} (tol {TOL[dtype]})",
                   flush=True)
@@ -529,7 +567,8 @@ def hil_kernel_phase():
     library call: scaled_dot_product_attention with the relative bias
     materialized beforehand, the head-split copies of q, k, v out of P0 and
     the head-merge copy of its output included, since the layout exists to
-    avoid those; its backward by events around eager calls. B1 and B2's two
+    avoid those; its backward by profiled_device_ms, the eager time beside
+    it. B1 and B2's two
     passes at the same geometry and batch, device time, beside them."""
     from chexpert_tpu_torch.ops.fused_attention import (
         attention_delta,
@@ -635,13 +674,13 @@ def hil_kernel_phase():
             dP = torch.empty_like(P)
             args = (P, Rw, Rh, dout, lse, delta, dP, *geo)
             pargs = (P, Rw, Rh, dout, lse, delta, *geo)
-            drc = hil_attention_bwd_dq(*args)
+            drc, rc = hil_attention_bwd_dq(*args)  # pass 2 leaves the RC rows for pass 1
             leaves = [P.detach().clone().requires_grad_(), bias.detach().clone().requires_grad_()]
             lib_out = library_fwd(*leaves)
             pairs = tok * hw
             ins = (P.numel() + dout.numel()) * es + 2 * tok * 4 + rel_bytes
             row["dkdv"] = {
-                "ms": device_ms(lambda: hil_attention_bwd_dkdv(*args), **slow),
+                "ms": device_ms(lambda: hil_attention_bwd_dkdv(*args, rc=rc), **slow),
                 "plain_ms": device_ms(lambda: hil_attention_bwd_dkdv_plain(*pargs), **slow),
                 # writes the k, v and pad lanes of dP; per pair S 2*dkh+2, exp 2, dp and dv
                 # 4*dvh, ds 2, dk 2*dkh; the RC rows 2*dkh per entry
@@ -666,13 +705,15 @@ def hil_kernel_phase():
                 "ms": row["dkdv"]["ms"] + row["dq"]["ms"] + row["drel"]["ms"],
                 "host_ms": time_ms(lambda: hil_attention_bwd(P, Rw, Rh, out, lse, dout, *geo),
                                    reps=5, inner=3),
-                "library_ms": time_ms(
+                "library_ms": profiled_device_ms(
+                    lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)),
+                "library_host_ms": time_ms(
                     lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True),
                     reps=5, inner=3),
                 # the whole backward as one function of (P, Rw, Rh, out, lse, dout)
                 **bound(2 * P.numel() * es + 2 * out.numel() * es + tok * 4 + 2 * rel_bytes,
                         pairs * (6 * DKH + 4 * dvh + 8) + tok * (W + H) * 6 * DKH, dtype)}
-            del leaves, lib_out, bias, drc, dP, delta, P, out, lse, dout
+            del leaves, lib_out, bias, drc, rc, dP, delta, P, out, lse, dout
 
             # the head-major kernels at the same geometry and batch, device time
             qr, kk, vv = kernel_inputs(H, W, dvh, dtype, gen, batch=B_TRAIN)
@@ -708,8 +749,8 @@ def hil_kernel_phase():
                   f"{bn_l['b2_dkdv_ms']:.4f}) dq {row['dq']['ms']:.4f} (plain "
                   f"{row['dq']['plain_ms']:.4f}, B2 {bn_l['b2_dq_ms']:.4f}) drel "
                   f"{row['drel']['ms']:.4f} (plain {row['drel']['plain_ms']:.4f}); whole "
-                  f"{bw['ms']:.4f} (bound {bw['bound_ms']:.5f}, eager library bwd "
-                  f"{bw['library_ms']:.4f}); eager ms B5 b{B} {f4['host_ms']:.4f}, B6 "
+                  f"{bw['ms']:.4f} (bound {bw['bound_ms']:.5f}, library bwd "
+                  f"{bw['library_ms']:.4f}, eager {bw['library_host_ms']:.4f}); eager ms B5 b{B} {f4['host_ms']:.4f}, B6 "
                   f"{bw['host_ms']:.4f}", flush=True)
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1269,8 +1310,12 @@ def main() -> int:
     def per_step(key, sub=None):  # one train step launches each pass once per geometry
         return sum(r[key][sub] if sub else r[key] for r in train_rows)
 
+    def per_aa_bn(key, sub=None):  # the same passes over aaresnet152's 47 AA convs (bn layout)
+        return sum(r["layers"] * (r[key][sub] if sub else r[key]) for r in train_rows)
+
     def bwd_entry(name, key, replaces_note):
         b_ms, o_ms = per_step(key, "bytes_ms"), per_step(key, "ops_ms")
+        aa_b, aa_o = per_aa_bn(key, "bytes_ms"), per_aa_bn(key, "ops_ms")
         return {
             "name": name, "route": "cuda",
             "source": "chexpert_tpu_torch/csrc/rel_attention_bwd.cu",
@@ -1278,12 +1323,25 @@ def main() -> int:
             **launches(name),
             "max_abs_err": max(max(r["abs_err"].values()) for r in train_rows),
             "max_rel_err": max(max(r["rel_err"].values()) for r in train_rows),
+            # device time (CUDA graph replay); events around the eager calls as host_ms
             "ms": per_step(f"{key}_ms"), "plain_ms": per_step(f"{key}_plain_ms"),
             "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": per_step("library_ms"),
             "library_is": "backward of F.scaled_dot_product_attention w.r.t. q, k, v and a "
-                          "materialized bias: the whole of B2, both passes",
-            "per": f"train step (bn {B_TRAIN * NH}, three geometries, bf16)",
+                          "materialized bias, device time (the profiler's sum over the "
+                          "kernels of eager calls): the whole of B2, both passes",
+            "host_ms": per_step(f"{key}_host_ms"),
+            "library_host_ms": per_step("library_host_ms"),
+            "per": f"aadensenet121 train step (bn {B_TRAIN * NH}, three geometries, bf16)",
+            # the same pass over aaresnet152's AA convs (8 / 36 / 3 of the geometries)
+            f"{AA_RES}_step": {
+                "launches": N_AA, "ms": per_aa_bn(f"{key}_ms"),
+                "bound_ms": max(aa_b, aa_o),
+                "bound_by": "bytes" if aa_b >= aa_o else "operations",
+                "library_ms": per_aa_bn("library_ms"),
+                "library_host_ms": per_aa_bn("library_host_ms"),
+                "whole_b2_ms": per_aa_bn("dkdv_ms") + per_aa_bn("dq_ms"),
+                "whole_b2_bound_ms": max(per_aa_bn("b2", "bytes_ms"), per_aa_bn("b2", "ops_ms"))},
             "pass": replaces_note, "card": smi,
         }
 
@@ -1332,9 +1390,11 @@ def main() -> int:
     hil_bwd_rel = max(max(r["bwd16"]["rel_err"].values()) for r in hil_main)
     hil_bwd_library = {
         "library_ms": per_aa("bwd16", "library_ms"),
+        "library_host_ms": per_aa("bwd16", "library_host_ms"),
         "library_is": "backward of F.scaled_dot_product_attention w.r.t. P0 (through the "
-                      "head-split and head-merge copies) and a materialized bias, events "
-                      "around eager calls: the whole of B6, all three passes",
+                      "head-split and head-merge copies) and a materialized bias, device time "
+                      "(the profiler's sum over the kernels of eager calls; library_host_ms: "
+                      "events around them): the whole of B6, all three passes",
         "whole_b6_ms": per_aa("bwd16", "ms"), "whole_b6_host_ms": per_aa("bwd16", "host_ms"),
         "b2_same_layers_ms": bn_layout_ms("b2_dkdv_ms") + bn_layout_ms("b2_dq_ms")}
     hil_per_step = (f"{AA_RES} train step (batch {B_TRAIN}, {N_AA} AA convs: 8 at 40x40, 36 at "

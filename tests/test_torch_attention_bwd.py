@@ -119,3 +119,91 @@ def test_cpu_backward_counts_no_launch_and_guards():
         rel_attention_bwd(qr, kk, vv, out, lse, out[:, :, :1], H, W, dkh)
     out2, _ = rel_attention_fwd(qr.requires_grad_(), kk, vv, H, W, dkh)
     assert out2.grad_fn is not None
+
+
+# --- a CPU rehearsal of the tensor-core kernels' rounding -----------------------
+
+def _tensor_core_rehearsal(qr, k, v, dout, lse, delta, H, W, dkh):
+    """The arithmetic of the bf16 kernels of ``csrc/rel_attention_bwd.cu`` in
+    plain torch: bf16 operands, f32 sums, p and ds rounded to bf16 where they
+    become matrix-product operands, the bins as a product with a one-hot of
+    the keys' image column and row. Returns (dqr, dk, dv) in bf16."""
+    from chexpert_tpu_torch.ops.fused_attention import key_positions
+
+    def rounded(t):
+        return t.to(torch.bfloat16).float()
+
+    hw = H * W
+    q, rel = qr[..., :dkh].float(), qr[..., dkh:].float()
+    col, row = key_positions(hw, W, qr.device)
+    s = q @ k.float().transpose(1, 2) + rel[..., :W][..., col] + rel[..., W:][..., row]
+    p = torch.exp(s - lse[..., None])
+    ds = rounded(p * (dout.float() @ v.float().transpose(1, 2) - delta[..., None]))
+    p = rounded(p)
+    onehot = torch.zeros(hw, W + H)
+    onehot[torch.arange(hw), col] = 1.0
+    onehot[torch.arange(hw), W + row] = 1.0
+    dqr = torch.cat([ds @ k.float(), ds @ onehot], dim=-1)
+    dk, dv = ds.transpose(1, 2) @ q, p.transpose(1, 2) @ dout.float()
+    return [t.to(torch.bfloat16) for t in (dqr, dk, dv)]
+
+
+@pytest.mark.parametrize("dvh", [1, 3, 6])
+@pytest.mark.parametrize("H,W", [(6, 5), (8, 8)])
+def test_tensor_core_rounding_holds_the_card_gate(H, W, dvh):
+    """The rehearsal against the f32 plain backward on the same bf16 inputs,
+    within the 1e-2 (relative to max(1, largest entry)) that the card gate
+    holds the kernels to: bf16 keeps 2^-9 per rounded p or ds, and the sums
+    over 30-64 keys average it."""
+    from chexpert_tpu_torch.ops.fused_attention import attention_delta
+
+    q, k, v, rel_w, rel_h, g = _inputs(11, 2, 2, H, W, dvh)
+    B, nh, hw, dkh = q.shape
+    qr = pack_query(torch.from_numpy(q), torch.from_numpy(rel_w), torch.from_numpy(rel_h), H, W)
+    qr, tk, tv, dout = (t.reshape(B * nh, hw, -1).to(torch.bfloat16)
+                        for t in (qr, torch.from_numpy(k), torch.from_numpy(v),
+                                  torch.from_numpy(g)))
+    out, lse = rel_attention_fwd_plain(qr, tk, tv, H, W, dkh)
+    want = rel_attention_bwd_plain(qr, tk, tv, out, lse, dout, H, W, dkh)
+    got = _tensor_core_rehearsal(qr, tk, tv, dout, lse, attention_delta(out, dout), H, W, dkh)
+    for name, a, b in zip(("dqr", "dk", "dv"), got, want):
+        scale = max(1.0, b.float().abs().max().item())
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 1e-2 * scale, (name, err, scale)
+        assert err > 0 or name == "dv"  # the rounding is really in the rehearsal
+
+
+@pytest.mark.parametrize("H,W", [(1, 1), (6, 5), (7, 9), (8, 8), (10, 10), (40, 40), (33, 17)])
+def test_key_table_is_the_one_hot_of_the_keys(H, W):
+    """The table that the tensor-core dq pass reads, unpacked fragment by
+    fragment, is the one-hot of every key's image column and row; the touched
+    bits name exactly the bin tiles with a hit; padded keys hit nothing."""
+    from chexpert_tpu_torch.ops.fused_attention import KEY_TILE, bin_tiles, key_table
+
+    hw, nbw, nbt = H * W, -(-W // 8), bin_tiles(H, W)
+    tab = key_table(H, W, torch.device("cpu"))
+    tiles = -(-hw // KEY_TILE)
+    n_frag = (KEY_TILE // 16) * nbt * 64
+    assert tab.dtype == torch.int32 and tab.shape == (tiles, n_frag + KEY_TILE // 16 + KEY_TILE)
+    frags = tab[:, :n_frag].reshape(tiles * (KEY_TILE // 16), nbt, 32, 2).long()
+    touched = tab[:, n_frag:n_frag + KEY_TILE // 16].reshape(-1)
+    kpos = tab[:, n_frag + KEY_TILE // 16:].reshape(-1)
+
+    dense = torch.zeros(tiles * KEY_TILE, nbt * 8)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for reg, half in ((0, 0), (0, 1), (1, 0), (1, 1)):  # (b0 | b1, low | high half)
+            bits = (frags[:, :, lane, reg] >> (16 * half)) & 0xFFFF  # (chunks, nbt)
+            assert set(bits.unique().tolist()) <= {0, 0x3F80}
+            key = torch.arange(frags.shape[0]) * 16 + 2 * t + 8 * reg + half
+            for tile in range(nbt):
+                dense[key, tile * 8 + g] = (bits[:, tile] != 0).float()
+    want = torch.zeros_like(dense)
+    j = torch.arange(hw)
+    want[j, j % W] = 1.0
+    want[j, nbw * 8 + j // W] = 1.0
+    assert torch.equal(dense, want)
+    hits = dense.reshape(-1, 16, nbt, 8).sum((1, 3)) > 0  # (chunks, nbt)
+    assert torch.equal(touched.long(), (hits.long() << torch.arange(nbt)).sum(-1))
+    assert torch.equal(kpos[:hw].long(), (j % W) | ((j // W) << 16))
+    assert int(kpos[hw:].abs().sum()) == 0

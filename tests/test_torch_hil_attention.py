@@ -317,3 +317,77 @@ def test_aadensenet_tiny_hil_logits_and_layout_switch(monkeypatch):
     with pytest.raises(ValueError, match="attn_layout"):
         build_model("aaresnet152", image_size=64, attn_layout="nhwc")
     build_model("aadensenet-tiny", image_size=32, attn_layout="hil")  # the argument wins
+
+
+# --- a CPU rehearsal of the tensor-core kernels' rounding -----------------------
+
+def _tensor_core_rehearsal(P0, Rw, Rh, dout, lse, delta, H, W, dkh, dvh, slot):
+    """The arithmetic of the bf16 dq and dkdv kernels of
+    ``csrc/hil_attention_bwd.cu`` in plain torch: bf16 operands, f32 sums (RC
+    too), p and ds rounded to bf16 where they become matrix-product operands,
+    the bins as a product with a one-hot of the keys' image column and row,
+    and dq's relative part as a product of the f32 bins with the relative
+    operand rounded to bf16. Returns (dP in bf16 with zero pads, dRC f32)."""
+    from chexpert_tpu_torch.ops.fused_attention import key_positions
+    from chexpert_tpu_torch.ops.hil_attention import _heads, _logits_plain, _unpack
+
+    def rounded(t):
+        return t.to(torch.bfloat16).float()
+
+    B, hw, width = P0.shape
+    nh = width // slot
+    q, k, v = _unpack(P0, nh, dkh, dvh, slot)
+    do = _heads(dout, nh)
+    p = torch.exp(_logits_plain(q, k, Rw, Rh, H, W) - lse[..., None])
+    ds = rounded(p * (do @ v.transpose(-1, -2) - delta[..., None]))
+    p = rounded(p)
+    dk, dv, dq = ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do, ds @ k
+    drc = None
+    if Rw is not None:
+        col, row = key_positions(hw, W, P0.device)
+        onehot = torch.zeros(hw, W + H)
+        onehot[torch.arange(hw), col] = 1.0
+        onehot[torch.arange(hw), W + row] = 1.0
+        drc = ds @ onehot
+        d5 = drc.reshape(B, nh, H, W, W + H)
+        dq = dq + (torch.einsum("bnhwm,wdm->bnhwd", d5[..., :W], rounded(Rw).view(W, dkh, W))
+                   + torch.einsum("bnhwm,hdm->bnhwd", d5[..., W:], rounded(Rh).view(H, dkh, H))
+                   ).reshape(B, nh, hw, dkh)
+    pad = dq.new_zeros(B, nh, hw, slot - 2 * dkh - dvh)
+    dP = torch.cat([dq, dk, dv, pad], dim=-1).permute(0, 2, 1, 3).reshape(B, hw, nh * slot)
+    return dP.to(torch.bfloat16), drc
+
+
+@pytest.mark.parametrize("relative", [True, False], ids=["rel", "no_rel"])
+@pytest.mark.parametrize("dvh", [1, 3, 6])
+@pytest.mark.parametrize("H,W", [(6, 5), (8, 8)])
+def test_tensor_core_rounding_holds_the_card_gate(H, W, dvh, relative):
+    """The rehearsal against the f32 plain backward on the same bf16 inputs,
+    within the 1e-2 (relative to max(1, largest entry)) that the card gate
+    holds the kernels to, dRw / dRh through the plain pass 3."""
+    from chexpert_tpu_torch.ops.hil_attention import (
+        hil_attention_bwd_drel_plain,
+        hil_attention_delta,
+    )
+
+    dkh, nh, B = 20, 2, 2
+    slot = hil_slot(dkh, dvh)
+    q5, k5, v5, rw, rh, g = _mk(B, nh, H, W, dkh, dvh, relative, seed=13)
+    P0 = torch.from_numpy(_pack(q5, k5, v5, slot)).to(torch.bfloat16)
+    Rw, Rh = _operands(rw, rh, H, W)
+    geo = (H, W, dkh, dvh, slot)
+    out, lse = hil_attention_fwd_plain(P0, Rw, Rh, *geo)
+    dout = torch.from_numpy(g).reshape(B, H * W, nh * dvh).to(torch.bfloat16)
+    want = hil_attention_bwd_plain(P0, Rw, Rh, out, lse, dout, *geo)
+    dP, drc = _tensor_core_rehearsal(P0, Rw, Rh, dout, lse, hil_attention_delta(out, dout, nh),
+                                     *geo)
+    got = [dP, None, None] if drc is None else [
+        dP, *hil_attention_bwd_drel_plain(P0, drc, H, W, dkh, slot)]
+    assert torch.count_nonzero(dP.view(B, H * W, nh, slot)[..., 2 * dkh + dvh:]) == 0
+    for name, a, b in zip(("dP", "dRw", "dRh"), got, want):
+        if b is None:
+            assert a is None
+            continue
+        scale = max(1.0, b.float().abs().max().item())
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 1e-2 * scale, (name, err, scale)

@@ -6,8 +6,9 @@ Marked ``cuda``; skips on a host without a CUDA device. On the card host
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Covers geometries beyond the served and trained ones: ragged key/query
-tails (HW not a multiple of the 64/128-row tiles), W != H, every dvh the
-kernels take, and more heads than fit one grid row of blocks. B1 (forward)
+tails (HW not a multiple of the 64/128-row tiles nor of the tensor-core
+kernels' 16-row fragments, maps smaller than one tile), W != H, every dvh
+the kernels take, and more heads than fit one grid row of blocks. B1 (forward)
 and B2 (backward, two passes) run at the same geometries. B3 / B4 (the
 depthwise conv forward / backward) run at the ten stride-1 geometries of
 efficientnet-b4 at 380x380 and at ragged ones (odd H and W, H != W, C not a
@@ -66,6 +67,11 @@ GEOMETRIES = [
     (1, 1, 1, 1, 1), (1, 2, 1, 3, 2), (2, 2, 6, 5, 1), (2, 2, 6, 5, 8), (1, 3, 7, 11, 4),
     (2, 8, 10, 10, 6), (1, 8, 20, 20, 3), (1, 8, 40, 40, 1), (1, 2, 33, 17, 5),
     (1, 1, 64, 64, 2),
+    # edges of the tensor-core tiles of B2 / B6 (16-row fragments, 64-row tiles):
+    # HW not a multiple of 16, smaller than one tile, exactly one tile, dvh 1
+    # and 8, W + H past the one-hot bin tiles (the CUDA-core kernels in bf16)
+    (1, 2, 5, 5, 1), (1, 2, 5, 5, 8), (2, 2, 7, 9, 8), (1, 2, 9, 7, 1), (1, 1, 3, 3, 8),
+    (1, 3, 4, 16, 2), (1, 1, 72, 64, 2),
 ]
 
 # B3 / B4, max |kernel - plain| / max |plain| per output: y and dx, f32 the
