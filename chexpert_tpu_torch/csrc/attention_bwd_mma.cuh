@@ -77,7 +77,25 @@ inline int rel_stride_of(int W, int H) {
   return s + ((4 - s % 8) + 8) % 8;
 }
 
-inline int bin_tiles(int W, int H) { return (W + 7) / 8 + (H + 7) / 8; }
+__host__ __device__ inline int bin_tiles(int W, int H) { return (W + 7) / 8 + (H + 7) / 8; }
+
+// The rule that sends a bf16 map to the tensor-core kernels, forwards and
+// backwards alike: a number of bin tiles that pass dq is instantiated for
+// (every map up to 64x64). Larger maps, and f32, take the CUDA-core kernels.
+// ops/fused_attention.py::on_tensor_cores states the same rule.
+inline bool mma_fits(int W, int H) { return bin_tiles(W, H) <= MAX_BIN_TILES; }
+
+// The bf16 row stride of a tile of whole head-major qr rows [q ; RW ; RH]: >= L
+// and >= 32 (the q fragments read 32 columns; what lies past DKH meets the
+// zeros of k), and = 8 mod 16, which keeps rows 16-byte aligned for ldmatrix
+// and spreads the fragment reads (rows g, words t) and the RC reads over the
+// banks.
+inline int qr_stride_of(int L) {
+  const int x = L > 32 ? L : 32;
+  return x + ((8 - x % 16) + 16) % 16;
+}
+
+inline int aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -287,6 +305,19 @@ __device__ __forceinline__ void stage_key_table(int* tab_s, const int* __restric
   for (int e = tid * 4; e < words; e += nthreads * 4) cp_async<16>(tab_s + e, src + e);
 }
 
+// The A fragments (16 rows x 32 columns, two k16 steps) of a bf16 tile of
+// row stride stride: fragment rows g and g+8 are the tile's rows ra and rb.
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[2][4], const bf16* tile, int stride,
+                                             int ra, int rb, int t) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    a[ks][0] = lds32(tile + ra * stride + ks * 16 + 2 * t);
+    a[ks][1] = lds32(tile + rb * stride + ks * 16 + 2 * t);
+    a[ks][2] = lds32(tile + ra * stride + ks * 16 + 8 + 2 * t);
+    a[ks][3] = lds32(tile + rb * stride + ks * 16 + 8 + 2 * t);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Pass dq: a warp's 16 query rows against key tiles.
 
@@ -305,13 +336,7 @@ __device__ __forceinline__ void dq_init(DqWarp<NBT>& st, const bf16* q_s, int qs
                                         int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    st.qa[ks][0] = lds32(q_s + r0 * qs + ks * 16 + 2 * t);
-    st.qa[ks][1] = lds32(q_s + (r0 + 8) * qs + ks * 16 + 2 * t);
-    st.qa[ks][2] = lds32(q_s + r0 * qs + ks * 16 + 8 + 2 * t);
-    st.qa[ks][3] = lds32(q_s + (r0 + 8) * qs + ks * 16 + 8 + 2 * t);
-  }
+  load_a_frags(st.qa, q_s, qs, r0, r0 + 8, t);
   st.doa[0] = lds32(do_s + r0 * VS + 2 * t);
   st.doa[1] = lds32(do_s + (r0 + 8) * VS + 2 * t);
   st.lse[0] = ld_s[2 * r0] * LOG2E;
@@ -465,13 +490,7 @@ __device__ __forceinline__ void dkdv_init(DkdvWarp& st, const bf16* k_s, const b
                                           int key0, int hw, int W, int warp, int lane) {
   const int t = lane & 3;
   const int r0 = dkdv_key(warp, lane, 0), r1 = dkdv_key(warp, lane, 1);
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    st.ka[ks][0] = lds32(k_s + r0 * KS + ks * 16 + 2 * t);
-    st.ka[ks][1] = lds32(k_s + r1 * KS + ks * 16 + 2 * t);
-    st.ka[ks][2] = lds32(k_s + r0 * KS + ks * 16 + 8 + 2 * t);
-    st.ka[ks][3] = lds32(k_s + r1 * KS + ks * 16 + 8 + 2 * t);
-  }
+  load_a_frags(st.ka, k_s, KS, r0, r1, t);
   st.va[0] = lds32(v_s + r0 * VS + 2 * t);
   st.va[1] = lds32(v_s + r1 * VS + 2 * t);
 #pragma unroll

@@ -48,8 +48,9 @@
 //     - RC as a product: with E_w[x][d] = rel_w[d, x], read back out of the
 //       block operand Rw, RC_w[t, m] = (q E_w^T)[t, m - col(t) + W - 1]: one
 //       product per tile and a skewed store, E split into hi + lo bf16 so RC
-//       keeps f32 accuracy; dq's relative part is the skewed bins (hi + lo)
-//       times E. Pass dq computes each query's RC rows exactly once and
+//       keeps f32 accuracy (hil_attention_common.cuh, shared with the bf16
+//       forward); dq's relative part is the skewed bins (hi + lo) times E.
+//       Pass dq computes each query's RC rows exactly once and
 //       leaves them in a second f32 scratch rc (B, nh, hw, W+H), which pass
 //       dkdv reads back (16-byte cp.async): so dq runs first. (The CUDA-core
 //       dkdv recomputed every tile's RC in every key block.)
@@ -79,7 +80,6 @@
 // of 128 threads per SM); dkdv 128 registers under __launch_bounds__(256,
 // 2), 67 KB for its two query-tile buffers; drel 56.
 
-#include "attention_bwd_mma.cuh"
 #include "hil_attention_common.cuh"
 
 // ---------------------------------------------------------------------------
@@ -89,60 +89,10 @@ namespace {
 namespace mma_passes {
 
 using namespace amma;
-
-// The relative logits as products. With E_w[x][d] = rel_w[d, x] the (dkh, 2W-1)
-// embedding that the block operand was built from (Rw[(j, d), m] =
-// rel_w[d, m - j + W - 1]), a query at image column c has
-//   RC_w[t, m] = G[t, m - c + W - 1],  G = q E_w^T,
-// one product for the whole tile and a skewed store; its backward is
-//   dq[t, d] += sum_x dG[t, x] E_w[x][d],  dG[t, x] = dRC_w[t, x + c - (W - 1)],
-// a product of the skewed bins with E_w. The same over rows with E_h.
-// E is staged once per block as bf16 rows of stride KS (x rows: the W part
-// padded to a multiple of 16 rows, then the H part), split into hi + lo so
-// that RC keeps f32 accuracy; rows and columns of padding are zero.
-__host__ __device__ inline int emb_rows(int n) { return (2 * n - 1 + 15) / 16 * 16; }
-
-__device__ __forceinline__ void stage_emb(bf16* e_hi, bf16* e_lo, const float* __restrict__ R,
-                                          int n, int rows, int tid, int nthreads) {
-  for (int e = tid; e < rows * KW; e += nthreads) {
-    const int x = e / KW, d = e - x * KW;
-    float val = 0.f;
-    if (x < 2 * n - 1 && d < DKH)
-      val = x >= n - 1 ? __ldg(R + static_cast<size_t>(d) * n + (x - (n - 1)))
-                       : __ldg(R + (static_cast<size_t>(n - 1 - x) * DKH + d) * n);
-    const bf16 hi = __float2bfloat16(val);
-    e_hi[x * KS + d] = hi;
-    e_lo[x * KS + d] = __float2bfloat16(val - __bfloat162float(hi));
-  }
-}
-
-// RC rows of the warp's 16 queries (A fragments qa of dq_init) for one image
-// axis: n = W (pos = the query's column) or H (its row); the n lanes at off.
-__device__ __forceinline__ void rc_axis(const uint32_t (&qa)[2][4], const bf16* e_hi,
-                                        const bf16* e_lo, int n, int rows, const int (&pos)[2],
-                                        const bool (&ok)[2], float* rel_rows, int rel_stride,
-                                        int off, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 1
-  for (int nt = 0; nt < rows / 8; ++nt) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    const bf16* hi = e_hi + (nt * 8 + g) * KS + 2 * t;
-    const bf16* lo = e_lo + (nt * 8 + g) * KS + 2 * t;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      mma16816(acc, qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3], lds32(hi + ks * 16),
-               lds32(hi + ks * 16 + 8));
-      mma16816(acc, qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3], lds32(lo + ks * 16),
-               lds32(lo + ks * 16 + 8));
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rr = i >> 1;  // row g (0) or g + 8 (1)
-      const int m = nt * 8 + 2 * t + (i & 1) - (n - 1) + pos[rr];
-      if (ok[rr] && m >= 0 && m < n) rel_rows[(g + 8 * rr) * rel_stride + off + m] = acc[i];
-    }
-  }
-}
+using hil::emb_rows;
+using hil::rc_axis;
+using hil::slots_aligned;
+using hil::stage_emb;
 
 // dq += dG E for one image axis, dG the skewed bins of the warp's rows
 // (bin_rows: f32, the axis' n lanes at off), split into hi + lo bf16.
@@ -421,11 +371,6 @@ inline size_t dkdv_smem(int rel_stride) {
   return 2 * (static_cast<size_t>(TN * rel_stride + TN * 2) * sizeof(float) +
               static_cast<size_t>(TN * (KS + VS)) * sizeof(bf16)) +
          static_cast<size_t>(DKDV_ROWS * (KS + VS)) * sizeof(bf16);
-}
-
-// Whether the q / k rows of P can be copied 8 bytes at a time.
-inline int slots_aligned(const void* P, int slot) {
-  return slot % 4 == 0 && reinterpret_cast<uintptr_t>(P) % 8 == 0;
 }
 
 template <int NBT>
@@ -815,19 +760,17 @@ int launch_drel(const void* P, const void* drc, void* part, int B, int hw, int H
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 entries take the tensor-core passes wherever pass dq is
-// instantiated for the map (ceil(W/8) + ceil(H/8) <= 16 bin tiles: every map
-// up to 64x64); a larger map takes the CUDA-core kernels above. rc is the RC
-// scratch (B, nh, hw, W+H) f32 that the tensor-core dq leaves and the
+// The bf16 entries take the tensor-core passes wherever amma::mma_fits (every
+// map up to 64x64); a larger map takes the CUDA-core kernels above. rc is the
+// RC scratch (B, nh, hw, W+H) f32 that the tensor-core dq leaves and the
 // tensor-core dkdv reads, tab the key table of the map
 // (ops/fused_attention.py::key_table) that the tensor-core dq reads; the
 // CUDA-core kernels ignore both.
-bool mma_fits(int W, int H) { return amma::bin_tiles(W, H) <= amma::MAX_BIN_TILES; }
 
 int dkdv_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
               const void* delta, void* dP, const void* rc, int B, int hw, int H, int W, int nh,
               int slot, int dkh, int dvh, void* stream) {
-  if (!mma_fits(W, H))
+  if (!amma::mma_fits(W, H))
     return launch_dkdv<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, dP, B, hw, H, W, nh, slot,
                                       dkh, dvh, stream);
   if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr) ||
@@ -840,7 +783,7 @@ int dkdv_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, c
 int dq_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
             const void* delta, const void* tab, void* dP, void* drc, void* rc, int B, int hw,
             int H, int W, int nh, int slot, int dkh, int dvh, void* stream) {
-  if (!mma_fits(W, H))
+  if (!amma::mma_fits(W, H))
     return launch_dq<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, dP, drc, B, hw, H, W, nh, slot,
                                     dkh, dvh, stream);
   if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr) ||

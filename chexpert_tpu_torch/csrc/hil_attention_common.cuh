@@ -1,5 +1,7 @@
 // Shared pieces of the heads-in-lanes (token-major) attention kernels,
-// hil_attention_fwd.cu and hil_attention_bwd.cu.
+// hil_attention_fwd.cu and hil_attention_bwd.cu: the operand layout, the
+// CUDA-core helpers of their f32 kernels, and the relative logits as a
+// tensor-core product that the bf16 forward and backward both build.
 //
 // The packed operand P (B, hw, nh*slot) holds, per token and head, one slot
 // [q * dkh^-0.5 (dkh) ; k (dkh) ; v (dvh) ; 0-pad]: it is the output of the
@@ -18,10 +20,14 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "attention_bwd_mma.cuh"
 
 namespace hil {
 
-constexpr int DKH = 20;            // the AAConv head width (min_dk_per_head)
+using amma::allow_smem;
+using amma::DKH;                   // the AAConv head width (min_dk_per_head)
 constexpr int DVMAX = 8;           // largest dvh (v columns staged 8 wide)
 constexpr float NEG_BIG = -1e30f;  // finite "minus infinity": exp(NEG_BIG - m) == 0
 
@@ -89,11 +95,74 @@ inline bool bad_shape(int B, int hw, int H, int W, int nh, int slot, int dkh, in
          hw < 1 || B < 1 || B > 65535 || nh < 1 || nh > 65535;
 }
 
-template <typename K>
-cudaError_t allow_smem(K kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+// Whether the q / k rows of P can be copied 8 bytes at a time.
+inline int slots_aligned(const void* P, int slot) {
+  return slot % 4 == 0 && reinterpret_cast<uintptr_t>(P) % 8 == 0;
+}
+
+// ---------------------------------------------------------------------------
+// The relative logits as products, for the bf16 tensor-core kernels. With
+// E_w[x][d] = rel_w[d, x] the (dkh, 2W-1) embedding that the block operand was
+// built from (Rw[(j, d), m] = rel_w[d, m - j + W - 1]), a query at image
+// column c has
+//   RC_w[t, m] = G[t, m - c + W - 1],  G = q E_w^T,
+// one product for the whole tile and a skewed store; its backward is
+//   dq[t, d] += sum_x dG[t, x] E_w[x][d],  dG[t, x] = dRC_w[t, x + c - (W - 1)],
+// a product of the skewed bins with E_w. The same over rows with E_h.
+// E is staged once per block as bf16 rows of stride KS (x rows: the W part
+// padded to a multiple of 16 rows, then the H part), split into hi + lo so
+// that RC keeps f32 accuracy; rows and columns of padding are zero. The
+// forward (B5) and the backward's dq pass (B6) build RC by the same code, so
+// the backward's p = exp(S - lse) sees the forward's S.
+__host__ __device__ inline int emb_rows(int n) { return (2 * n - 1 + 15) / 16 * 16; }
+
+__device__ __forceinline__ void stage_emb(amma::bf16* e_hi, amma::bf16* e_lo,
+                                          const float* __restrict__ R, int n, int rows, int tid,
+                                          int nthreads) {
+  using amma::KS;
+  using amma::KW;
+  for (int e = tid; e < rows * KW; e += nthreads) {
+    const int x = e / KW, d = e - x * KW;
+    float val = 0.f;
+    if (x < 2 * n - 1 && d < DKH)
+      val = x >= n - 1 ? __ldg(R + static_cast<size_t>(d) * n + (x - (n - 1)))
+                       : __ldg(R + (static_cast<size_t>(n - 1 - x) * DKH + d) * n);
+    const amma::bf16 hi = __float2bfloat16(val);
+    e_hi[x * KS + d] = hi;
+    e_lo[x * KS + d] = __float2bfloat16(val - __bfloat162float(hi));
+  }
+}
+
+// RC rows of the warp's 16 queries (A fragments qa of its q rows) for one
+// image axis: n = W (pos = the query's column) or H (its row); the n lanes at
+// off. Rows that are not ok are not written.
+__device__ __forceinline__ void rc_axis(const uint32_t (&qa)[2][4], const amma::bf16* e_hi,
+                                        const amma::bf16* e_lo, int n, int rows,
+                                        const int (&pos)[2], const bool (&ok)[2],
+                                        float* rel_rows, int rel_stride, int off, int lane) {
+  using amma::KS;
+  using amma::lds32;
+  using amma::mma16816;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int nt = 0; nt < rows / 8; ++nt) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const amma::bf16* hi = e_hi + (nt * 8 + g) * KS + 2 * t;
+    const amma::bf16* lo = e_lo + (nt * 8 + g) * KS + 2 * t;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      mma16816(acc, qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3], lds32(hi + ks * 16),
+               lds32(hi + ks * 16 + 8));
+      mma16816(acc, qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3], lds32(lo + ks * 16),
+               lds32(lo + ks * 16 + 8));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = i >> 1;  // row g (0) or g + 8 (1)
+      const int m = nt * 8 + 2 * t + (i & 1) - (n - 1) + pos[rr];
+      if (ok[rr] && m >= 0 && m < n) rel_rows[(g + 8 * rr) * rel_stride + off + m] = acc[i];
+    }
+  }
 }
 
 }  // namespace hil

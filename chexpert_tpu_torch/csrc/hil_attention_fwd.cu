@@ -11,38 +11,192 @@
 //   lse (B, nh, hw)       f32, m + log(l) per (batch, head, token)
 // The TPU body makes its matrix unit broadcast and select: q . [I .. I], an
 // iota mask, a dot with the block-diagonal operand for RC, and a one-hot of
-// the key's column and row inside the q.k product. Here RC[t, m] is a plain
-// sum over d with Rw read by index, and a key's two relative terms are two
-// reads of the query row's RC in shared memory: no mask, no one-hot, no
-// tiled identity. Its per-tile row layouts of lse (ROW_SUB) and its tiling
+// the key's column and row inside the q.k product. Here RC[t, m] is computed
+// once per query row into shared memory (a plain sum over d with Rw read by
+// index on the CUDA cores, a product with the embedding on the tensor cores),
+// and a key's two relative terms are two reads of the query row's RC: no
+// mask, no one-hot, no tiled identity. Its per-tile row layouts of lse (ROW_SUB) and its tiling
 // search are VMEM matters and have no counterpart.
 //
-// Bound on the H100 (SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 tensor, 67 TFLOP/s
-// f32 non-tensor), bf16, slot 48, batch 4 x 8 heads, counting 2*dkh + 2 + 3 +
-// 2*dvh operations per (query, key) pair and 2*dkh per RC entry:
-//   40x40 dvh 1: 5.5 MB -> 1.6 us;  4.0 GFLOP -> 4.1 us  (operations)
-//   20x20 dvh 3: 1.3 MB -> 0.4 us;  0.27 GFLOP -> 0.3 us (bytes)
-//   10x10 dvh 6: 0.3 MB -> 0.1 us                         (bytes)
-// P is 3x smaller per token than the head-major operands of
-// rel_attention_fwd.cu (no W+H rel lanes per head), so the byte floor drops
-// and the largest geometry is bound by operations. This first version
-// computes on the f32 CUDA cores (67 TFLOP/s: a floor of ~60 us at 40x40):
-// what it keeps is the layout's point, that nothing data-sized is copied
-// around the kernel and the (hw, hw) logits never reach device memory. Moving
-// q.k^T and p.v onto mma.sync / wgmma is a later change.
+// Two kernels, chosen by the operand dtype:
+//   bf16 (what autocast hands over): the tensor-core kernel of
+//     attention_fwd_mma.cuh, a block per (batch, head, 64-query tile) of 4
+//     warps. What is this file's own:
+//     - the queries' RC rows (f32, W+H wide) as the product q E^T and the
+//       skewed store of hil_attention_common.cuh, the code B6's dq pass runs,
+//       so the backward recomputes the forward's S;
+//     - the key tiles as whole key rows of the head's slot: slot elements
+//       16..47 of each key ([q tail ; k ; v ; pad], 64 bytes) by 16-byte
+//       cp.async where the slot is a multiple of 8 lanes and at least 48 (the
+//       model's 48 is), so k sits at column 4 and v at column 24 (48 bytes,
+//       16-byte aligned for ldmatrix) of a row of stride KS; other slots take
+//       2-byte loads of k and v into the same columns. The queries' q lanes
+//       come by 8-byte cp.async (slot a multiple of 4 lanes) or 2-byte loads.
+//     A map past amma::mma_fits (past 64x64) takes the CUDA-core kernel below
+//     in bf16.
+//   f32 (the card's own reference route, held to 1e-4): the CUDA-core kernel,
+//     all arithmetic f32.
 //
-// Design: one block per (batch, head, 64-query tile); the tile's q is staged
-// in shared memory, its RC rows (W+H wide) are computed there once, then 4
-// threads per query row each take every 4th key of a 64-key tile staged in
-// shared memory, with their own online-softmax state, merged by warp
-// shuffles at the end (the blocking of rel_attention_fwd.cu). A head's slice
-// of a token is 2*dkh+dvh contiguous elements at a stride of nh*slot, so a
-// tile load touches 2-3 32-byte sectors per token; the other heads' blocks
-// read the neighbouring bytes and P (20 MB at batch 16) stays in L2. Staging
-// whole token rows for all heads in one block is the coalesced alternative
-// and is left to the change that moves the dots to the tensor cores.
+// Bound on the H100 (SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 tensor; exp on the
+// special function units, 16 per SM and clock: ~4.2 T/s at 1.98 GHz), bf16,
+// slot 48, batch 4 x 8 heads, one exp per (query, key) pair:
+//   40x40 dvh 1: 5.5 MB -> 1.6 us;  4.0 GFLOP -> 4.1 us;  82 M exp -> 19.6 us
+//   20x20 dvh 3: 1.3 MB -> 0.4 us;  5.1 M exp -> 1.2 us
+//   10x10 dvh 6: 0.3 MB -> 0.1 us;  0.3 M exp -> 0.08 us
+// so the softmax's exps, not the products or the bytes, set the floor. The
+// CUDA-core kernel takes 0.74 / 0.066 / 0.019 ms there, the tensor-core
+// kernel 0.137 / 0.023 / 0.010 ms (71 registers; 52 KB of shared memory at
+// 40x40, so 4 blocks per SM; its key-tile loop compiles to about 1220 SASS
+// instructions, staging and both paths of the relative logits included, of
+// which 20 are MMAs and 37 MUFU: the scalar work
+// around the MMAs, the RC reads and their addresses, the max, the FMA and ex2
+// per element, the pack, is in the instruction issue, as in the backward
+// passes; scripts/bench_attention_fwd_torch.py, NVIDIA H100 80GB HBM3 at
+// 700 W).
+//
+// Design of the CUDA-core kernel: one block per (batch, head, 64-query tile);
+// the tile's q is staged in shared memory, its RC rows (W+H wide) are
+// computed there once, then 4 threads per query row each take every 4th key
+// of a 64-key tile staged in shared memory, with their own online-softmax
+// state, merged by warp shuffles at the end (the blocking of
+// rel_attention_fwd.cu's CUDA-core kernel).
 
+#include "attention_fwd_mma.cuh"
 #include "hil_attention_common.cuh"
+
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores (attention_fwd_mma.cuh).
+
+namespace {
+namespace mma_fwd {
+
+using namespace amma;
+using hil::emb_rows;
+using hil::rc_axis;
+using hil::slots_aligned;
+using hil::stage_emb;
+
+constexpr int KV_FIRST = 16;         // the first slot element of a staged key row
+constexpr int KV_COLS = 32;          // staged elements per key row: k and v of dvh <= 8
+
+// A block owns FWD_ROWS queries of one (batch, head): it computes their RC
+// rows, walks the keys TN at a time and writes its out and lse rows. vecq: q
+// rows by 8-byte cp.async; veckv: key rows by 16-byte cp.async.
+__global__ void __launch_bounds__(FWD_WARPS * 32)
+hil_attention_fwd_mma_kernel(const bf16* __restrict__ P, const float* __restrict__ Rw,
+                             const float* __restrict__ Rh, const int* __restrict__ tab,
+                             bf16* __restrict__ out, float* __restrict__ lse, int hw, int H,
+                             int W, int nh, int slot, int dvh, int rel_stride, int vecq,
+                             int veckv) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int xw = emb_rows(W), xh = emb_rows(H), nbt = bin_tiles(W, H);
+  float* rel_s = reinterpret_cast<float*>(smem_raw);  // FWD_ROWS x rel_stride: RC rows
+  // until the RC rows are made: the queries' tile and E (hi, lo); then the key tiles
+  bf16* q_s = reinterpret_cast<bf16*>(rel_s + FWD_ROWS * rel_stride);  // FWD_ROWS x KS
+  bf16* e_hi = q_s + FWD_ROWS * KS;                   // (xw + xh) x KS
+  bf16* e_lo = e_hi + (xw + xh) * KS;                 // (xw + xh) x KS
+  bf16* kv_s = q_s;                                   // TN x KS: slot elements KV_FIRST..
+  int* kpos_s = reinterpret_cast<int*>(kv_s + TN * KS);  // TN
+
+  constexpr int NT = FWD_WARPS * 32;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = blockIdx.x * FWD_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qn = min(FWD_ROWS, hw - q0);
+  const bool relative = Rw != nullptr;
+  const size_t row = static_cast<size_t>(nh) * slot;  // elements per token
+  const bf16* P_bh = P + static_cast<size_t>(b) * hw * row + static_cast<size_t>(h) * slot;
+
+  zero_tile(q_s, FWD_ROWS * KS, tid, NT);  // the columns past DKH and the rows past hw
+  for (int e = tid; e < FWD_ROWS * rel_stride; e += NT) rel_s[e] = 0.f;
+  __syncthreads();
+  stage_rows(q_s, KS, P_bh + q0 * row, row, qn, DKH, vecq, tid, NT);
+  if (relative) {
+    stage_emb(e_hi, e_lo, Rw, W, xw, tid, NT);
+    stage_emb(e_hi + xw * KS, e_lo + xw * KS, Rh, H, xh, tid, NT);
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  FwdWarp st;
+  fwd_init(st, q_s, KS, warp, lane);
+  const int i0 = q0 + warp * 16 + (lane >> 2);  // the warp's query rows g and g + 8
+  const bool row_ok[2] = {i0 < hw, i0 + 8 < hw};
+  if (relative) {
+    const int pos_w[2] = {i0 % W, (i0 + 8) % W}, pos_h[2] = {i0 / W, (i0 + 8) / W};
+    float* rel_rows = rel_s + warp * 16 * rel_stride;
+    rc_axis(st.qa, e_hi, e_lo, W, xw, pos_w, row_ok, rel_rows, rel_stride, 0, lane);
+    rc_axis(st.qa, e_hi + xw * KS, e_lo + xw * KS, H, xh, pos_h, row_ok, rel_rows, rel_stride,
+            W, lane);
+  }
+  __syncthreads();  // the queries' tile and E are consumed: their memory holds the key tiles
+  zero_tile(kv_s, TN * KS, tid, NT);  // the columns that are not staged stay zero
+  for (int j0 = 0; j0 < hw; j0 += TN) {
+    const int kn = min(TN, hw - j0);
+    __syncthreads();  // the previous key tile is consumed
+    const bf16* src = P_bh + j0 * row + KV_FIRST;
+    if (veckv) {
+      cp_rows<16>(kv_s, KS * 2, src, row * 2, kn, KV_COLS / 8, tid, NT);
+    } else {
+      const int cols = DKH + dvh;  // k and v, from slot element DKH
+      for (int e = tid; e < kn * cols; e += NT) {
+        const int r = e / cols, c = e - r * cols;
+        kv_s[r * KS + DKH - KV_FIRST + c] = src[r * row + DKH - KV_FIRST + c];
+      }
+    }
+    stage_kpos(kpos_s, tab, j0 / TN, nbt, tid, NT);
+    cp_async_wait();
+    __syncthreads();
+    fwd_step(st, kv_s + DKH - KV_FIRST, KS, kv_s + 2 * DKH - KV_FIRST, KS, kpos_s, rel_s,
+             rel_stride, W, kn, warp, lane);
+  }
+
+  float o[4], l[2];
+  fwd_finish(st, o, l);
+  const int t = lane & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (!row_ok[rr]) continue;
+    const int i = i0 + 8 * rr;
+    bf16* o_i = out + (static_cast<size_t>(b) * hw + i) * nh * dvh + static_cast<size_t>(h) * dvh;
+    if (2 * t < dvh) o_i[2 * t] = __float2bfloat16(o[2 * rr]);
+    if (2 * t + 1 < dvh) o_i[2 * t + 1] = __float2bfloat16(o[2 * rr + 1]);
+    if (t == 0) lse[(static_cast<size_t>(b) * nh + h) * hw + i] = l[rr];
+  }
+}
+
+inline size_t fwd_smem(int rel_stride, int W, int H) {
+  const size_t queries =
+      static_cast<size_t>(FWD_ROWS + 2 * (emb_rows(W) + emb_rows(H))) * KS * sizeof(bf16);
+  const size_t keys = static_cast<size_t>(TN) * KS * sizeof(bf16) + TN * sizeof(int);
+  return static_cast<size_t>(FWD_ROWS) * rel_stride * sizeof(float) +
+         (queries > keys ? queries : keys);
+}
+
+int launch(const void* P, const void* Rw, const void* Rh, const void* tab, void* out, void* lse,
+           int B, int hw, int H, int W, int nh, int slot, int dvh, void* stream) {
+  if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rel_stride = rel_stride_of(W, H);
+  const size_t smem = fwd_smem(rel_stride, W, H);
+  auto kern = hil_attention_fwd_mma_kernel;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int veckv = slot % 8 == 0 && slot >= KV_FIRST + KV_COLS &&
+                    reinterpret_cast<uintptr_t>(P) % 16 == 0;
+  const dim3 grid((hw + FWD_ROWS - 1) / FWD_ROWS, nh, B);
+  kern<<<grid, FWD_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(P), static_cast<const float*>(Rw), static_cast<const float*>(Rh),
+      static_cast<const int*>(tab), static_cast<bf16*>(out), static_cast<float*>(lse), hw, H, W,
+      nh, slot, dvh, rel_stride, slots_aligned(P, slot), veckv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mma_fwd
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// The CUDA-core kernel: the f32 entry, and bf16 maps past amma::mma_fits.
 
 namespace {
 
@@ -197,14 +351,21 @@ int launch(const void* P, const void* Rw, const void* Rh, void* out, void* lse, 
 
 }  // namespace
 
-extern "C" int hil_attention_fwd_f32(const void* P, const void* Rw, const void* Rh, void* out,
-                                     void* lse, int B, int hw, int H, int W, int nh, int slot,
-                                     int dkh, int dvh, void* stream) {
+// tab: the key table of the map (ops/fused_attention.py::key_table), read by
+// the tensor-core kernel alone.
+extern "C" int hil_attention_fwd_f32(const void* P, const void* Rw, const void* Rh,
+                                     const void* tab, void* out, void* lse, int B, int hw, int H,
+                                     int W, int nh, int slot, int dkh, int dvh, void* stream) {
+  (void)tab;
   return launch<float>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
 }
 
-extern "C" int hil_attention_fwd_bf16(const void* P, const void* Rw, const void* Rh, void* out,
-                                      void* lse, int B, int hw, int H, int W, int nh, int slot,
-                                      int dkh, int dvh, void* stream) {
-  return launch<__nv_bfloat16>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
+extern "C" int hil_attention_fwd_bf16(const void* P, const void* Rw, const void* Rh,
+                                      const void* tab, void* out, void* lse, int B, int hw, int H,
+                                      int W, int nh, int slot, int dkh, int dvh, void* stream) {
+  if (!amma::mma_fits(W, H))
+    return launch<__nv_bfloat16>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
+  if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return mma_fwd::launch(P, Rw, Rh, tab, out, lse, B, hw, H, W, nh, slot, dvh, stream);
 }

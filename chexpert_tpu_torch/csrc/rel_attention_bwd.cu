@@ -67,15 +67,6 @@ namespace mma_passes {
 
 using namespace amma;
 
-// The bf16 row stride of a tile of whole qr rows [q ; RW ; RH]: >= L and >= 32
-// (the q fragments read 32 columns; what lies past DKH meets the zeros of k),
-// and = 8 mod 16, which keeps rows 16-byte aligned for ldmatrix and spreads
-// the fragment reads (rows g, words t) and the RC reads over the banks.
-inline int qr_stride_of(int L) {
-  const int x = L > 32 ? L : 32;
-  return x + ((8 - x % 16) + 16) % 16;
-}
-
 // Pass dq. A block owns DQ_ROWS queries of one (batch, head), walks the keys
 // TN at a time and writes its dqr rows [ds k ; dRW ; dRH] once. Its qr rows
 // are staged whole: q and the RC lanes (bf16) are read from the same tile.
@@ -233,8 +224,6 @@ rel_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ qr, const bf16* __res
     }
   }
 }
-
-inline int aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
 
 template <int NBT>
 int launch_dq_nbt(const void* qr, const void* k, const void* v, const void* dout,
@@ -570,12 +559,10 @@ int launch_dq(const void* qr, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 entries take the tensor-core passes wherever pass dq is
-// instantiated for the map (ceil(W/8) + ceil(H/8) <= 16 bin tiles: every map
-// up to 64x64); a larger map takes the CUDA-core kernels above.
-bool mma_fits(int W, int H) { return amma::bin_tiles(W, H) <= amma::MAX_BIN_TILES; }
-
 }  // namespace
+
+// The bf16 entries take the tensor-core passes wherever amma::mma_fits (every
+// map up to 64x64); a larger map takes the CUDA-core kernels above.
 
 extern "C" int rel_attention_bwd_dkdv_f32(const void* qr, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* delta,
@@ -588,7 +575,7 @@ extern "C" int rel_attention_bwd_dkdv_bf16(const void* qr, const void* k, const 
                                            const void* dout, const void* lse, const void* delta,
                                            void* dk, void* dv, int bn, int hw, int H, int W,
                                            int dkh, int dvh, void* stream) {
-  if (!mma_fits(W, H))
+  if (!amma::mma_fits(W, H))
     return launch_dkdv<__nv_bfloat16>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh,
                                       stream);
   if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
@@ -609,7 +596,7 @@ extern "C" int rel_attention_bwd_dq_bf16(const void* qr, const void* k, const vo
                                          const void* dout, const void* lse, const void* delta,
                                          const void* tab, void* dqr, int bn, int hw, int H,
                                          int W, int dkh, int dvh, void* stream) {
-  if (!mma_fits(W, H))
+  if (!amma::mma_fits(W, H))
     return launch_dq<__nv_bfloat16>(qr, k, v, dout, lse, delta, dqr, bn, hw, H, W, dkh, dvh,
                                     stream);
   if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);

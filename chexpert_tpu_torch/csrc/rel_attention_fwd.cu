@@ -9,32 +9,142 @@
 // The TPU forms S as ONE MXU pass qr . [k ; onehot(col) ; onehot(row)]^T; here
 // RW/RH are read by index from shared memory and no one-hot exists.
 //
-// Bound on the H100 (SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 tensor, 67 TFLOP/s
-// f32 non-tensor), per launch at the aadensenet121 320x320 geometries with
-// bn = 32 (batch 4 x 8 heads), bf16 operands; operations counted per (query,
-// key) pair as 2*dkh (q.k) + 2 (rel adds) + 3 (max, exp, sum) + 2*dvh (p.v):
-//   HW=1600 (40x40, dvh 1): 12.70 MB -> 3.79 us;  3.85 GFLOP -> 3.89 us (bf16 rate)
-//   HW= 400 (20x20, dvh 3):  2.25 MB -> 0.67 us;  0.26 GFLOP -> 0.26 us
-//   HW= 100 (10x10, dvh 6):  0.41 MB -> 0.12 us;  0.02 GFLOP -> 0.02 us
-// So the work sits at the card's ridge at HW=1600 and is bytes-bound below.
-// This first version computes on the f32 CUDA cores, whose 67 TFLOP/s puts
-// its floor at ~57 us for HW=1600: the design keeps the (hw, hw) logits out
-// of device memory (the point of the TPU kernel too), reads every input
-// once per query tile, and leaves the move of q.k^T and p.v onto the tensor
-// cores (mma.sync / wgmma) to a later change.
+// Two kernels, chosen by the operand dtype:
+//   bf16 (what autocast hands over): the tensor-core kernel of
+//     attention_fwd_mma.cuh, a block per (bn slice, 64-query tile) of 4 warps.
+//     Its queries are staged as whole qr rows (200 / 120 / 80 bytes at
+//     40x40 / 20x20 / 10x10) by 8-byte cp.async where L is a multiple of 4, so
+//     q and the bf16 RW / RH lanes are read from the same tile, as B2's dq
+//     pass reads them; key tiles are k rows (8-byte cp.async) and v rows
+//     padded to 8 columns. A map past amma::mma_fits (past 64x64) takes the
+//     CUDA-core kernel below in bf16.
+//   f32 (the card's own reference route, held to 1e-4): the CUDA-core kernel,
+//     all arithmetic f32.
 //
-// Design: one block per (bn slice, 64-query tile); 4 threads per query row,
-// each owning every 4th key of a 64-key tile staged in shared memory, with
-// its own online-softmax state; the 4 partial states merge by warp shuffles
-// at the end. The ragged key tail is skipped by index (no padding in device
-// memory) and padded query rows are never written. Nothing carries across
-// blocks. dvh 1..8 shares one code path (the TPU's dv1 layout branch is a
-// lane-layout trick with no GPU counterpart).
+// Bound on the H100 (SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 tensor; exp on the
+// special function units, 16 per SM and clock: ~4.2 T/s at 1.98 GHz), per
+// launch at the aadensenet121 320x320 geometries with bn = 32 (batch 4 x 8
+// heads), bf16 operands, one exp per (query, key) pair:
+//   HW=1600 (40x40, dvh 1): 12.70 MB -> 3.79 us;  82 M exp -> 19.6 us
+//   HW= 400 (20x20, dvh 3):  2.25 MB -> 0.67 us;  5.1 M exp -> 1.2 us
+//   HW= 100 (10x10, dvh 6):  0.41 MB -> 0.12 us;  0.3 M exp -> 0.08 us
+// (the products, 2*dkh + 2*dvh + 4 operations per pair, take 3.7 / 0.2 /
+// 0.02 us at the bf16 rate), so the softmax's exps set the floor. The design
+// keeps the (hw, hw) logits out of device memory (the point of the TPU kernel
+// too) and reads every input once per query tile. The CUDA-core kernel took
+// 0.58 / 0.050 / 0.014 ms there; the tensor-core kernel takes 0.11 / 0.018 /
+// 0.008 ms (72 registers, 20 KB of shared memory at 40x40; its key-tile loop
+// compiles to about 1440 SASS instructions, staging and both paths of the
+// relative logits included, of which 20 are MMAs and 34 MUFU: the
+// instruction issue, not the tensor pipe or the exps, bounds it;
+// scripts/bench_attention_fwd_torch.py, NVIDIA H100 80GB HBM3 at 700 W).
+//
+// Design of the CUDA-core kernel: one block per (bn slice, 64-query tile); 4
+// threads per query row, each owning every 4th key of a 64-key tile staged in
+// shared memory, with its own online-softmax state; the 4 partial states
+// merge by warp shuffles at the end. The ragged key tail is skipped by index
+// (no padding in device memory) and padded query rows are never written.
+// Nothing carries across blocks. dvh 1..8 shares one code path (the TPU's dv1
+// layout branch is a lane-layout trick with no GPU counterpart).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "attention_fwd_mma.cuh"
+
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores (attention_fwd_mma.cuh).
+
+namespace {
+namespace mma_fwd {
+
+using namespace amma;
+
+// A block owns FWD_ROWS queries of one (batch, head): whole qr rows, q and
+// the RC lanes read from the same tile; it walks the keys TN at a time and
+// writes its out and lse rows. vecq / veck: the qr rows / the k rows are
+// 8-byte aligned (cp.async).
+__global__ void __launch_bounds__(FWD_WARPS * 32)
+rel_attention_fwd_mma_kernel(const bf16* __restrict__ qr, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const int* __restrict__ tab,
+                             bf16* __restrict__ out, float* __restrict__ lse, int hw, int H,
+                             int W, int dvh, int LP, int vecq, int veck) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qr_s = reinterpret_cast<bf16*>(smem_raw);    // FWD_ROWS x LP
+  bf16* k_s = qr_s + FWD_ROWS * LP;                   // TN x KS
+  bf16* v_s = k_s + TN * KS;                          // TN x VS
+  int* kpos_s = reinterpret_cast<int*>(v_s + TN * VS);  // TN
+
+  constexpr int NT = FWD_WARPS * 32;
+  const int L = DKH + W + H, nbt = bin_tiles(W, H);
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * FWD_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qn = min(FWD_ROWS, hw - q0);
+  const size_t tok = static_cast<size_t>(b) * hw;  // first token row of this (batch, head)
+  const bf16* k_b = k + tok * DKH;
+  const bf16* v_b = v + tok * dvh;
+
+  zero_tile(qr_s, FWD_ROWS * LP, tid, NT);  // the rows past hw and the columns past L
+  zero_tile(k_s, TN * KS, tid, NT);         // the columns past DKH stay zero
+  __syncthreads();
+  stage_rows(qr_s, LP, qr + (tok + q0) * L, L, qn, L, vecq, tid, NT);
+  cp_async_wait();
+  __syncthreads();
+
+  FwdWarp st;
+  fwd_init(st, qr_s, LP, warp, lane);
+  for (int j0 = 0; j0 < hw; j0 += TN) {
+    const int kn = min(TN, hw - j0);
+    __syncthreads();  // the previous key tile is consumed
+    stage_rows(k_s, KS, k_b + static_cast<size_t>(j0) * DKH, DKH, kn, DKH, veck, tid, NT);
+    stage_dv(v_s, v_b + static_cast<size_t>(j0) * dvh, dvh, dvh, kn, TN, tid, NT);
+    stage_kpos(kpos_s, tab, j0 / TN, nbt, tid, NT);
+    cp_async_wait();
+    __syncthreads();
+    fwd_step(st, k_s, KS, v_s, VS, kpos_s, qr_s + DKH, LP, W, kn, warp, lane);
+  }
+
+  float o[4], l[2];
+  fwd_finish(st, o, l);
+  const int t = lane & 3;
+  const int i0 = q0 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = i0 + 8 * rr;
+    if (i >= hw) continue;
+    bf16* o_i = out + (tok + i) * dvh;
+    if (2 * t < dvh) o_i[2 * t] = __float2bfloat16(o[2 * rr]);
+    if (2 * t + 1 < dvh) o_i[2 * t + 1] = __float2bfloat16(o[2 * rr + 1]);
+    if (t == 0) lse[tok + i] = l[rr];
+  }
+}
+
+int launch(const void* qr, const void* k, const void* v, const void* tab, void* out, void* lse,
+           int bn, int hw, int H, int W, int dvh, void* stream) {
+  if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int L = DKH + W + H, LP = qr_stride_of(L);
+  const size_t smem = static_cast<size_t>(FWD_ROWS * LP + TN * (KS + VS)) * sizeof(bf16) +
+                      TN * sizeof(int);
+  auto kern = rel_attention_fwd_mma_kernel;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((hw + FWD_ROWS - 1) / FWD_ROWS, bn);
+  kern<<<grid, FWD_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qr), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(tab), static_cast<bf16*>(out), static_cast<float*>(lse), hw, H, W,
+      dvh, LP, L % 4 == 0 && aligned8(qr), aligned8(k));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mma_fwd
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// The CUDA-core kernel: the f32 entry, and bf16 maps past amma::mma_fits.
 
 namespace {
 
@@ -175,12 +285,14 @@ rel_attention_fwd_kernel(const T* __restrict__ qr, const T* __restrict__ k,
   }
 }
 
+bool bad_shape(int bn, int hw, int H, int W, int dkh, int dvh) {
+  return dkh != DKH || dvh < 1 || dvh > DVMAX || hw != H * W || hw < 1 || bn < 1 || bn > 65535;
+}
+
 template <typename T>
 int launch(const void* qr, const void* k, const void* v, void* out, void* lse, int bn,
            int hw, int H, int W, int dkh, int dvh, void* stream) {
-  if (dkh != DKH || dvh < 1 || dvh > DVMAX || hw != H * W || hw < 1 || bn < 1 ||
-      bn > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
   const int rel_stride = (W + H) | 1;  // odd row stride spreads rows over banks
   const size_t smem = static_cast<size_t>(TQ * rel_stride + TK * DKH + TK * DVMAX) *
                           sizeof(float) + 2 * TK * sizeof(int);
@@ -199,14 +311,20 @@ int launch(const void* qr, const void* k, const void* v, void* out, void* lse, i
 
 }  // namespace
 
+// tab: the key table of the map (ops/fused_attention.py::key_table), read by
+// the tensor-core kernel alone.
 extern "C" int rel_attention_fwd_f32(const void* qr, const void* k, const void* v,
-                                     void* out, void* lse, int bn, int hw, int H,
-                                     int W, int dkh, int dvh, void* stream) {
+                                     const void* tab, void* out, void* lse, int bn, int hw,
+                                     int H, int W, int dkh, int dvh, void* stream) {
+  (void)tab;
   return launch<float>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);
 }
 
 extern "C" int rel_attention_fwd_bf16(const void* qr, const void* k, const void* v,
-                                      void* out, void* lse, int bn, int hw, int H,
-                                      int W, int dkh, int dvh, void* stream) {
-  return launch<__nv_bfloat16>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);
+                                      const void* tab, void* out, void* lse, int bn, int hw,
+                                      int H, int W, int dkh, int dvh, void* stream) {
+  if (!amma::mma_fits(W, H))
+    return launch<__nv_bfloat16>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);
+  if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
+  return mma_fwd::launch(qr, k, v, tab, out, lse, bn, hw, H, W, dvh, stream);
 }

@@ -13,9 +13,10 @@ Ports of the TPU kernels chexpert_tpu/ops/pallas_attention.py::_fwd_kernel
     torch ops. Nothing on the card path calls it; ``chip_smoke.py`` holds the
     kernels against it on the card.
 
-B2's two passes have two sets of kernels, chosen by the operand dtype alone:
-bf16 runs the tensor-core kernels (``csrc/attention_bwd_mma.cuh``), f32 the
-CUDA-core kernels, the card's reference route.
+B1 and B2's two passes each have two kernels, chosen by ``on_tensor_cores``:
+bf16 runs the tensor-core kernels (``csrc/attention_fwd_mma.cuh``,
+``csrc/attention_bwd_mma.cuh``), f32 the CUDA-core kernels, the card's
+reference route; a bf16 map past 64x64 also takes the CUDA-core kernels.
 
 ``RelAttention.apply`` is what a model calls: its forward is B1 and its
 backward B2, and it returns the packed cotangent d[q ; RW ; RH] whole, so the
@@ -57,20 +58,22 @@ def bin_tiles(H: int, W: int) -> int:
     return -(-W // 8) + -(-H // 8)
 
 
-def bwd_on_tensor_cores(dtype, H: int, W: int) -> bool:
-    """Whether the backward's dkdv and dq passes (B2's and B6's alike) run the
-    tensor-core kernels for this operand dtype and map: bf16, and a number of
-    bin tiles that pass dq is instantiated for (every map up to 64x64).
-    Otherwise the entries run the CUDA-core kernels (f32 always does). The
-    same rule is in the sources (``mma_fits``)."""
+def on_tensor_cores(dtype, H: int, W: int) -> bool:
+    """Whether the attention kernels (the forwards B1 and B5, the backward
+    passes dkdv and dq of B2 and B6) run their tensor-core versions for this
+    operand dtype and map: bf16, and a number of bin tiles that the backward's
+    dq pass is instantiated for (every map up to 64x64). Otherwise the entries
+    run the CUDA-core kernels (f32 always does). The same rule is in the
+    sources (``amma::mma_fits``); the tensor-core kernels read the key table."""
     return dtype == torch.bfloat16 and bin_tiles(H, W) <= MMA_MAX_BIN_TILES
 
 
 @functools.lru_cache(maxsize=64)
 def key_table(H: int, W: int, device: torch.device) -> torch.Tensor:
-    """What the tensor-core dq pass needs to know of each tile of 64 keys: an
-    int32 table (tiles, words) that depends on the map alone, so it is built
-    once per (H, W, device) and kept. Per row (``KeyTable`` in
+    """What the tensor-core kernels need to know of each tile of 64 keys (the
+    dq passes all of it, the forwards the key positions): an int32 table
+    (tiles, words) that depends on the map alone, so it is built once per
+    (H, W, device) and kept. Per row (``KeyTable`` in
     csrc/attention_bwd_mma.cuh):
 
       [4 chunks of 16 keys][bin tiles][32 lanes][2]  the B fragments (b0, b1)
@@ -222,7 +225,9 @@ def rel_attention_fwd(qr: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _kernel_entry(NAME, NAME, (qr, k, v), (), dkh, dvh)
     out = torch.empty((bn, hw, dvh), dtype=v.dtype, device=qr.device)
     lse = torch.empty((bn, hw), dtype=torch.float32, device=qr.device)
-    kernels.launch(NAME, fn, [t.data_ptr() for t in (qr, k, v, out, lse)],
+    tab = key_table(H, W, qr.device) if on_tensor_cores(qr.dtype, H, W) else None
+    kernels.launch(NAME, fn, [None if t is None else t.data_ptr()
+                              for t in (qr, k, v, tab, out, lse)],
                    [bn, hw, H, W, dkh, dvh], qr.device)
     return out, lse
 
@@ -251,7 +256,7 @@ def rel_attention_bwd_dq(qr, k, v, dout, lse, delta, H: int, W: int, dkh: int):
     bn, hw, _ = qr.shape
     fn = _kernel_entry(BWD_DQ, BWD_SOURCE, (qr, k, v, dout), (lse, delta), dkh, v.shape[-1])
     dqr = torch.empty_like(qr)
-    tab = key_table(H, W, qr.device) if bwd_on_tensor_cores(qr.dtype, H, W) else None
+    tab = key_table(H, W, qr.device) if on_tensor_cores(qr.dtype, H, W) else None
     kernels.launch(BWD_DQ, fn,
                    [None if t is None else t.data_ptr()
                     for t in (qr, k, v, dout, lse, delta, tab, dqr)],

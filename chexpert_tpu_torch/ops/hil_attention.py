@@ -27,11 +27,12 @@ choice, the next multiple of 8 (16 bytes in bf16, so every slot starts on a
     torch ops. Nothing on the card path calls them; ``chip_smoke.py`` holds
     the kernels against them on the card.
 
-B6's dkdv and dq passes have two sets of kernels, chosen by the operand
-dtype alone: bf16 runs the tensor-core kernels (``bwd_on_tensor_cores``),
-whose dq pass computes each query's relative logits once and leaves them in
-an f32 scratch that the dkdv pass reads, so dq runs first; f32 runs the
-CUDA-core kernels, the card's reference route.
+B5 and B6's dkdv and dq passes each have two kernels, chosen by
+``on_tensor_cores``: bf16 runs the tensor-core kernels (maps up to 64x64),
+whose forward and dq pass compute each query's relative logits by the same
+product; the dq pass leaves them in an f32 scratch that the dkdv pass reads,
+so dq runs first. f32, and bf16 maps past 64x64, run the CUDA-core kernels;
+f32 is the card's reference route.
 
 ``HilAttention.apply`` is what a model calls: forward B5, backward B6's
 three passes, returning (dP, dRw, dRh); building Rw / Rh from the embeddings
@@ -47,7 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from chexpert_tpu_torch import kernels
-from chexpert_tpu_torch.ops.fused_attention import bwd_on_tensor_cores, key_positions, key_table
+from chexpert_tpu_torch.ops.fused_attention import key_positions, key_table, on_tensor_cores
 
 FWD = "hil_attention_fwd"
 BWD_SOURCE = "hil_attention_bwd"  # one source, three kernels (passes)
@@ -243,7 +244,8 @@ def hil_attention_fwd(P0: torch.Tensor, Rw: Optional[torch.Tensor], Rh: Optional
     fn = _kernel_entry(FWD, FWD, (P0,), (Rw, Rh), dkh, dvh)
     out = torch.empty((B, hw, nh * dvh), dtype=P0.dtype, device=P0.device)
     lse = torch.empty((B, nh, hw), dtype=torch.float32, device=P0.device)
-    kernels.launch(FWD, fn, [_ptr(t) for t in (P0, Rw, Rh, out, lse)],
+    tab = key_table(H, W, P0.device) if on_tensor_cores(P0.dtype, H, W) else None
+    kernels.launch(FWD, fn, [_ptr(t) for t in (P0, Rw, Rh, tab, out, lse)],
                    [B, hw, H, W, nh, slot, dkh, dvh], P0.device)
     return out, lse
 
@@ -258,11 +260,11 @@ def _check_bwd(P0, nh: int, dvh: int, dout, lse, delta):
 def hil_attention_bwd_dkdv(P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slot,
                            rc=None) -> None:
     """Pass 1 of B6 on the card: writes the k, v and pad lanes of ``dP``. The
-    tensor-core kernel (``bwd_on_tensor_cores``) reads the queries' RC rows
+    tensor-core kernel (``on_tensor_cores``) reads the queries' RC rows
     from ``rc``, the scratch that pass 2 returns, so pass 2 runs first."""
     nh = _geometry(P0, Rw, Rh, H, W, dkh, dvh, slot)
     _check_bwd(P0, nh, dvh, dout, lse, delta)
-    if Rw is None or not bwd_on_tensor_cores(P0.dtype, H, W):
+    if Rw is None or not on_tensor_cores(P0.dtype, H, W):
         rc = None
     elif rc is None or rc.shape != (P0.shape[0], nh, H * W, W + H):
         raise ValueError(f"{BWD_DKDV}: needs the RC scratch (B, nh, HW, W+H) of "
@@ -282,7 +284,7 @@ def hil_attention_bwd_dq(P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slot)
     fn = _kernel_entry(BWD_DQ, BWD_SOURCE, (P0, dout, dP), (Rw, Rh, lse, delta), dkh, dvh)
     shape = (P0.shape[0], nh, H * W, W + H)
     drc = None if Rw is None else torch.empty(shape, dtype=torch.float32, device=P0.device)
-    mma = bwd_on_tensor_cores(P0.dtype, H, W)
+    mma = on_tensor_cores(P0.dtype, H, W)
     rc = (torch.empty(shape, dtype=torch.float32, device=P0.device)
           if Rw is not None and mma else None)
     tab = key_table(H, W, P0.device) if mma else None

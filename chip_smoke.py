@@ -7,20 +7,24 @@ Run from the root of a checkout. Phases, each failing the run on error:
 
 1. build: compiles chexpert_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
    process per source, all started together, and prints the card
-   (nvidia-smi name, power limit).
+   (nvidia-smi name, power limit, maximum SM clock).
 2. kernel B1: the relative-position attention forward kernel at the three
    aadensenet121 320x320 transition geometries, batch 4 (bn = 32), against
-   its plain PyTorch version on the card in f32 and bf16; times the kernel,
-   the plain version and one library call of the same function
-   (scaled_dot_product_attention with the relative bias materialized).
+   its plain PyTorch version on the card in f32 and bf16; device time (CUDA-
+   graph replay) of the kernel, the plain version and one library call of
+   the same function (scaled_dot_product_attention with the relative bias
+   materialized), the eager time beside it. The bf16 kernels of B1, B2, B5
+   and B6 are the tensor-core kernels, the f32 ones the CUDA-core kernels.
+   Then B1 and B5 in bf16 on two ragged maps, 33x17 (the tensor-core
+   kernels) and 72x64 (past the tensor-core rule: the CUDA-core kernels),
+   against their plain versions.
 3. kernel B2: B1 and the backward kernel's two passes (dk/dv, then dq with
    the dRW/dRH bins) at the same geometries with bn = 128 (the training
    batch 16 x 8 heads), in f32 and bf16, against their plain versions; device
    time (CUDA-graph replay) of each pass beside its eager time, its plain
    version, B1 at bn 128, and the backward of the library call with a bias
    that requires grad (device time: the profiler's sum over the kernels of
-   eager calls; events around them beside it). The bf16 passes are the
-   tensor-core kernels, the f32 passes the CUDA-core ones.
+   eager calls; events around them beside it).
 4. serve: aadensenet121 at 320x320 with seeded random weights, saved by the
    port's checkpoint store and served by chexpert_tpu_torch.cli.serve on the
    card in bf16; JPEG requests over HTTP; launch counts must show every
@@ -75,7 +79,9 @@ Run from the root of a checkout. Phases, each failing the run on error:
    beside its plain version, its bound, the library call
    (scaled_dot_product_attention with the bias materialized, the head-split
    and head-merge copies from and to the packed layout included; its backward
-   by device time as in phase 3) and B1 / B2 at the same geometry and batch.
+   by device time as in phase 3) and B1 / B2 at the same geometry and batch,
+   B1 beside its own library call (SDPA with the bias materialized) and its
+   bound.
 12. serve aaresnet152 (Bottleneck (3, 8, 36, 3), 47 AA convs) at 320x320,
    bf16, micro-batch 4, over HTTP as in phase 4, once under
    CHEXPERT_ATTN_LAYOUT=hil (47 B5 launches per forward and no other
@@ -101,6 +107,7 @@ CUDA device is available or the port is not importable.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib.util
 import io
 import json
@@ -126,6 +133,8 @@ B_TRAIN = 16                               # training batch (the CLI default)
 GEOMETRIES = ((40, 40, 1), (20, 20, 3), (10, 10, 6))  # (H, W, dvh) at 320x320
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor bf16; f32 non-tensor
+# exp (ex2) runs on the special function units: 16 per SM and clock, 132 SMs
+EXPS_PER_CLOCK = 16 * 132
 # f32: the same f32 algorithm on both sides; online-softmax rescaling and the
 # summation order differ, worth ~1e-6 relative on lse ~ 10: 1e-4 leaves margin.
 # bf16: both read the same bf16 operands and accumulate in f32; the output is
@@ -177,6 +186,14 @@ def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, which sets its exp rate."""
+    return float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
 
 
 @contextlib.contextmanager
@@ -271,12 +288,41 @@ def kernel_inputs(H, W, dvh, dtype, gen, batch=B):
     return [t.to(DEVICE, dtype).contiguous() for t in (qr, k, v)]
 
 
-def bound(nbytes: float, flops: float, dtype) -> dict:
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+_BOUND_PARTS = {"bytes_ms": "bytes", "ops_ms": "operations", "exp_ms": "exp"}
+
+
+def _bound_of(parts: dict) -> dict:
+    key = max(_BOUND_PARTS, key=lambda k: parts[k])  # ties go to the first: bytes
+    return {**parts, "bound_ms": parts[key], "bound_by": _BOUND_PARTS[key]}
+
+
+def bound(nbytes: float, flops: float, dtype, exps: float = 0.0) -> dict:
+    """The least time of a call: the bytes it must move over the memory rate,
+    its operations over the peak rate of their type, its exps over the
+    special function units' rate at the card's maximum SM clock; the largest
+    binds."""
+    return {"bytes": nbytes, "flops": flops, "exps": exps, **_bound_of({
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": flops / PEAK_FLOPS[dtype] * 1e3,
+        "exp_ms": exps / (EXPS_PER_CLOCK * sm_clock_mhz() * 1e6) * 1e3})}
+
+
+def bound_sum(terms) -> dict:
+    """The bound of several calls, terms = (count, bound of one call): each
+    part summed over the calls, the largest sum binding."""
+    terms = list(terms)
+    return _bound_of({k: sum(n * b[k] for n, b in terms) for k in _BOUND_PARTS})
+
+
+def b1_bound(bn: int, H: int, W: int, dvh: int, dtype) -> dict:
+    """B1 at bn slices: qr, k, v read and out, lse written once; per (query,
+    key) pair q.k 2*dkh, the two relative terms 2, max and sum 2, p.v 2*dvh,
+    and one exp."""
+    hw, L = H * W, DKH + W + H
+    pairs = bn * hw * hw
+    es = torch.finfo(dtype).bits // 8
+    return bound(bn * hw * (L + DKH + 2 * dvh) * es + bn * hw * 4,
+                 pairs * (2 * DKH + 4 + 2 * dvh), dtype, pairs)
 
 
 def kernel_phase():
@@ -306,28 +352,88 @@ def kernel_phase():
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0)
 
             err_lib = (library().float() - out_p.float()).abs().max().item()
-            es = qr.element_size()
-            nbytes = (qr.numel() + k.numel() + v.numel() + out.numel()) * es + lse.numel() * 4
-            flops = B * NH * hw * hw * (2 * DKH + 2 + 3 + 2 * dvh)
             rows.append({
                 "geometry": f"{H}x{W}", "hw": hw, "bn": B * NH, "dkh": DKH, "dvh": dvh,
                 "dtype": str(dtype).replace("torch.", ""),
                 "max_abs_err_out": err_out, "max_abs_err_lse": err_lse, "tol": TOL[dtype],
                 "library_max_abs_err": err_lib,
-                "kernel_ms": time_ms(lambda: rel_attention_fwd(qr, k, v, H, W, DKH)),
-                "plain_ms": time_ms(lambda: rel_attention_fwd_plain(qr, k, v, H, W, DKH)),
-                "library_ms": time_ms(library),
-                **bound(nbytes, flops, dtype),
+                # device time (CUDA-graph replay); events around the eager calls as host_ms
+                "kernel_ms": device_ms(lambda: rel_attention_fwd(qr, k, v, H, W, DKH)),
+                "plain_ms": device_ms(lambda: rel_attention_fwd_plain(qr, k, v, H, W, DKH)),
+                "library_ms": device_ms(library),
+                "host_ms": time_ms(lambda: rel_attention_fwd(qr, k, v, H, W, DKH)),
+                "library_host_ms": time_ms(library),
+                **b1_bound(B * NH, H, W, dvh, dtype),
                 "ok": ok,
             })
-            print(f"kernel rel_attention_fwd {H}x{W} dvh={dvh} {rows[-1]['dtype']}: "
-                  f"err out {err_out:.3g} lse {err_lse:.3g} (tol {TOL[dtype]}) "
-                  f"kernel {rows[-1]['kernel_ms']:.4f} ms plain {rows[-1]['plain_ms']:.4f} ms "
-                  f"library {rows[-1]['library_ms']:.4f} ms", flush=True)
+            r = rows[-1]
+            print(f"kernel rel_attention_fwd {H}x{W} dvh={dvh} {r['dtype']}: "
+                  f"err out {err_out:.3g} lse {err_lse:.3g} (tol {TOL[dtype]}) device ms: "
+                  f"kernel {r['kernel_ms']:.4f} plain {r['plain_ms']:.4f} library "
+                  f"{r['library_ms']:.4f} bound {r['bound_ms']:.5f} ({r['bound_by']}); eager "
+                  f"kernel {r['host_ms']:.4f} library {r['library_host_ms']:.4f}", flush=True)
             del qr, k, v, bias, q
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
+    return rows
+
+
+RAGGED_MAPS = ((33, 17, 5), (72, 64, 2))   # (H, W, dvh) under and past the tensor-core rule
+
+
+def ragged_phase():
+    """B1 and B5 in bf16 at batch 1 x 8 heads on a ragged map under the
+    tensor-core rule and one past it, against their plain versions (out and
+    lse within TOL)."""
+    from chexpert_tpu_torch.ops.fused_attention import (
+        on_tensor_cores,
+        rel_attention_fwd,
+        rel_attention_fwd_plain,
+    )
+    from chexpert_tpu_torch.ops.hil_attention import (
+        hil_attention_fwd,
+        hil_attention_fwd_plain,
+        hil_rel_operand,
+        hil_slot,
+    )
+
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(6)
+    rows = []
+    for H, W, dvh in RAGGED_MAPS:
+        hw, slot = H * W, hil_slot(DKH, dvh)
+        qr, k, v = kernel_inputs(H, W, dvh, dtype, gen, batch=1)
+        got = rel_attention_fwd(qr, k, v, H, W, DKH)
+        torch.cuda.synchronize()
+        want = rel_attention_fwd_plain(qr, k, v, H, W, DKH)
+        q = torch.randn(1, hw, NH, DKH, generator=gen) * DKH ** -0.5
+        kv = torch.randn(1, hw, NH, DKH + dvh, generator=gen)
+        pad = torch.zeros(1, hw, NH, slot - 2 * DKH - dvh)
+        P = torch.cat([q, kv, pad], -1).reshape(1, hw, NH * slot).to(DEVICE, dtype)
+        Rw = hil_rel_operand(torch.randn(DKH, 2 * W - 1, generator=gen).to(DEVICE), W)
+        Rh = hil_rel_operand(torch.randn(DKH, 2 * H - 1, generator=gen).to(DEVICE), H)
+        Rw, Rh = Rw.contiguous(), Rh.contiguous()
+        geo = (H, W, DKH, dvh, slot)
+        got5 = hil_attention_fwd(P, Rw, Rh, *geo)
+        torch.cuda.synchronize()
+        want5 = hil_attention_fwd_plain(P, Rw, Rh, *geo)
+        err = {f"{name}_{part}": (a.float() - b.float()).abs().max().item()
+               for name, (a2, b2) in (("b1", (got, want)), ("b5", (got5, want5)))
+               for part, a, b in zip(("out", "lse"), a2, b2)}
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (*got, *got5))
+        rows.append({"geometry": f"{H}x{W}", "dvh": dvh, "dtype": "bfloat16",
+                     "tensor_cores": on_tensor_cores(dtype, H, W), "abs_err": err,
+                     "tol": TOL[dtype], "ok": finite and max(err.values()) <= TOL[dtype]})
+        print(f"kernel ragged {H}x{W} dvh={dvh} bf16 (tensor cores "
+              f"{rows[-1]['tensor_cores']}): B1 / B5 err "
+              f"{ {n: float(f'{e:.3g}') for n, e in err.items()} } (tol {TOL[dtype]})",
+              flush=True)
+        del qr, k, v, got, want, P, Rw, Rh, got5, want5
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"B1 or B5 disagrees with its plain version on a ragged map: {bad}")
     return rows
 
 
@@ -406,18 +512,20 @@ def bwd_kernel_phase():
                 "dq_host_ms": time_ms(lambda: rel_attention_bwd_dq(*args)),
                 "dkdv_plain_ms": time_ms(lambda: rel_attention_bwd_dkdv_plain(*args)),
                 "dq_plain_ms": time_ms(lambda: rel_attention_bwd_dq_plain(*args)),
-                "fwd_ms": time_ms(lambda: rel_attention_fwd(qr, k, v, H, W, DKH)),
+                "fwd_ms": device_ms(lambda: rel_attention_fwd(qr, k, v, H, W, DKH)),
+                "fwd_host_ms": time_ms(lambda: rel_attention_fwd(qr, k, v, H, W, DKH)),
                 "library_ms": profiled_device_ms(library),
                 "library_host_ms": time_ms(library),
-                # pass 1 per (query, key): S 2*dkh+2, exp 2, dp and dv 4*dvh, ds 2, dk 2*dkh
+                # pass 1 per (query, key): S 2*dkh+2, dp and dv 4*dvh, ds 2, dk 2*dkh; 1 exp
                 "dkdv": bound(ins + (k.numel() + v.numel()) * es,
-                              pairs * (4 * DKH + 4 * dvh + 6), dtype),
-                # pass 2: S 2*dkh+2, exp 2, dp 2*dvh, ds 2, dq 2*dkh, the two bins 2
-                "dq": bound(ins + bn * hw * L * es, pairs * (4 * DKH + 2 * dvh + 8), dtype),
-                # the whole backward as one function of (qr, k, v, out, lse, dout)
+                              pairs * (4 * DKH + 4 * dvh + 4), dtype, pairs),
+                # pass 2: S 2*dkh+2, dp 2*dvh, ds 2, dq 2*dkh, the two bins 2; 1 exp
+                "dq": bound(ins + bn * hw * L * es, pairs * (4 * DKH + 2 * dvh + 6), dtype,
+                            pairs),
+                # the whole backward as one function of (qr, k, v, out, lse, dout): p once
                 "b2": bound((qr.numel() + k.numel() + v.numel() + 2 * out.numel()) * es
                             + bn * hw * 4 + (qr.numel() + k.numel() + v.numel()) * es,
-                            pairs * (6 * DKH + 4 * dvh + 8), dtype),
+                            pairs * (6 * DKH + 4 * dvh + 6), dtype, pairs),
             })
             r = rows[-1]
             print(f"kernel rel_attention_bwd {H}x{W} dvh={dvh} bn={bn} {r['dtype']}: rel err "
@@ -426,7 +534,8 @@ def bwd_kernel_phase():
                   f"{r['dkdv_plain_ms']:.4f}) dq {r['dq_ms']:.4f} (eager {r['dq_host_ms']:.4f}, "
                   f"plain {r['dq_plain_ms']:.4f}) library bwd {r['library_ms']:.4f} (eager "
                   f"{r['library_host_ms']:.4f}); bound dkdv {r['dkdv']['bound_ms']:.5f} "
-                  f"dq {r['dq']['bound_ms']:.5f} ms; B1 at bn {bn} {r['fwd_ms']:.4f} ms, "
+                  f"dq {r['dq']['bound_ms']:.5f} ms; B1 at bn {bn} {r['fwd_ms']:.4f} ms "
+                  f"(eager {r['fwd_host_ms']:.4f}), "
                   f"err out {fwd_err['out']:.3g} lse {fwd_err['lse']:.3g} (tol {TOL[dtype]})",
                   flush=True)
             del qr, k, v, out, lse, dout, got, want, leaves, lib_out, bias
@@ -650,10 +759,10 @@ def hil_kernel_phase():
                     "library_ms": device_ms(lambda: library_fwd(P, bias)),
                     "host_ms": time_ms(lambda: hil_attention_fwd(P, Rw, Rh, *geo)),
                     # P, Rw, Rh read and out, lse written once; per (query, key) S 2*dkh+2,
-                    # max/exp/sum 3, p.v 2*dvh; per RC entry 2*dkh
+                    # max and sum 2, p.v 2*dvh, one exp; per RC entry 2*dkh
                     **bound(P.numel() * es + rel_bytes + out.numel() * es + lse.numel() * 4,
-                            tok * hw * (2 * DKH + 2 + 3 + 2 * dvh) + tok * (W + H) * 2 * DKH,
-                            dtype),
+                            tok * hw * (2 * DKH + 4 + 2 * dvh) + tok * (W + H) * 2 * DKH,
+                            dtype, tok * hw),
                 }
                 del out_p, lse_p
             # batch == B_TRAIN from here on: P, out, lse, bias are the training batch's
@@ -678,21 +787,24 @@ def hil_kernel_phase():
             leaves = [P.detach().clone().requires_grad_(), bias.detach().clone().requires_grad_()]
             lib_out = library_fwd(*leaves)
             pairs = tok * hw
-            ins = (P.numel() + dout.numel()) * es + 2 * tok * 4 + rel_bytes
+            ins = (P.numel() + dout.numel()) * es + 2 * tok * 4  # P, dout, lse, delta
+            rc_bytes = tok * (W + H) * 4  # one f32 scratch of RC or dRC rows
             row["dkdv"] = {
                 "ms": device_ms(lambda: hil_attention_bwd_dkdv(*args, rc=rc), **slow),
                 "plain_ms": device_ms(lambda: hil_attention_bwd_dkdv_plain(*pargs), **slow),
-                # writes the k, v and pad lanes of dP; per pair S 2*dkh+2, exp 2, dp and dv
-                # 4*dvh, ds 2, dk 2*dkh; the RC rows 2*dkh per entry
-                **bound(ins + P.numel() * es * (slot - DKH) / slot,
-                        pairs * (4 * DKH + 4 * dvh + 6) + tok * (W + H) * 2 * DKH, dtype)}
+                # reads the RC rows pass 2 left, writes the k, v and pad lanes of dP; per
+                # pair S 2*dkh+2, dp and dv 4*dvh, ds 2, dk 2*dkh, one exp
+                **bound(ins + rc_bytes + P.numel() * es * (slot - DKH) / slot,
+                        pairs * (4 * DKH + 4 * dvh + 4), dtype, pairs)}
             row["dq"] = {
                 "ms": device_ms(lambda: hil_attention_bwd_dq(*args), **slow),
                 "plain_ms": device_ms(lambda: hil_attention_bwd_dq_plain(*pargs), **slow),
-                # writes the q lanes of dP and the f32 dRC rows; per pair S 2*dkh+2, exp 2,
-                # dp 2*dvh, ds 2, dq 2*dkh, the two bins 2; RC and dq's relative part
-                **bound(ins + P.numel() * es * DKH / slot + tok * (W + H) * 4,
-                        pairs * (4 * DKH + 2 * dvh + 8) + tok * (W + H) * 4 * DKH, dtype)}
+                # reads Rw, Rh; writes the q lanes of dP, the f32 dRC rows and the RC
+                # scratch; per pair S 2*dkh+2, dp 2*dvh, ds 2, dq 2*dkh, the two bins 2, one
+                # exp; RC and dq's relative part 4*dkh per RC entry
+                **bound(ins + rel_bytes + P.numel() * es * DKH / slot + 2 * rc_bytes,
+                        pairs * (4 * DKH + 2 * dvh + 6) + tok * (W + H) * 4 * DKH, dtype,
+                        pairs)}
             row["drel"] = {
                 "ms": device_ms(lambda: hil_attention_bwd_drel(P, drc, H, W, DKH, slot)),
                 "plain_ms": device_ms(
@@ -710,9 +822,10 @@ def hil_kernel_phase():
                 "library_host_ms": time_ms(
                     lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True),
                     reps=5, inner=3),
-                # the whole backward as one function of (P, Rw, Rh, out, lse, dout)
+                # the whole backward as one function of (P, Rw, Rh, out, lse, dout): p once
                 **bound(2 * P.numel() * es + 2 * out.numel() * es + tok * 4 + 2 * rel_bytes,
-                        pairs * (6 * DKH + 4 * dvh + 8) + tok * (W + H) * 6 * DKH, dtype)}
+                        pairs * (6 * DKH + 4 * dvh + 6) + tok * (W + H) * 6 * DKH, dtype,
+                        pairs)}
             del leaves, lib_out, bias, drc, rc, dP, delta, P, out, lse, dout
 
             # the head-major kernels at the same geometry and batch, device time
@@ -720,15 +833,23 @@ def hil_kernel_phase():
             o1, l1 = rel_attention_fwd(qr, kk, vv, H, W, DKH)
             d1 = torch.randn(o1.shape, generator=gen).to(DEVICE, dtype)
             a1 = (qr, kk, vv, d1, l1, attention_delta(o1, d1), H, W, DKH)
-            n4 = B * NH
-            q4, k4, v4 = (t[:n4].contiguous() for t in (qr, kk, vv))
             row["bn_layout"] = {
-                f"b1_ms_batch{B}": device_ms(lambda: rel_attention_fwd(q4, k4, v4, H, W, DKH)),
-                f"b1_ms_batch{B_TRAIN}": device_ms(
-                    lambda: rel_attention_fwd(qr, kk, vv, H, W, DKH)),
                 "b2_dkdv_ms": device_ms(lambda: rel_attention_bwd_dkdv(*a1), **slow),
                 "b2_dq_ms": device_ms(lambda: rel_attention_bwd_dq(*a1), **slow)}
-            del qr, kk, vv, o1, l1, d1, a1, q4, k4, v4
+            for batch in (B, B_TRAIN):  # B1 beside its library call and its bound
+                q1, k1, v1 = (t[:batch * NH].contiguous() for t in (qr, kk, vv))
+                bias1 = (q1[..., DKH:DKH + W][..., col]
+                         + q1[..., DKH + W:][..., krow]).contiguous()
+                qq1 = q1[..., :DKH].contiguous()
+                row["bn_layout"].update({
+                    f"b1_ms_batch{batch}": device_ms(
+                        lambda: rel_attention_fwd(q1, k1, v1, H, W, DKH)),
+                    f"b1_library_ms_batch{batch}": device_ms(
+                        lambda: F.scaled_dot_product_attention(qq1, k1, v1, attn_mask=bias1,
+                                                               scale=1.0)),
+                    f"b1_bound_batch{batch}": b1_bound(batch * NH, H, W, dvh, dtype)})
+                del q1, k1, v1, bias1, qq1
+            del qr, kk, vv, o1, l1, d1, a1
             torch.cuda.empty_cache()
 
             f4, f16, bw, bn_l = row[f"fwd{B}"], row[f"fwd{B_TRAIN}"], row["bwd16"], row["bn_layout"]
@@ -742,9 +863,13 @@ def hil_kernel_phase():
                   f"err { {n: float(f'{e:.3g}') for n, e in rel.items()} } (tol "
                   f"{BWD_TOL[dtype]}), pads zero {pads_zero}; device ms: B5 b{B} {f4['ms']:.4f} "
                   f"(plain {f4['plain_ms']:.4f}, library {f4['library_ms']:.4f}, bound "
-                  f"{f4['bound_ms']:.5f}, B1 {bn_l[f'b1_ms_batch{B}']:.4f}); B5 b{B_TRAIN} "
-                  f"{f16['ms']:.4f} (library {f16['library_ms']:.4f}, B1 "
-                  f"{bn_l[f'b1_ms_batch{B_TRAIN}']:.4f}); B6 b{B_TRAIN} dkdv "
+                  f"{f4['bound_ms']:.5f} {f4['bound_by']}); B5 b{B_TRAIN} {f16['ms']:.4f} "
+                  f"(library {f16['library_ms']:.4f}, bound {f16['bound_ms']:.5f}); B1 b{B} "
+                  f"{bn_l[f'b1_ms_batch{B}']:.4f} (library "
+                  f"{bn_l[f'b1_library_ms_batch{B}']:.4f}, "
+                  f"bound {bn_l[f'b1_bound_batch{B}']['bound_ms']:.5f}), b{B_TRAIN} "
+                  f"{bn_l[f'b1_ms_batch{B_TRAIN}']:.4f} (library "
+                  f"{bn_l[f'b1_library_ms_batch{B_TRAIN}']:.4f}); B6 b{B_TRAIN} dkdv "
                   f"{row['dkdv']['ms']:.4f} (plain {row['dkdv']['plain_ms']:.4f}, B2 "
                   f"{bn_l['b2_dkdv_ms']:.4f}) dq {row['dq']['ms']:.4f} (plain "
                   f"{row['dq']['plain_ms']:.4f}, B2 {bn_l['b2_dq_ms']:.4f}) drel "
@@ -1214,11 +1339,13 @@ def main() -> int:
     t0 = t_start = time.perf_counter()
     took = kernels.build()
     build_s = time.perf_counter() - t0
-    print(f"card: {smi} | torch.cuda: {torch.cuda.get_device_name(0)} | torch "
+    print(f"card: {smi}, max SM clock {sm_clock_mhz():.0f} MHz | torch.cuda: "
+          f"{torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} cuda {torch.version.cuda} | kernel build {build_s:.2f} s "
           f"{took}", flush=True)
 
     rows = kernel_phase()
+    ragged_rows = ragged_phase()
     bwd_rows = bwd_kernel_phase()
     dw_rows = dw_kernel_phase()
     hil_rows = hil_kernel_phase()
@@ -1303,19 +1430,16 @@ def main() -> int:
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     main_rows = [r for r in rows if r["dtype"] == "bfloat16"]  # the served dtype
-    bytes_ms = sum(r["bytes_ms"] for r in main_rows)
-    ops_ms = sum(r["ops_ms"] for r in main_rows)
     train_rows = [r for r in bwd_rows if r["dtype"] == "bfloat16"]  # the trained dtype
 
-    def per_step(key, sub=None):  # one train step launches each pass once per geometry
-        return sum(r[key][sub] if sub else r[key] for r in train_rows)
+    def per_step(key):  # one train step launches each pass once per geometry
+        return sum(r[key] for r in train_rows)
 
-    def per_aa_bn(key, sub=None):  # the same passes over aaresnet152's 47 AA convs (bn layout)
-        return sum(r["layers"] * (r[key][sub] if sub else r[key]) for r in train_rows)
+    def per_aa_bn(key):  # the same passes over aaresnet152's 47 AA convs (bn layout)
+        return sum(r["layers"] * r[key] for r in train_rows)
 
     def bwd_entry(name, key, replaces_note):
-        b_ms, o_ms = per_step(key, "bytes_ms"), per_step(key, "ops_ms")
-        aa_b, aa_o = per_aa_bn(key, "bytes_ms"), per_aa_bn(key, "ops_ms")
+        aa_bound = bound_sum((r["layers"], r[key]) for r in train_rows)
         return {
             "name": name, "route": "cuda",
             "source": "chexpert_tpu_torch/csrc/rel_attention_bwd.cu",
@@ -1325,7 +1449,7 @@ def main() -> int:
             "max_rel_err": max(max(r["rel_err"].values()) for r in train_rows),
             # device time (CUDA graph replay); events around the eager calls as host_ms
             "ms": per_step(f"{key}_ms"), "plain_ms": per_step(f"{key}_plain_ms"),
-            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            **bound_sum((1, r[key]) for r in train_rows),
             "library_ms": per_step("library_ms"),
             "library_is": "backward of F.scaled_dot_product_attention w.r.t. q, k, v and a "
                           "materialized bias, device time (the profiler's sum over the "
@@ -1336,12 +1460,12 @@ def main() -> int:
             # the same pass over aaresnet152's AA convs (8 / 36 / 3 of the geometries)
             f"{AA_RES}_step": {
                 "launches": N_AA, "ms": per_aa_bn(f"{key}_ms"),
-                "bound_ms": max(aa_b, aa_o),
-                "bound_by": "bytes" if aa_b >= aa_o else "operations",
+                "bound_ms": aa_bound["bound_ms"], "bound_by": aa_bound["bound_by"],
                 "library_ms": per_aa_bn("library_ms"),
                 "library_host_ms": per_aa_bn("library_host_ms"),
                 "whole_b2_ms": per_aa_bn("dkdv_ms") + per_aa_bn("dq_ms"),
-                "whole_b2_bound_ms": max(per_aa_bn("b2", "bytes_ms"), per_aa_bn("b2", "ops_ms"))},
+                "whole_b2_bound_ms": bound_sum((r["layers"], r["b2"])
+                                               for r in train_rows)["bound_ms"]},
             "pass": replaces_note, "card": smi,
         }
 
@@ -1351,7 +1475,6 @@ def main() -> int:
         return sum(r["layers"] * r[call][key] for r in dw_main)
 
     def dw_entry(name, call, source, replaces, errs, per, **extra):
-        b_ms, o_ms = per_layers(call, "bytes_ms"), per_layers(call, "ops_ms")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             **launches(name),
@@ -1359,7 +1482,7 @@ def main() -> int:
             "max_rel_err": max(r[call][e] for r in dw_main for e in errs[1]),
             # device time (CUDA graph replay); the eager calls' time beside it
             "ms": per_layers(call, "ms"), "plain_ms": per_layers(call, "plain_ms"),
-            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            **bound_sum((r["layers"], r[call]) for r in dw_main),
             "library_ms": per_layers(call, "library_ms"),
             "host_ms": per_layers(call, "host_ms"),
             "library_host_ms": per_layers(call, "library_host_ms"),
@@ -1371,20 +1494,32 @@ def main() -> int:
     def per_aa(call, key):  # the 47 AA convs launch each geometry `layers` times
         return sum(r["layers"] * r[call][key] for r in hil_main)
 
+    def aa_bound(call):  # the bound of a call over the 47 AA convs
+        return bound_sum((r["layers"], r[call]) for r in hil_main)
+
     def hil_entry(name, call, source, replaces, max_abs_err, max_rel_err, per, **extra):
-        b_ms, o_ms = per_aa(call, "bytes_ms"), per_aa(call, "ops_ms")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             **launches(name), "max_abs_err": max_abs_err,
             **({} if max_rel_err is None else {"max_rel_err": max_rel_err}),
             # device time (CUDA graph replay)
             "ms": per_aa(call, "ms"), "plain_ms": per_aa(call, "plain_ms"),
-            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            **aa_bound(call),
             "per": per, **extra, "card": smi,
         }
 
     def bn_layout_ms(key):  # B1 / B2 over the same 47 layers, device time
         return sum(r["layers"] * r["bn_layout"][key] for r in hil_main)
+
+    # B1 per aaresnet152 forward under bn (its 47 AA convs), served and trained batch
+    b1_aaresnet152 = {}
+    for batch in (B, B_TRAIN):
+        b1_b = bound_sum((r["layers"], r["bn_layout"][f"b1_bound_batch{batch}"])
+                         for r in hil_main)
+        b1_aaresnet152[f"batch{batch}"] = {
+            "launches": N_AA, "ms": bn_layout_ms(f"b1_ms_batch{batch}"),
+            "bound_ms": b1_b["bound_ms"], "bound_by": b1_b["bound_by"],
+            "library_ms": bn_layout_ms(f"b1_library_ms_batch{batch}")}
 
     hil_bwd_abs = max(max(r["bwd16"]["abs_err"].values()) for r in hil_main)
     hil_bwd_rel = max(max(r["bwd16"]["rel_err"].values()) for r in hil_main)
@@ -1411,14 +1546,20 @@ def main() -> int:
         # bf16, at the served grid (bn 32) and the training grid (bn 128)
         "max_abs_err": max([max(r["max_abs_err_out"], r["max_abs_err_lse"]) for r in main_rows]
                            + [max(r["fwd_abs_err"].values()) for r in train_rows]),
-        # one served forward launches each geometry once: times are per forward
+        # one served forward launches each geometry once: times are per forward, device
+        # time (CUDA-graph replay); the eager calls' time beside it
         "ms": sum(r["kernel_ms"] for r in main_rows),
         "plain_ms": sum(r["plain_ms"] for r in main_rows),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        **bound_sum((1, r) for r in main_rows),
         "library_ms": sum(r["library_ms"] for r in main_rows),
-        "per": f"served forward (bn {B * NH}, three geometries, bf16)",
+        "library_is": "F.scaled_dot_product_attention with the relative bias materialized "
+                      "beforehand, device time",
+        "host_ms": sum(r["host_ms"] for r in main_rows),
+        "library_host_ms": sum(r["library_host_ms"] for r in main_rows),
+        "per": f"served aadensenet121 forward (bn {B * NH}, three geometries, bf16)",
         "train_forward_ms": per_step("fwd_ms"),
+        f"{AA_RES}_forward": b1_aaresnet152,
+        "ragged_calls": ragged_rows,
         "forwards": serve["forwards"],
         "calls": rows,
         "served_p50_ms": serve["p50_ms"],
@@ -1455,6 +1596,7 @@ def main() -> int:
                   host_ms=per_aa(f"fwd{B}", "host_ms"),
                   b1_same_layers_ms=bn_layout_ms(f"b1_ms_batch{B}"),
                   train_forward_ms=per_aa(f"fwd{B_TRAIN}", "ms"),
+                  train_forward_bound_ms=aa_bound(f"fwd{B_TRAIN}")["bound_ms"],
                   train_forward_library_ms=per_aa(f"fwd{B_TRAIN}", "library_ms"),
                   train_forward_b1_same_layers_ms=bn_layout_ms(f"b1_ms_batch{B_TRAIN}")),
         hil_entry(HIL_DKDV, "dkdv", hil_bwd_src, hil_bwd_replaces, hil_bwd_abs, hil_bwd_rel,
@@ -1467,17 +1609,13 @@ def main() -> int:
                   hil_per_step, **{"pass": "pass 3 of B6: dRw, dRh from q and the dRC rows"},
                   **hil_bwd_library),
     ], "b2_whole": {
-        "bound_ms": max(per_step("b2", "bytes_ms"), per_step("b2", "ops_ms")),
-        "bound_by": ("bytes" if per_step("b2", "bytes_ms") >= per_step("b2", "ops_ms")
-                     else "operations"),
+        **bound_sum((1, r["b2"]) for r in train_rows),
         "ms": per_step("dkdv_ms") + per_step("dq_ms"), "calls": bwd_rows},
         "depthwise_calls": dw_rows,
         "serve": serve, "train": {**train, "card": smi},
         f"serve {EFF}": eff_serve, f"train {EFF}": {**eff_train, "card": smi},
-        "b6_whole": {"bound_ms": max(per_aa("bwd16", "bytes_ms"), per_aa("bwd16", "ops_ms")),
-                     "bound_by": ("bytes" if per_aa("bwd16", "bytes_ms")
-                                  >= per_aa("bwd16", "ops_ms") else "operations"),
-                     "ms": per_aa("bwd16", "ms")},
+        "b6_whole": {**aa_bound("bwd16"), "ms": per_aa("bwd16", "ms")},
+        "sm_clock_max_mhz": sm_clock_mhz(),
         "hil_calls": hil_rows,
         f"serve {AA_RES}": aa_serve, f"train {AA_RES}": {**aa_train, "card": smi}}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)

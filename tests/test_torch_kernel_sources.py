@@ -4,7 +4,8 @@ A host without nvcc cannot build ``chexpert_tpu_torch/csrc``; these tests
 read the sources instead: every C entry a wrapper looks up
 (``{kernel name}_{f32,bf16}``) is defined as ``extern "C"`` in the ``.cu``
 file the wrapper loads, every ``#include "x.cuh"`` names a file that exists,
-and constants that a wrapper repeats agree with the source."""
+constants that a wrapper repeats agree with the source, and the attention
+entries take their pointers in the order the wrappers pass them."""
 
 import re
 
@@ -64,6 +65,54 @@ def test_constants_repeated_in_python_agree_with_the_source():
     assert int(re.search(r"constexpr int TN = (\d+);", core).group(1)) == fused_attention.KEY_TILE
     dkh = int(re.search(r"constexpr int DKH = (\d+);", core).group(1))
     assert (dkh,) == hil_attention.SUPPORTED_DKH == fused_attention.SUPPORTED_DKH
-    assert fused_attention.bwd_on_tensor_cores(torch.bfloat16, 64, 64)
-    assert not fused_attention.bwd_on_tensor_cores(torch.bfloat16, 72, 64)
-    assert not fused_attention.bwd_on_tensor_cores(torch.float32, 8, 8)
+    assert fused_attention.on_tensor_cores(torch.bfloat16, 64, 64)
+    assert not fused_attention.on_tensor_cores(torch.bfloat16, 72, 64)
+    assert not fused_attention.on_tensor_cores(torch.float32, 8, 8)
+
+
+def _params(text: str, entry: str) -> list:
+    """Parameter names of ``extern "C" int entry(...)``."""
+    sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text).group(1)
+    return [p.split()[-1].lstrip("*") for p in sig.split(",")]
+
+
+@pytest.mark.parametrize("suffix", ["f32", "bf16"])
+@pytest.mark.parametrize("name,params", [
+    (fused_attention.NAME, "qr k v tab out lse bn hw H W dkh dvh stream"),
+    (hil_attention.FWD, "P Rw Rh tab out lse B hw H W nh slot dkh dvh stream"),
+])
+def test_forward_entries_take_the_key_table(name, params, suffix):
+    """Both forwards take the key table's pointer after their operands, as
+    ``rel_attention_fwd`` / ``hil_attention_fwd`` pass it (None off the
+    tensor-core route)."""
+    text = (kernels.CSRC_DIR / f"{name}.cu").read_text()
+    assert _params(text, f"{name}_{suffix}") == params.split()
+
+
+@pytest.mark.parametrize("source,routed", [("rel_attention_fwd", 1), ("hil_attention_fwd", 1),
+                                           ("rel_attention_bwd", 2), ("hil_attention_bwd", 2)])
+def test_every_attention_source_routes_bf16_by_one_rule(source, routed):
+    """The tensor-core rule is stated once in the sources (amma::mma_fits over
+    the bin tiles) and once in Python (on_tensor_cores); every attention
+    source routes each of its bf16 kernels (the forward; dkdv and dq) by it,
+    and no f32 entry consults it."""
+    core = (kernels.CSRC_DIR / "attention_bwd_mma.cuh").read_text()
+    assert re.search(r"inline bool mma_fits\(int W, int H\) \{ return bin_tiles\(W, H\) <= "
+                     r"MAX_BIN_TILES; \}", core)
+    text = (kernels.CSRC_DIR / f"{source}.cu").read_text()
+    assert text.count("if (!amma::mma_fits(W, H))") == routed
+    f32 = [e.split("\n}")[0] for e in re.split(r'^extern "C" int ', text, flags=re.M)[1:]
+           if re.match(r"\w+_f32\(", e)]
+    assert f32 and not any("mma" in body for body in f32)
+
+
+def test_forward_tiles_agree_with_the_key_table():
+    """The forwards read the key positions as the last TN = KEY_TILE words of
+    each key-table row, which is where ``key_table`` puts them."""
+    fwd = (kernels.CSRC_DIR / "attention_fwd_mma.cuh").read_text()
+    assert "tab + static_cast<size_t>(tile) * words + (words - TN)" in fwd
+    tab = fused_attention.key_table(5, 7, torch.device("cpu"))
+    j = torch.arange(35)
+    assert torch.equal(tab[0, -fused_attention.KEY_TILE:][:35].long(), (j % 7) | ((j // 7) << 16))
+    assert fused_attention.on_tensor_cores(torch.bfloat16, 120, 8)
+    assert not fused_attention.on_tensor_cores(torch.bfloat16, 127, 2)

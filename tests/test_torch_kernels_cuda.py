@@ -16,7 +16,9 @@ multiple of 32, maps smaller than one block's items, every k the kernels
 are instantiated for). B5 / B6 (the heads-in-lanes attention forward and the
 backward's three passes) run at B1's geometries over the packed operand, at
 the model's slot stride, the tight one and 64, with and without relative
-logits."""
+logits. The bf16 forwards and backward passes run the tensor-core kernels up
+to 64x64 and the CUDA-core kernels past it; the forwards are held at more
+ragged maps on both routes (FWD_GEOMETRIES)."""
 
 import pytest
 import torch
@@ -37,6 +39,7 @@ from chexpert_tpu_torch.ops.fused_attention import (
     BWD_DQ,
     NAME,
     RelAttention,
+    on_tensor_cores,
     rel_attention_bwd,
     rel_attention_bwd_plain,
     rel_attention_fwd,
@@ -72,6 +75,14 @@ GEOMETRIES = [
     # and 8, W + H past the one-hot bin tiles (the CUDA-core kernels in bf16)
     (1, 2, 5, 5, 1), (1, 2, 5, 5, 8), (2, 2, 7, 9, 8), (1, 2, 9, 7, 1), (1, 1, 3, 3, 8),
     (1, 3, 4, 16, 2), (1, 1, 72, 64, 2),
+]
+
+# the forwards' key tiles (64 keys) and query tiles (64 rows, 16 per warp):
+# a ragged second key tile, 65 keys, two whole tiles, the largest map on the
+# tensor cores, the smallest past them, one image row or column
+FWD_GEOMETRIES = [
+    (2, 3, 9, 9, 7), (1, 2, 13, 5, 3), (1, 1, 16, 8, 8), (1, 2, 64, 64, 1), (1, 1, 65, 64, 4),
+    (1, 2, 1, 64, 2), (1, 2, 64, 1, 2),
 ]
 
 # B3 / B4, max |kernel - plain| / max |plain| per output: y and dx, f32 the
@@ -290,6 +301,33 @@ def test_hil_kernels_match_plain(cuda, B, nh, H, W, dvh, slot_mode, relative, dt
         scale = max(1.0, w.float().abs().max().item())
         err = (g.float() - w.float()).abs().max().item()
         assert err <= BWD_TOL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["bn", "hil", "hil-tight"])
+@pytest.mark.parametrize("B,nh,H,W,dvh", FWD_GEOMETRIES)
+def test_fwd_kernels_match_plain_on_both_routes(cuda, B, nh, H, W, dvh, layout, dtype):
+    """B1 and B5 (at the model's slot and the tight one) against their plain
+    versions: out and lse within TOL, in bf16 on the tensor cores up to 64x64
+    and on the CUDA cores past it, and in f32."""
+    kernels.reset_launch_counts()
+    if layout == "bn":
+        qr, k, v = _inputs(B, nh, H, W, dvh, dtype)
+        got = rel_attention_fwd(qr, k, v, H, W, 20)
+        want = rel_attention_fwd_plain(qr, k, v, H, W, 20)
+    else:
+        slot = _slot("model" if layout == "hil" else "tight", dvh)
+        P0, Rw, Rh = _hil_inputs(B, nh, H, W, dvh, dtype, slot)
+        got = hil_attention_fwd(P0, Rw, Rh, H, W, 20, dvh, slot)
+        want = hil_attention_fwd_plain(P0, Rw, Rh, H, W, 20, dvh, slot)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {NAME if layout == "bn" else FWD: 1}
+    assert on_tensor_cores(dtype, H, W) == (dtype == torch.bfloat16 and (H, W) != (65, 64))
+    out, lse = got
+    assert out.dtype == dtype and out.shape == want[0].shape and lse.shape == want[1].shape
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert (out.float() - want[0].float()).abs().max().item() <= TOL[dtype]
+    assert (lse - want[1]).abs().max().item() <= TOL[dtype]
 
 
 def test_hil_attention_autograd_launches_every_kernel(cuda):
