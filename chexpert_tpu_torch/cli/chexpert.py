@@ -125,9 +125,12 @@ class Runner:
             raise NotImplementedError("--pretrained (ImageNet weights) is not ported to "
                                       "PyTorch yet (ROADMAP.md slice 8)")
         self.start_step = 0
-        if cfg.restore:
-            if not os.path.isfile(cfg.restore):
-                raise FileNotFoundError(f"--restore {cfg.restore!r} is not a checkpoint file")
+        # a --restore that is not a file (a directory is --evaluate_ensemble's,
+        # or nothing is there yet) is skipped, as the JAX Runner skips it
+        restore = bool(cfg.restore) and os.path.isfile(cfg.restore)
+        if cfg.restore and not restore:
+            print(f"Not restoring: --restore {cfg.restore!r} is not a checkpoint file")
+        if restore:
             print(f"Restoring model weights from {cfg.restore}")
             ck = load_model_checkpoint(cfg.restore)
             model.load_state_dict(normalize_state_dict(ck["state_dict"], cfg.model), strict=True)
@@ -139,7 +142,7 @@ class Runner:
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.state = TrainState(model, optimizer, scheduler, step=self.start_step,
                                 generator=generator)
-        if cfg.restore and cfg.train:
+        if restore and cfg.train:
             optim_path = os.path.join(os.path.dirname(cfg.restore),
                                       "optim_" + os.path.basename(cfg.restore))
             if os.path.exists(optim_path):

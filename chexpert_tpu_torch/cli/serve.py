@@ -140,10 +140,13 @@ def make_handler(engine: Engine):
     return Handler
 
 
-def serve(args) -> ThreadingHTTPServer:
-    """Build the engine (with its warm-up forward) and bind the server;
-    the caller runs ``serve_forever``."""
-    return ThreadingHTTPServer((args.host, args.port), make_handler(Engine(args)))
+def serve(args, ready_event=None) -> ThreadingHTTPServer:
+    """Build the engine (with its warm-up forward) and bind the server, then
+    set ``ready_event`` if one is given; the caller runs ``serve_forever``."""
+    httpd = ThreadingHTTPServer((args.host, args.port), make_handler(Engine(args)))
+    if ready_event is not None:
+        ready_event.set()
+    return httpd
 
 
 def main(argv=None) -> int:

@@ -18,8 +18,9 @@ under ``CHEXPERT_DW=pallas``: stride 1 with an odd k goes through
 ``DepthwiseConv2d`` (forward B3, backward B4); stride 2, an even k, or
 ``impl="library"`` (the counterpart of ``CHEXPERT_DW=xla``) is a TF-SAME
 ``F.pad`` plus ``F.conv2d(groups=C)``. The kernels take every stride-1 odd-k
-geometry with k <= 9; there is no shared-memory feasibility check (the TPU's
-``_feasible`` / ``_pick_th`` VMEM budget has no meaning here).
+geometry with k <= 9: their tile plan (``csrc/depthwise_common.cuh``) sizes
+every tile to its shared-memory budget, so the host has no feasibility check
+(the TPU's ``_feasible`` / ``_pick_th`` VMEM budget has no meaning here).
 
 Numerics follow the JAX function: the compute dtype is the autocast dtype
 when autocast is on, else x's dtype; the weight is rounded to it before the
@@ -114,14 +115,14 @@ def _entry(name: str, x: torch.Tensor, k: int):
     return getattr(kernels.load(name), f"{name}_{_DTYPE_SUFFIX[x.dtype]}")
 
 
-def _n_part(B: int, C: int, H: int, W: int) -> int:
-    """Rows of B4's dw partials: its grid's blocks along x, as the CUDA
-    source computes them (``depthwise_bwd_n_part``)."""
+def _n_part(B: int, C: int, H: int, W: int, k: int) -> int:
+    """Rows of B4's dw partials: its blocks per channel group, as the CUDA
+    source's tile plan computes them (``depthwise_bwd_n_part``)."""
     fn = kernels.load(BWD).depthwise_bwd_n_part
     if fn.argtypes is None:
         fn.restype = ctypes.c_longlong
-        fn.argtypes = [ctypes.c_int] * 4
-    n = fn(B, C, H, W)
+        fn.argtypes = [ctypes.c_int] * 5
+    n = fn(B, C, H, W, k)
     if n < 1:
         raise ValueError(f"{BWD}: the kernel does not take x of shape {(B, C, H, W)}")
     return n
@@ -166,7 +167,7 @@ def depthwise_bwd(x: torch.Tensor, w: torch.Tensor,
     if not g.is_contiguous():
         raise ValueError(f"{BWD}: g must be contiguous (NCHW)")
     B, C, H, W = x.shape
-    n_part = _n_part(B, C, H, W)
+    n_part = _n_part(B, C, H, W, k)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     part = torch.empty((n_part, C, k * k), dtype=torch.float32, device=x.device)
     w32 = _f32(w)  # held until the launch is enqueued

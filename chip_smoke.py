@@ -53,7 +53,12 @@ Run from the root of a checkout. Phases, each failing the run on error:
    version and one library call (F.conv2d(groups=C) for B3,
    aten.convolution_backward for dx and dw for B4), by device time (the
    calls captured in a CUDA graph and replayed between CUDA events), with
-   the wrapper's and the library call's eager time beside it.
+   the wrapper's and the library call's eager time beside it. Then B3 and B4
+   in f32 and bf16 on the shapes the tile plan of csrc/depthwise_common.cuh
+   treats apart (DW_RAGGED: an odd plane size, 12-wide rows, C = G +- 1 for
+   grouped planes, B = 1, H below one band, rows wider than one tile, k = 7
+   and 9, operands that start off a 16-byte boundary) against their plain
+   versions, at the same tolerances.
 8. serve efficientnet-b4 at 380x380, bf16, micro-batch 4, seeded random
    weights with BatchNorm statistics set from the request images
    (calibrate_bn), over HTTP as in phase 4: 28 B3 launches per forward and
@@ -170,6 +175,12 @@ DW_LAYERS = 28
 # both dtypes, summed per block and then over blocks: 1e-4.
 DW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 DW_W_TOL = 1e-4
+# (B, H, W, C, k, lead): shapes the depthwise tile plan treats apart, the
+# operands starting `lead` elements past an allocation's start
+DW_RAGGED = ((1, 95, 95, 5, 3, 0), (3, 95, 95, 2, 5, 1), (1, 12, 12, 27, 3, 0),
+             (2, 12, 12, 29, 5, 3), (1, 12, 12, 57, 3, 1), (2, 24, 24, 8, 5, 0),
+             (1, 3, 190, 4, 3, 0), (2, 2, 301, 3, 5, 1), (2, 40, 40, 6, 7, 0),
+             (1, 33, 30, 5, 9, 1), (3, 5, 3, 33, 5, 0), (1, 1, 1, 5, 3, 0))
 
 AA_RES = "aaresnet152"                     # Bottleneck (3, 8, 36, 3), AA convs on layers 2-4
 # its AA convs per (H, W, dvh) of GEOMETRIES at 320x320: the blocks of layers 2 / 3 / 4
@@ -664,6 +675,53 @@ def dw_kernel_phase():
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"B3 or B4 disagrees with its plain version: {bad}")
+    return rows
+
+
+def dw_ragged_phase():
+    """B3 and B4 in f32 and bf16 on DW_RAGGED against their plain versions
+    (y, dx within DW_TOL, dw within DW_W_TOL of the largest value)."""
+    from chexpert_tpu_torch.ops.depthwise import (
+        depthwise_bwd,
+        depthwise_bwd_plain,
+        depthwise_fwd,
+        depthwise_fwd_plain,
+    )
+
+    gen = torch.Generator().manual_seed(8)
+    rows = []
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max().clamp_min(1e-30)).item()
+
+    def placed(t, lead):  # t's values in a contiguous view `lead` elements into a buffer
+        out = torch.empty(t.numel() + lead, dtype=t.dtype, device=DEVICE)[lead:].view(t.shape)
+        return out.copy_(t)
+
+    for b, H, W, C, k, lead in DW_RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = placed(torch.randn(b, C, H, W, generator=gen).to(DEVICE, dtype), lead)
+            g = placed(torch.randn(b, C, H, W, generator=gen).to(DEVICE, dtype), 2 * lead)
+            w = (torch.randn(C, 1, k, k, generator=gen) * 0.2).to(DEVICE)
+            y = depthwise_fwd(x, w)
+            dx, dw = depthwise_bwd(x, w, g)
+            torch.cuda.synchronize()
+            dx_p, dw_p = depthwise_bwd_plain(x, w, g)
+            err = {"y": rel(y, depthwise_fwd_plain(x, w)), "dx": rel(dx, dx_p),
+                   "dw": rel(dw, dw_p)}
+            finite = all(bool(torch.isfinite(t.float()).all()) for t in (y, dx, dw))
+            ok = (finite and err["y"] <= DW_TOL[dtype] and err["dx"] <= DW_TOL[dtype]
+                  and err["dw"] <= DW_W_TOL)
+            rows.append({"shape": [b, C, H, W], "k": k, "lead": lead,
+                         "dtype": str(dtype).replace("torch.", ""), "rel_err": err, "ok": ok})
+            print(f"kernel depthwise ragged {(b, C, H, W)} k={k} lead={lead} "
+                  f"{rows[-1]['dtype']}: rel err "
+                  f"{ {n: float(f'{e:.3g}') for n, e in err.items()} } (tol "
+                  f"{DW_TOL[dtype]}, dw {DW_W_TOL})", flush=True)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"B3 or B4 disagrees with its plain version on a ragged shape: {bad}")
     return rows
 
 
@@ -1348,6 +1406,7 @@ def main() -> int:
     ragged_rows = ragged_phase()
     bwd_rows = bwd_kernel_phase()
     dw_rows = dw_kernel_phase()
+    dw_ragged_rows = dw_ragged_phase()
     hil_rows = hil_kernel_phase()
 
     def serve_and_reference(name, image, per_forward, route, calibrate=False, layout=None,
@@ -1575,7 +1634,8 @@ def main() -> int:
                  library_is="F.conv2d(groups=C), on whichever backend PyTorch picks "
                             "(its native _conv_depthwise2d kernel or cuDNN)",
                  train_forward_ms=per_layers(f"fwd{B_TRAIN}", "ms"),
-                 train_forward_library_ms=per_layers(f"fwd{B_TRAIN}", "library_ms")),
+                 train_forward_library_ms=per_layers(f"fwd{B_TRAIN}", "library_ms"),
+                 ragged_calls=dw_ragged_rows),
         dw_entry(DW_BWD, "bwd16", "chexpert_tpu_torch/csrc/depthwise_bwd.cu",
                  "chexpert_tpu/ops/pallas_depthwise.py:171",
                  (["abs_err_dx", "abs_err_dw"], ["rel_err_dx", "rel_err_dw"]),

@@ -102,12 +102,34 @@ def test_load_config_overlay(run, tmp_path):
     (["--multihost"], NotImplementedError, "slice 7"),
     (["--packed_cache"], NotImplementedError, "slice 8"),
     (["--pretrained"], NotImplementedError, "slice 8"),
-    (["--restore", "missing.pt"], FileNotFoundError, "missing.pt"),
 ])
 def test_unported_and_bad_flags_raise(run, tmp_path, flags, exc, match):
     data, _ = run
     with pytest.raises(exc, match=match):
         main(["--train", *_args(data, str(tmp_path / "x")), *flags])
+
+
+@pytest.mark.parametrize("target", ["missing.pt", "a_directory"])
+def test_restore_that_is_not_a_file_is_skipped_as_in_jax(run, tmp_path, capsys, target):
+    """A --restore that is not a file starts from scratch and says so: the
+    JAX Runner (chexpert_tpu/cli/chexpert.py) skips such a restore too."""
+    from chexpert_tpu.cli.chexpert import Runner as JaxRunner
+    from chexpert_tpu.cli.chexpert import config_from_args as jax_config
+
+    data, _ = run
+    path = tmp_path / target
+    if target == "a_directory":
+        path.mkdir()
+    jax_runner = JaxRunner(jax_config([
+        "--train", "--data_path", data, "--output_dir", str(tmp_path / "jax"), "--model",
+        "aadensenet-tiny", "--image_size", "32", "--batch_size", "8", "--compute_dtype",
+        "float32", "--restore", str(path)]))
+    assert jax_runner.start_step == 0
+    out = str(tmp_path / "port")
+    main(["--train", *_args(data, out), "--restore", str(path), "--n_epochs", "1",
+          "--log_interval", "1", "--eval_interval", "0"])
+    assert f"Not restoring: --restore {str(path)!r}" in capsys.readouterr().out
+    assert _steps(out, "train_loss") == [1, 2, 3]  # 24 images, batch 8, from step 0
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(tmp_path):

@@ -116,3 +116,18 @@ def test_forward_tiles_agree_with_the_key_table():
     assert torch.equal(tab[0, -fused_attention.KEY_TILE:][:35].long(), (j % 7) | ((j // 7) << 16))
     assert fused_attention.on_tensor_cores(torch.bfloat16, 120, 8)
     assert not fused_attention.on_tensor_cores(torch.bfloat16, 127, 2)
+
+
+@pytest.mark.parametrize("source", ["depthwise_common.cuh", "depthwise_fwd.cu", "depthwise_bwd.cu"])
+def test_depthwise_sources_use_no_atomics(source):
+    """B4's dw partial rows have one writer per (row, channel, tap): no
+    source of the depthwise kernels adds through an atomic."""
+    text = (kernels.CSRC_DIR / source).read_text()
+    assert not re.search(r"\batomic\w*\s*\(|\bred\.global|\batom\.", text)
+
+
+def test_depthwise_partial_count_takes_k():
+    """The wrapper passes k to depthwise_bwd_n_part, whose plan depends on it."""
+    text = (kernels.CSRC_DIR / "depthwise_bwd.cu").read_text()
+    assert re.search(r'extern "C" long long depthwise_bwd_n_part\(int B, int C, int H, int W, '
+                     r'int k\)', text)

@@ -12,8 +12,9 @@ the kernels take, and more heads than fit one grid row of blocks. B1 (forward)
 and B2 (backward, two passes) run at the same geometries. B3 / B4 (the
 depthwise conv forward / backward) run at the ten stride-1 geometries of
 efficientnet-b4 at 380x380 and at ragged ones (odd H and W, H != W, C not a
-multiple of 32, maps smaller than one block's items, every k the kernels
-are instantiated for). B5 / B6 (the heads-in-lanes attention forward and the
+multiple of 32, maps smaller than one tile, C = G +- 1 for the grouped
+planes, rows wider than one tile, every k the kernels are instantiated for,
+tensors that start off a 16-byte boundary). B5 / B6 (the heads-in-lanes attention forward and the
 backward's three passes) run at B1's geometries over the packed operand, at
 the model's slot stride, the tight one and 64, with and without relative
 logits. The bf16 forwards and backward passes run the tensor-core kernels up
@@ -96,6 +97,13 @@ DW_GEOMETRIES = [  # (B, H, W, C, k)
     (2, 12, 12, 1632, 3), (2, 12, 12, 2688, 3),
     (1, 7, 9, 37, 3), (3, 5, 3, 33, 5), (1, 1, 1, 5, 3), (2, 13, 11, 70, 7), (1, 6, 6, 3, 9),
     (2, 10, 10, 16, 1),
+    # shapes the tile plan (csrc/depthwise_common.cuh) treats apart: an odd plane size
+    # (95 x 95, plane starts alternate in alignment), 12-wide rows, C = G +- 1 for the
+    # grouped planes (G = 28 at 12x12, 7 at 24x24), B = 1, H below one band of a wide
+    # map, rows wider than one tile, k = 7 and 9 on larger maps
+    (1, 95, 95, 5, 3), (3, 95, 95, 2, 5), (1, 12, 12, 27, 3), (2, 12, 12, 29, 5),
+    (1, 12, 12, 57, 3), (2, 24, 24, 8, 5), (1, 24, 24, 6, 3), (1, 3, 190, 4, 3),
+    (2, 2, 301, 3, 5), (2, 40, 40, 6, 7), (1, 33, 30, 5, 9), (1, 190, 190, 3, 9),
 ]
 
 
@@ -203,6 +211,26 @@ def test_depthwise_kernels_match_plain(cuda, B, H, W, C, k, dtype):
     assert _rel(y, y_p) <= DW_TOL[dtype], _rel(y, y_p)
     assert _rel(dx, dx_p) <= DW_TOL[dtype], _rel(dx, dx_p)
     assert _rel(dw, dw_p) <= DW_W_TOL, _rel(dw, dw_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,W,C,k", [(2, 95, 95, 3, 3), (1, 12, 12, 29, 5), (2, 7, 9, 5, 3)])
+def test_depthwise_kernels_match_plain_on_misaligned_tensors(cuda, B, H, W, C, k, dtype):
+    """Contiguous views that start 1 or 3 elements past a 16-byte boundary:
+    every row of the staged tiles sits at another offset than the parent's."""
+    x0, w, gy0 = _dw_inputs(B, H, W, C, k, dtype)
+    n = x0.numel()
+    x = torch.empty(n + 1, dtype=dtype, device="cuda")[1:].view(x0.shape)
+    gy = torch.empty(n + 3, dtype=dtype, device="cuda")[3:].view(x0.shape)
+    x.copy_(x0)
+    gy.copy_(gy0)
+    y = depthwise_fwd(x, w)
+    dx, dw = depthwise_bwd(x, w, gy)
+    torch.cuda.synchronize()
+    dx_p, dw_p = depthwise_bwd_plain(x0, w, gy0)
+    assert _rel(y, depthwise_fwd_plain(x0, w)) <= DW_TOL[dtype]
+    assert _rel(dx, dx_p) <= DW_TOL[dtype]
+    assert _rel(dw, dw_p) <= DW_W_TOL
 
 
 def test_depthwise_autograd_launches_both_kernels(cuda):

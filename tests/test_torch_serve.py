@@ -34,8 +34,8 @@ def _start(serve_fn, args):
 
 
 @pytest.fixture(scope="module")
-def servers(tmp_path_factory):
-    """(port server url, JAX server url) over the same weights."""
+def checkpoints(tmp_path_factory):
+    """(port checkpoint, JAX checkpoint) of the same weights."""
     d = tmp_path_factory.mktemp("serve")
     model, _ = jax_build_model(MODEL, image_size=32, dtype=jnp.float32)
     params, stats = init_model(model, jax.random.PRNGKey(0), (1, 32, 32, 3))
@@ -44,6 +44,13 @@ def servers(tmp_path_factory):
     port_ckpt = str(d / "checkpoint.pt")
     save_model_checkpoint(port_ckpt, state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, params), jax.tree_util.tree_map(np.asarray, stats)))
+    return port_ckpt, jax_ckpt
+
+
+@pytest.fixture(scope="module")
+def servers(checkpoints):
+    """(port server url, JAX server url) over the same weights."""
+    port_ckpt, jax_ckpt = checkpoints
 
     from chexpert_tpu.cli.serve import build_parser as jax_parser
     from chexpert_tpu.cli.serve import serve as jax_serve
@@ -128,3 +135,25 @@ def test_cuda_device_absent_raises(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(build_parser().parse_args(["--restore_path", str(tmp_path / "x.pt"),
                                           "--device", "cuda"] + ARGS))
+
+
+def test_ready_event_is_set_once_the_server_is_bound(checkpoints):
+    """serve(args, ready_event) sets the event after binding, as the JAX
+    chexpert_tpu/cli/serve.py::serve does; without one it binds all the same."""
+    from chexpert_tpu.cli.serve import build_parser as jax_parser
+    from chexpert_tpu.cli.serve import serve as jax_serve
+    from chexpert_tpu_torch.cli.serve import build_parser, serve
+
+    port_ckpt, jax_ckpt = checkpoints
+    for serve_fn, argv in ((serve, ["--restore_path", port_ckpt, "--device", "cpu"] + ARGS),
+                           (jax_serve, ["--restore_path", jax_ckpt] + ARGS)):
+        parser = build_parser if serve_fn is serve else jax_parser
+        ready = threading.Event()
+        httpd = serve_fn(parser().parse_args(argv), ready_event=ready)
+        try:
+            assert ready.is_set() and httpd.server_address[1] > 0
+        finally:
+            httpd.server_close()
+    httpd = serve(build_parser().parse_args(["--restore_path", port_ckpt, "--device", "cpu"]
+                                            + ARGS))
+    httpd.server_close()
