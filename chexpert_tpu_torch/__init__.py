@@ -8,17 +8,23 @@ package's so each counterpart is easy to find:
   * ``kernels`` — builds ``csrc/*.cu`` with nvcc at first use, loads it with
     ctypes, and counts kernel launches;
   * ``ops`` — the attention math (einsum ground truth, the query-side pack)
-    and the hand-written relative-position attention kernels' wrappers:
-    forward (B1), backward (B2) and the autograd function joining them;
-  * ``models`` — DenseNet / AA-DenseNet as NCHW ``nn.Module``s, the
-    registry with its per-arch optimizer specs, and the weight carry-over
-    from the JAX parameter trees;
+    and the wrappers of the hand-written kernels with the autograd functions
+    joining them: relative-position attention in two layouts (B1 / B2,
+    B5 / B6) and the depthwise conv (B3 / B4);
+  * ``models`` — DenseNet / AA-DenseNet, ResNet / AA-ResNet and EfficientNet
+    as NCHW ``nn.Module``s, the registry with its per-arch optimizer specs,
+    and the weight carry-over from the JAX parameter trees;
   * ``configs``, ``data``, ``eval``, ``utils`` — the run config, the CheXpert
-    index (csv), transforms, synthetic fixture and batch pipeline, metrics,
-    JSON / scalar logging;
+    index (csv; test mode for predict), transforms, synthetic fixture and
+    batch pipeline, metrics and the N-checkpoint ensemble, JSON / scalar
+    logging;
+  * ``interpret`` — Grad-CAM, attention-weight capture and the matplotlib
+    artifacts (vis grids, attention maps, ROC / PR plots);
   * ``train`` — loss, optimizers and schedules, train / eval steps, loops;
   * ``checkpoint`` — atomic ``.pt`` model and optimizer state, best-K tracker;
-  * ``cli.chexpert`` (train / evaluate) and ``cli.serve`` (HTTP inference).
+  * ``cli.chexpert`` (train / evaluate / ensemble / visualize / plot ROC),
+    ``cli.predict`` (per-study probabilities csv) and ``cli.serve`` (HTTP
+    inference).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU.
 """

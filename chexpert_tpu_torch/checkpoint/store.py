@@ -41,13 +41,18 @@ def save_model_checkpoint(
     _atomic_save(payload, path)
 
 
-def load_model_checkpoint(path: str) -> Dict:
+def refuse_msgpack(path: str) -> None:
+    """Raise for a JAX (flax msgpack) checkpoint, naming the exporter."""
     if path.endswith(".msgpack"):
         raise ValueError(
             f"{path}: a JAX (flax msgpack) checkpoint cannot be read by the PyTorch "
             "port; convert it with chexpert_tpu.models.pretrained."
             "export_torch_state_dict(params, batch_stats, arch, 'model.pth') on a "
             "host with JAX and restore the .pth")
+
+
+def load_model_checkpoint(path: str) -> Dict:
+    refuse_msgpack(path)
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(raw, dict) and isinstance(raw.get("state_dict"), dict):
         return {

@@ -1,18 +1,26 @@
-"""chexpert CLI of the PyTorch port: train and evaluate (counterpart of
-chexpert_tpu/cli/chexpert.py, with its flag names):
+"""chexpert CLI of the PyTorch port: train, evaluate, ensemble, visualize,
+plot ROC (counterpart of chexpert_tpu/cli/chexpert.py, with its flag names):
 
     python -m chexpert_tpu_torch.cli.chexpert --train --evaluate_single_model \\
         --data_path DIR --model aadensenet121 [--device cuda]
     python -m chexpert_tpu_torch.cli.chexpert --evaluate_single_model \\
         --restore run/checkpoint_latest.pt --output_dir run ...
+    python -m chexpert_tpu_torch.cli.chexpert --evaluate_ensemble \\
+        [--ensemble_member_chunk K] --restore run/best_checkpoints --output_dir run ...
+    python -m chexpert_tpu_torch.cli.chexpert --visualize \\
+        --restore run/checkpoint_latest.pt --output_dir run ...
+    python -m chexpert_tpu_torch.cli.chexpert --plot_roc --output_dir run ...
 
 The run directory gets config.json, scalars.jsonl, checkpoint_latest.pt,
 optim_checkpoint_latest.pt, checkpoints_tracker.csv,
-best_checkpoints/checkpoint_<id>.pt and eval_results_step_N.json. The run
-goes on ``--device`` (default ``cuda``; asking for it on a host without a
-card raises, the CPU runs only when asked). ``--evaluate_ensemble``
-(ROADMAP.md slice 3), ``--visualize`` and ``--plot_roc`` (slice 6) raise
-NotImplementedError, as do the JAX package's TPU-only flags.
+best_checkpoints/checkpoint_<id>.pt and eval_results_step_N.json; the
+ensemble writes eval_results_ensemble.json, the visualization
+vis/vis_<category>_step_N.png (and vis/attn_image_idx_*_layer_*.png for a
+model with attention), and --plot_roc plots/roc_pr_<eval_results name>.png
+for every eval_results*.json in --output_dir (the PNGs need matplotlib).
+The run goes on ``--device`` (default ``cuda``; asking for it on a host
+without a card raises, the CPU runs only when asked). The JAX package's
+multi-process and TPU-only flags raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,14 +31,23 @@ import json
 import os
 import pprint
 
+import numpy as np
 import torch
 
 from chexpert_tpu_torch.checkpoint import load_model_checkpoint, load_optim_checkpoint
 from chexpert_tpu_torch.configs import Config, resolve_output_dir, setup_output_dir
-from chexpert_tpu_torch.data import Batches, ChexpertIndex
+from chexpert_tpu_torch.data import Batches, ChexpertIndex, denormalize, extract_patient_ids
+from chexpert_tpu_torch.eval import evaluate_ensemble, list_checkpoints
+from chexpert_tpu_torch.interpret import (
+    capture_attention_weights,
+    grad_cam,
+    plot_roc,
+    save_attn_maps,
+    save_vis_grids,
+)
 from chexpert_tpu_torch.models import build_model, normalize_state_dict, optimizer_spec
 from chexpert_tpu_torch.models.attn import ATTN_IMPLS
-from chexpert_tpu_torch.train import TrainState, make_optimizer
+from chexpert_tpu_torch.train import TrainState, make_optimizer, prepare_image
 from chexpert_tpu_torch.train.loop import evaluate_single_model, train_and_evaluate
 from chexpert_tpu_torch.utils import MetricsWriter, load_json, resolve_device, save_json
 
@@ -72,9 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_aug", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; 'cpu' on request)")
+    p.add_argument("--ensemble_member_chunk", type=int, default=0,
+                   help="members per ensemble pass; 0 = planned from the free device "
+                        "memory, halved on an out-of-memory error")
     # the JAX package's flags the port does not run yet: accepted, and refused
     # by Config.check_supported
-    p.add_argument("--ensemble_member_chunk", type=int, default=0)
     p.add_argument("--profile", action="store_true")
     p.add_argument("--data_parallel", type=int, default=0)
     p.add_argument("--model_parallel", type=int, default=1)
@@ -93,16 +112,6 @@ def config_from_args(argv=None) -> Config:
         cfg = cfg.replace(**{k: v for k, v in overlay.items()
                              if k in Config.__dataclass_fields__})
     return cfg
-
-
-def check_actions(cfg: Config) -> None:
-    if cfg.evaluate_ensemble:
-        raise NotImplementedError("--evaluate_ensemble is not ported to PyTorch yet "
-                                  "(ROADMAP.md slice 3)")
-    if cfg.visualize or cfg.plot_roc:
-        raise NotImplementedError("--visualize / --plot_roc are not ported to PyTorch yet "
-                                  "(ROADMAP.md slice 6)")
-    cfg.check_supported()
 
 
 class Runner:
@@ -126,7 +135,8 @@ class Runner:
                                       "PyTorch yet (ROADMAP.md slice 8)")
         self.start_step = 0
         # a --restore that is not a file (a directory is --evaluate_ensemble's,
-        # or nothing is there yet) is skipped, as the JAX Runner skips it
+        # which reads it itself, or nothing is there yet) is skipped, as the
+        # JAX Runner skips it
         restore = bool(cfg.restore) and os.path.isfile(cfg.restore)
         if cfg.restore and not restore:
             print(f"Not restoring: --restore {cfg.restore!r} is not a checkpoint file")
@@ -166,9 +176,66 @@ class Runner:
         return sum(p.numel() for p in self.state.model.parameters())
 
 
+def collect_visualization(runner: Runner) -> dict:
+    """The device work of --visualize (reference chexpert.py:305-397): over
+    the vis subset, Grad-CAM and the sigmoid probabilities of the model, and
+    its attention weights captured on the einsum route, chunked over each
+    batch. Returns host arrays: images (N, H, W, 1) denormalized, labels,
+    probs (N, 5), cams (N, 1, H, W), indices, patient_ids, attn_weights (one
+    (N, nh, HW, HW) array per AA layer, in the JAX package's order; [] for a
+    model with no attention), vis_attrs and vis_idxs."""
+    vis_index = runner.index("vis")
+    model = runner.state.model
+    imgs, labels, probs, cams, idx_list = [], [], [], [], []
+    attn_per_layer = None
+    for batch in runner.batches(vis_index, train=False):
+        x = prepare_image(torch.from_numpy(batch["image"]).to(runner.device))
+        cam, logits = grad_cam(model, x, compute_dtype=runner.compute_dtype)
+        m = batch["mask"].astype(bool)
+        imgs.append(denormalize(batch["image"][m]))
+        labels.append(batch["label"][m])
+        probs.append(torch.sigmoid(logits).cpu().numpy()[m])
+        cams.append(cam.cpu().numpy()[m])
+        idx_list += batch["index"][m].tolist()
+        weights = capture_attention_weights(model, x, compute_dtype=runner.compute_dtype)
+        if weights:
+            w = [wi[m] for wi in weights]
+            attn_per_layer = (w if attn_per_layer is None else
+                              [np.concatenate([a, b]) for a, b in zip(attn_per_layer, w)])
+    return {"images": np.concatenate(imgs), "labels": np.concatenate(labels),
+            "probs": np.concatenate(probs), "cams": np.concatenate(cams),
+            "indices": idx_list, "patient_ids": extract_patient_ids(vis_index, idx_list),
+            "attn_weights": attn_per_layer or [], "vis_attrs": vis_index.vis_attrs,
+            "vis_idxs": vis_index.vis_idxs}
+
+
+def render_visualization(vis: dict, output_dir: str, step: int) -> None:
+    """The PNGs of --visualize from ``collect_visualization``'s arrays: the
+    Grad-CAM grid of each vis category and, for a model with attention, the
+    attention maps of every image and layer."""
+    save_vis_grids(vis["images"], vis["cams"], vis["labels"], vis["probs"], vis["indices"],
+                   vis["patient_ids"], vis["vis_attrs"], vis["vis_idxs"], output_dir, step)
+    if vis["attn_weights"]:
+        for b in range(len(vis["images"])):
+            save_attn_maps(vis["images"], vis["attn_weights"], vis["patient_ids"],
+                           vis["indices"], output_dir, b)
+
+
+def plot_eval_results(output_dir: str) -> None:
+    """--plot_roc: a ROC/PR figure for every eval_results*.json in output_dir."""
+    filenames = [f for f in sorted(os.listdir(output_dir))
+                 if f.startswith("eval_results") and f.endswith(".json")]
+    if not filenames:
+        raise RuntimeError(
+            f"No `eval_results` files found in `{output_dir}` to plot results from.")
+    for f in filenames:
+        plot_roc(load_json(os.path.join(output_dir, f)), output_dir,
+                 "roc_pr_" + f.split(".")[0])
+
+
 def main(argv=None) -> int:
     cfg = config_from_args(argv)
-    check_actions(cfg)
+    cfg.check_supported()
     resolve_device(cfg.device)  # before any artifact is written
     cfg = resolve_output_dir(cfg)
     setup_output_dir(cfg)
@@ -197,6 +264,22 @@ def main(argv=None) -> int:
             print("AUC:\n", pprint.pformat(metrics["aucs"]))
             print("Loss:\n", pprint.pformat(metrics["loss"]))
             save_json(metrics, f"eval_results_step_{step}", cfg.output_dir)
+        if cfg.evaluate_ensemble:
+            if not os.path.isdir(cfg.restore):
+                raise AssertionError("Restore argument must be directory with saved checkpoints")
+            paths = list_checkpoints(cfg.restore)
+            print(f"Running ensemble prediction using {len(paths)} checkpoints.")
+            metrics = evaluate_ensemble(runner.state.model, paths, valid_batches, runner.device,
+                                        runner.compute_dtype, cfg.model,
+                                        member_chunk=cfg.ensemble_member_chunk)
+            print("AUC:\n", pprint.pformat(metrics["aucs"]))
+            print("Loss:\n", pprint.pformat(metrics["loss"]))
+            save_json(metrics, "eval_results_ensemble", cfg.output_dir)
+        if cfg.visualize:
+            render_visualization(collect_visualization(runner), cfg.output_dir,
+                                 runner.state.step)
+        if cfg.plot_roc:
+            plot_eval_results(cfg.output_dir)
     finally:
         writer.close()
     return 0

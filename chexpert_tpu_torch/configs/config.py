@@ -2,8 +2,8 @@
 chexpert_tpu/configs/config.py (same field names, so one ``config.json``
 serves both packages), plus ``device``.
 
-Fields that drive what the port does not run yet (TPU-only machinery, the
-ensemble's member chunking) are kept so a JAX run's config.json loads, but
+Fields that drive what the port does not run yet (multi-process training
+and the TPU-only machinery) are kept so a JAX run's config.json loads, but
 setting one to a non-default raises NotImplementedError naming
 the ROADMAP.md slice that ports it (``check_supported``).
 """
@@ -72,8 +72,11 @@ class Config:
     # --- the port's own: torch device of the run ('cuda' unless asked) ---
     device: str = "cuda"
 
-    # --- knobs of the JAX package not ported yet (check_supported) ---
+    # members per ensemble pass; 0 = planned from the free device memory,
+    # halved on an out-of-memory error
     ensemble_member_chunk: int = 0
+
+    # --- knobs of the JAX package not ported yet (check_supported) ---
     data_parallel: int = 0
     model_parallel: int = 1
     multihost: bool = False
@@ -111,8 +114,7 @@ class Config:
 
 
 # field -> the ROADMAP.md slice that ports what it drives
-_NOT_PORTED = {"ensemble_member_chunk": 3,
-               "data_parallel": 7, "model_parallel": 7, "multihost": 7,
+_NOT_PORTED = {"data_parallel": 7, "model_parallel": 7, "multihost": 7,
                "profile": 8, "packed_cache": 8, "device_aug": 8}
 
 

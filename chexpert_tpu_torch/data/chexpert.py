@@ -2,8 +2,9 @@
 with the standard ``csv`` module (port of chexpert_tpu/data/chexpert.py,
 whose pandas the card host does not have).
 
-  * modes: train / valid / vis (test mode belongs to predict, ROADMAP.md
-    slice 3);
+  * modes: train / valid / vis, and test (predict's input: ``root`` is a
+    csv whose Path column is joined to '.', every label 0; a csv with only
+    a Path column, as the competition's test csv, is taken);
   * labels: the 5 competition pathologies; NaN (unmentioned) -> 0 in train;
     uncertain -1 mapped by policy: 'ones' (U-Ones), 'zeros' (U-Zeros) or
     'ignore' (kept as -1; the pipeline masks it out of the loss);
@@ -45,7 +46,7 @@ ATTR_NAMES = ["Atelectasis", "Cardiomegaly", "Consolidation", "Edema", "Pleural 
 PIXEL_MEAN = 0.5330
 PIXEL_STD = 0.0349
 
-MODES = ("train", "valid", "vis")
+MODES = ("train", "valid", "vis", "test")
 
 # the cell strings pandas.read_csv reads as NaN by default
 NA_STRINGS = frozenset({
@@ -115,7 +116,10 @@ def _preprocess_train(header, rows, data_filter: Optional[Dict], uncertain_polic
 class ChexpertIndex:
     """Index over CheXpert-small; a row is (image path, labels, original index).
 
-    ``root`` is the data directory holding CheXpert-v1.0-small/."""
+    ``root`` is the data directory holding CheXpert-v1.0-small/; in test mode
+    it is a csv path, and its Path column is joined to '.' (reference
+    dataset.py:37). As in the JAX index, test mode takes no filter and no
+    ``mini_data``."""
 
     def __init__(
         self,
@@ -125,13 +129,17 @@ class ChexpertIndex:
         mini_data: Optional[int] = None,
         uncertain_policy: str = "ones",
     ):
-        if mode == "test":
-            raise NotImplementedError("test mode (a csv of paths to predict) is not ported "
-                                      "to PyTorch yet (ROADMAP.md slice 3)")
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} is not one of {MODES}")
         self.root = os.path.expanduser(root)
         self.mode = mode
+        if mode == "test":
+            header, rows = read_csv(self.root)
+            self.root = "."
+            # the label columns a test csv lacks are appended, and every label is 0
+            self.columns = header + [a for a in ATTR_NAMES if a not in header]
+            self._set_rows(rows, np.zeros((len(rows), len(ATTR_NAMES)), np.float32))
+            return
         csv_dir = os.path.join(self.root, DIR_NAME)
         if not os.path.isfile(os.path.join(csv_dir, "train.csv")) or not os.path.isfile(
                 os.path.join(csv_dir, "valid.csv")):
@@ -141,17 +149,21 @@ class ChexpertIndex:
                 f"({DIR_NAME}/<split>/patient*/study*/view*.jpg); the PyTorch port does "
                 "not download it (ROADMAP.md slice 8)")
         self.columns, rows = self._load_processed(csv_dir, data_filter, uncertain_policy)
-        path_col = self.columns.index("Path")
-        self.attr_idxs = [self.columns.index(a) for a in ATTR_NAMES]
-        self._paths = [row[path_col] for row in rows]
-        self._labels = np.array([[_to_float(row[c]) for c in self.attr_idxs] for row in rows],
-                                np.float32).reshape(len(rows), len(ATTR_NAMES))
-        self._index = np.arange(len(rows), dtype=np.int64)
-        self._by_index = dict(zip(self._index.tolist(), self._paths))
+        attr_idxs = [self.columns.index(a) for a in ATTR_NAMES]
+        self._set_rows(rows, np.array([[_to_float(row[c]) for c in attr_idxs] for row in rows],
+                                      np.float32).reshape(len(rows), len(ATTR_NAMES)))
         if mini_data is not None:
             self._take(slice(None, mini_data))
         if mode == "vis":
             self._select_vis_subset()
+
+    def _set_rows(self, rows, labels: np.ndarray) -> None:
+        path_col = self.columns.index("Path")
+        self.attr_idxs = [self.columns.index(a) for a in ATTR_NAMES]
+        self._paths = [row[path_col] for row in rows]
+        self._labels = labels
+        self._index = np.arange(len(rows), dtype=np.int64)
+        self._by_index = dict(zip(self._index.tolist(), self._paths))
 
     def _load_processed(self, csv_dir: str, data_filter, uncertain_policy: str):
         suffix = "" if uncertain_policy == "ones" else f".{uncertain_policy}"

@@ -12,6 +12,12 @@ output = concat([conv(x) with out_channels-dv filters,
     ignores the layout, as the JAX module does.
 Any other string raises ValueError (no silent fall-through to a default).
 
+``forward(x, capture_weights=True)`` takes the einsum route for that call,
+whatever ``attn_impl`` and the layout say (as the JAX module does), and
+keeps the softmax weights (B, nh, HW, HW) f32, detached, in
+``attn_weights`` until the caller takes them (``interpret/capture.py``);
+a call without it leaves ``attn_weights`` alone.
+
 ``attn_layout`` (the JAX package's ``CHEXPERT_ATTN_LAYOUT``, read once by
 ``models.registry.build_model`` and passed down):
   * ``"bn"``: head-major operands (B*nh, HW, .) through
@@ -104,6 +110,7 @@ class AAConv2d(nn.Module):
             scale += [dkh ** -0.5] * dkh + [1.0] * (dkh + dvh)
         self.register_buffer("_hil_rows", torch.tensor(rows), persistent=False)
         self.register_buffer("_hil_scale", torch.tensor(scale), persistent=False)
+        self.attn_weights: Optional[torch.Tensor] = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -146,8 +153,9 @@ class AAConv2d(nn.Module):
                                       self.dk // self.nh, self.dv // self.nh, self.slot)
         return out.view(B, H, W, self.dv).permute(0, 3, 1, 2)
 
-    def _attend_heads(self, x: torch.Tensor) -> torch.Tensor:
-        """Head-major routes (the bn layout's kernels, or einsum)."""
+    def _attend_heads(self, x: torch.Tensor, capture_weights: bool = False) -> torch.Tensor:
+        """Head-major routes (the bn layout's kernels, or einsum; einsum
+        whenever the weights are captured)."""
         dk, dv, nh = self.dk, self.dv, self.nh
         dkh, dvh = dk // nh, dv // nh
         H, W = self.input_dims
@@ -165,8 +173,11 @@ class AAConv2d(nn.Module):
         kh = to_heads(k, dkh)
         vh = to_heads(v, dvh)
 
-        if self.attn_impl == "einsum":
-            attn, _ = aa_attention_einsum(qh, kh, vh, self.key_rel_w, self.key_rel_h, H, W)
+        if self.attn_impl == "einsum" or capture_weights:
+            attn, weights = aa_attention_einsum(qh, kh, vh, self.key_rel_w, self.key_rel_h, H, W,
+                                                return_weights=capture_weights)
+            if capture_weights:
+                self.attn_weights = weights.detach()
         else:
             qr = pack_query(qh, self.key_rel_w, self.key_rel_h, H, W)
             dt = qr.dtype
@@ -179,11 +190,11 @@ class AAConv2d(nn.Module):
         # (B, nh, HW, dvh) -> (B, dv, H, W); inverse of to_heads
         return attn.transpose(2, 3).reshape(B, dv, H, W)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.attn_impl != "einsum" and self.attn_layout == "hil":
+    def forward(self, x: torch.Tensor, capture_weights: bool = False) -> torch.Tensor:
+        if self.attn_impl != "einsum" and self.attn_layout == "hil" and not capture_weights:
             attn = self._attend_hil(x)
         else:
-            attn = self._attend_heads(x)
+            attn = self._attend_heads(x, capture_weights)
         attn = self.out_proj(attn)
         if self.conv is None:
             return attn

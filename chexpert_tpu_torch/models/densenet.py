@@ -8,6 +8,11 @@ carried-stats paths, which are numerically equal):
                  InstanceNorm -> ReLU -> AAConv2d 3x3 s2            (AA variant)
   * head: norm5 -> ReLU -> global-avg-pool (f32) -> Linear (f32)
 
+``forward(x, capture_weights=True)`` passes the flag to each AA transition
+(``models/attn.py``). The Grad-CAM site (``gradcam_site``, read by
+``interpret/gradcam.py``) is the ``features.norm5`` output, before the ReLU,
+where the JAX model sows its ``gradcam_features``.
+
 Module names follow torchvision (features.conv0 ... features.norm5,
 classifier); the AA transition's tensors follow the JAX tree
 (features.transitionN.conv.{in_proj_qkv,out_proj,conv}.weight, key_rel_{h,w}).
@@ -86,12 +91,15 @@ class Transition(nn.Module):
                              attn.relative, attn_map_dims, attn_impl=attn_impl,
                              attn_layout=attn_layout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(F.relu(self.norm(x)))
-        return y if self.aa else F.avg_pool2d(y, 2, 2)
+    def forward(self, x: torch.Tensor, capture_weights: bool = False) -> torch.Tensor:
+        if self.aa:
+            return self.conv(F.relu(self.norm(x)), capture_weights=capture_weights)
+        return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2, 2)
 
 
 class DenseNet(nn.Module):
+    gradcam_site = "features.norm5"
+
     def __init__(self, growth_rate: int = 32, block_config: Sequence[int] = (6, 12, 24, 16),
                  num_init_features: int = 64, bn_size: int = 4, num_classes: int = 5,
                  attn: Optional[AttnParams] = None, attn_impl: str = "pallas",
@@ -146,8 +154,8 @@ class DenseNet(nn.Module):
         torch_linear_(self.classifier.weight, generator)
         self.classifier.bias.zero_()
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                capture_weights: bool = False) -> torch.Tensor:
         del generator  # no random parts in this family
         f = self.features
         x = F.relu(f.norm0(f.conv0(x)))
@@ -156,7 +164,7 @@ class DenseNet(nn.Module):
         for i in range(self.n_blocks):
             x = getattr(f, f"denseblock{i + 1}")(x)
             if i != self.n_blocks - 1:
-                x = getattr(f, f"transition{i + 1}")(x)
+                x = getattr(f, f"transition{i + 1}")(x, capture_weights=capture_weights)
         x = global_avg_pool(F.relu(f.norm5(x)))
         with torch.autocast(x.device.type, enabled=False):  # f32 head, as in JAX
             return self.classifier(x)

@@ -18,6 +18,11 @@ se.reduce, se.expand, project_conv, project_bn}``, ``head_conv``,
 ``head_bn``, ``classifier``), so a state dict written by the JAX
 ``export_torch_state_dict`` loads strictly.
 
+The Grad-CAM site (``gradcam_site``, read by ``interpret/gradcam.py``) is
+the ``head_bn`` output, before the swish, where the JAX model sows its
+``gradcam_features``; ``forward`` takes ``capture_weights`` and ignores it
+(no attention layers in this family), as the JAX module does.
+
 ``dw_impl`` picks the depthwise route: "kernel" (B3 forward / B4 backward
 for every stride-1 layer) or "library" (the grouped conv everywhere, the
 counterpart of ``CHEXPERT_DW=xla``). The train-mode random parts,
@@ -180,6 +185,8 @@ class MBConvBlock(nn.Module):
 class EfficientNet(nn.Module):
     """Any of efficientnet-b0..b7 via ``model_name``."""
 
+    gradcam_site = "head_bn"
+
     def __init__(self, model_name: str = "efficientnet-b0", num_classes: int = 5,
                  drop_connect_rate: float = 0.2, dw_impl: str = "kernel"):
         super().__init__()
@@ -220,8 +227,9 @@ class EfficientNet(nn.Module):
         torch_linear_(self.classifier.weight, generator)
         self.classifier.bias.zero_()
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                capture_weights: bool = False) -> torch.Tensor:
+        del capture_weights  # no attention layers in this family
         x = F.silu(self.stem_bn(self.stem_conv(x)))
         for name in self.block_names:
             x = getattr(self, name)(x, generator)

@@ -15,6 +15,11 @@ An AA layer's attention map is input_dims * 16 / planes (40x40 / 20x20 /
 the registry's AttnParams(k=0.2, v=0.1, nh=8) every bottleneck AA conv has
 dk = 160 (20 per head) and dv = 8 / 24 / 48.
 
+``forward(x, capture_weights=True)`` passes the flag through each stage
+(``Stage``) and block to its AA conv (``models/attn.py``). The Grad-CAM site
+(``gradcam_site``, read by ``interpret/gradcam.py``) is the ``layer4``
+output, where the JAX model sows its ``gradcam_features``.
+
 Module names are torchvision's (conv1, bn1, layerN.i.convK / bnK,
 downsample.0 / .1, fc), so a ``.pth`` written by the JAX package's
 ``export_torch_state_dict`` loads strictly; an AA conv's tensors sit under
@@ -57,6 +62,11 @@ def _aa_conv(in_ch: int, width: int, strides: int, attn: AttnParams, planes: int
                     attn_layout=attn_layout)
 
 
+def _conv(conv: nn.Module, x: torch.Tensor, capture_weights: bool) -> torch.Tensor:
+    """A block's conv, passing ``capture_weights`` to an AA conv."""
+    return conv(x, capture_weights=capture_weights) if isinstance(conv, AAConv2d) else conv(x)
+
+
 def _downsample(in_planes: int, out_planes: int, strides: int) -> nn.Sequential:
     return nn.Sequential(conv(in_planes, out_planes, 1, strides), nn.BatchNorm2d(out_planes))
 
@@ -79,8 +89,8 @@ class BasicBlock(nn.Module):
     def last_bn(self) -> nn.BatchNorm2d:
         return self.bn2
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x: torch.Tensor, capture_weights: bool = False) -> torch.Tensor:
+        out = F.relu(self.bn1(_conv(self.conv1, x, capture_weights)))
         out = self.bn2(self.conv2(out))
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
@@ -113,16 +123,27 @@ class Bottleneck(nn.Module):
     def last_bn(self) -> nn.BatchNorm2d:
         return self.bn3
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, capture_weights: bool = False) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = F.relu(self.bn2(_conv(self.conv2, out, capture_weights)))
         out = self.bn3(self.conv3(out))
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
 
 
+class Stage(nn.Sequential):
+    """One ``layerN``: its blocks in turn, named "0", "1", ... as torchvision's."""
+
+    def forward(self, x: torch.Tensor, capture_weights: bool = False) -> torch.Tensor:
+        for block in self:
+            x = block(x, capture_weights=capture_weights)
+        return x
+
+
 class ResNet(nn.Module):
     """resnet50 (3, 4, 6, 3); resnet101 (3, 4, 23, 3); resnet152 (3, 8, 36, 3)."""
+
+    gradcam_site = "layer4"
 
     def __init__(self, block: str = "bottleneck", layers: Sequence[int] = (3, 8, 36, 3),
                  num_classes: int = 5, attn: Optional[AttnParams] = None,
@@ -148,7 +169,7 @@ class ResNet(nn.Module):
                     strides=s if i == 0 else 1, has_downsample=needs_ds and i == 0,
                     attn=None if li == 0 else attn, attn_impl=attn_impl,
                     attn_layout=attn_layout))
-            setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
+            setattr(self, f"layer{li + 1}", Stage(*blocks))
             in_planes = planes * block_cls.expansion
         self.fc = nn.Linear(in_planes, num_classes)
 
@@ -174,12 +195,13 @@ class ResNet(nn.Module):
         torch_linear_(self.fc.weight, generator)
         self.fc.bias.zero_()
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                capture_weights: bool = False) -> torch.Tensor:
         del generator  # no random parts in this family
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = layer(x, capture_weights=capture_weights)
         x = global_avg_pool(x)
         with torch.autocast(x.device.type, enabled=False):  # f32 head, as in JAX
             return self.fc(x)

@@ -1,7 +1,13 @@
 from chexpert_tpu_torch.train.loss import bce_with_logits, train_loss
 from chexpert_tpu_torch.train.optim import make_optimizer, make_schedule
 from chexpert_tpu_torch.train.state import TrainState
-from chexpert_tpu_torch.train.steps import eval_step, prepare_image, train_step
+from chexpert_tpu_torch.train.steps import (
+    autocast,
+    eval_logits,
+    eval_step,
+    prepare_image,
+    train_step,
+)
 
 __all__ = [
     "bce_with_logits",
@@ -9,6 +15,8 @@ __all__ = [
     "make_optimizer",
     "make_schedule",
     "TrainState",
+    "autocast",
+    "eval_logits",
     "eval_step",
     "prepare_image",
     "train_step",

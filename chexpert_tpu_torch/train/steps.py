@@ -31,7 +31,8 @@ def prepare_image(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
 
 
-def _autocast(device: torch.device, dtype: torch.dtype):
+def autocast(device: torch.device, dtype: torch.dtype):
+    """torch.autocast at the compute dtype (off for float32)."""
     return torch.autocast(device.type, dtype=dtype, enabled=dtype != torch.float32)
 
 
@@ -41,7 +42,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     returns the loss as a 0-d tensor on the device (no host sync)."""
     model = state.model.train()
     image = prepare_image(batch["image"])
-    with _autocast(image.device, compute_dtype):
+    with autocast(image.device, compute_dtype):
         logits = model(image, generator=state.generator)
     loss = train_loss(logits, batch["label"], batch["mask"], batch.get("label_mask"))
     state.optimizer.zero_grad(set_to_none=True)
@@ -53,11 +54,17 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
 
 @torch.no_grad()
+def eval_logits(model: torch.nn.Module, image: torch.Tensor,
+                compute_dtype: torch.dtype) -> torch.Tensor:
+    """f32 logits (B, C) of ``model`` in eval mode (running BN statistics)
+    on a prepared (B, 3, H, W) image."""
+    model.eval()
+    with autocast(image.device, compute_dtype):
+        return model(image).float()
+
+
 def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
               compute_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits f32 (B, C), per-element BCE (B, C)) with running BN statistics."""
-    model = state.model.eval()
-    image = prepare_image(batch["image"])
-    with _autocast(image.device, compute_dtype):
-        out = model(image).float()
+    out = eval_logits(state.model, prepare_image(batch["image"]), compute_dtype)
     return out, bce_with_logits(out, batch["label"])

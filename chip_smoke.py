@@ -102,8 +102,37 @@ Run from the root of a checkout. Phases, each failing the run on error:
 14. aaresnet152 grad reference: as phase 6 with the hil route against the
    einsum route, over all 47 AA convs on their captured inputs and upstream
    gradients: every gradient within 1e-3; whole model reported.
+15. ensemble: three seeded aadensenet121 members at 320x320 saved by the
+   checkpoint store into a directory, then cli.chexpert.main
+   --evaluate_ensemble --restore DIR on a 320x320 synthetic valid set (two
+   views per study, two batches of 16), bf16, once unchunked and once with
+   --ensemble_member_chunk 1: exactly members x 3 B1 launches per valid
+   batch (plus the 3 of the planner's one measuring forward when unchunked)
+   and no other kernel, eval_results_ensemble.json written, the two runs'
+   metrics equal; on the same members and batches the ensemble's mean logits
+   equal the mean of three single-model evaluate passes, and chunk 1 equals
+   unchunked, within 1e-5 of the largest logit in f32 (bf16 reported);
+   prints the planned chunk, ms per member per batch, and one member's
+   forward on a resident batch with its device time.
+16. predict: python -m chexpert_tpu_torch.cli.predict's main on a test csv
+   of that valid set's images (absolute paths), for each checkpoint and for
+   the directory: header Study + the 5 labels, one row per study (sorted),
+   values in [0, 1], 3 B1 launches per forward per checkpoint, and the
+   directory's csv the mean of the checkpoints' csvs within 1e-6.
+17. Grad-CAM and attention capture through cli.chexpert's
+   collect_visualization on the vis subset of an 8-image valid set, bf16,
+   micro-batch 4: aadensenet121 (layout bn), aaresnet152 under hil (BatchNorm
+   statistics set from the vis images, residual branches damped, as phase
+   12) and efficientnet-b4 at 380x380 (statistics from the vis images).
+   Launches exactly the forward kernels per vis batch (3 B1 / 47 B5 / 28
+   B3) and none else: no backward kernel (B2, B6, B4), and the capture
+   (einsum route) none; every CAM finite, in [0, 1], of shape (N, 1, H, W);
+   captured softmax rows sum to 1 within 1e-3; the f32 kernel route's CAM
+   within 1e-3 of the f32 einsum / library route's on the first vis batch;
+   prints ms per vis batch, and its device time. No PNG is rendered on the
+   card.
 
-The phases take two to three minutes on an H100, the build included (the run
+The phases take three to four minutes on an H100, the build included (the run
 prints its own time). The last lines are one {"kernels": [...]} JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is available or the port is not importable.
@@ -191,6 +220,23 @@ AA_REQUESTS = 4
 AA_RESIDUAL_GAMMA = 0.25                   # the served model's residual scale: see damp_residuals
 AA_TRAIN_STEPS_BN = 3                      # the bn layout's train run only gates its launches
 LAYOUT_ENV = "CHEXPERT_ATTN_LAYOUT"        # read once by build_model, as the JAX package names it
+# the ensemble / predict fixture: two views per study, two valid batches of the CLI's 16
+ENS_MODEL, ENS_MEMBERS, ENS_VALID = "aadensenet121", 3, 2 * B_TRAIN
+# the ensemble's mean logits against the mean of its members' single-model
+# passes, and chunked against unchunked, max |d| / max |logit|: the same
+# deterministic kernels and cuDNN calls on the same inputs, the three logits
+# summed in another order on the device or the host (f32, one rounding of a
+# sum of three: ~1e-7 relative)
+ENS_TOL = 1e-5
+PREDICT_TOL = 1e-6                         # directory csv vs the mean of the checkpoints' csvs
+VIS_VALID = 8                              # valid images the vis subset is picked from
+# the f32 kernel route's CAM vs the f32 einsum / library route's, max |d| on
+# maps in [0, 1]: the features at the site differ by f32 rounding (~1e-6
+# relative, see LOGIT_TOL), and the CAM divides their weighted sum by its
+# range; aaresnet152 amplifies rounding through 50 blocks (damped here as in
+# phase 12), so the serve phases' probability gate is taken
+CAM_TOL = 1e-3
+ROW_SUM_TOL = 1e-3                         # captured softmax rows sum to 1
 
 
 def smi_line() -> str:
@@ -972,14 +1018,18 @@ def calibrate_bn(model, images, image: int) -> None:
                                      np.float32)[..., None], image) / 255.0 - PIXEL_MEAN)
              / PIXEL_STD for data in images]
     x = torch.from_numpy(np.stack(batch).astype(np.float32)).to(DEVICE).expand(-1, -1, -1, 3)
+    calibrate_bn_on(model, x.permute(0, 3, 1, 2).contiguous())
+
+
+def calibrate_bn_on(model, x) -> None:
+    """calibrate_bn's work on a prepared (B, 3, H, W) batch on the card."""
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     momenta = [m.momentum for m in bns]
     for m in bns:
         m.reset_running_stats()
         m.momentum = None  # a cumulative average: one forward sets the batch statistics
     with torch.no_grad():
-        model.train()(x.permute(0, 3, 1, 2).contiguous(),
-                      generator=torch.Generator(device=DEVICE).manual_seed(0))
+        model.train()(x, generator=torch.Generator(device=DEVICE).manual_seed(0))
     for m, momentum in zip(bns, momenta):
         m.momentum = momentum
     model.eval()
@@ -1368,6 +1418,260 @@ def dw_grad_reference_phase(data_dir: str):
             "median_max_abs_grad": med(scale.values())}
 
 
+def _ensemble_cli(data_dir: str, members: str, chunk: int) -> dict:
+    """--evaluate_ensemble through cli.chexpert.main; launches read just after."""
+    from chexpert_tpu_torch import kernels
+    from chexpert_tpu_torch.cli.chexpert import main as cli_main
+
+    out = os.path.join(data_dir, f"ensemble_chunk{chunk}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_main(["--evaluate_ensemble", "--restore", members, "--data_path", data_dir,
+              "--output_dir", out, "--model", ENS_MODEL, "--image_size", str(IMAGE),
+              "--compute_dtype", "bfloat16", "--batch_size", str(B_TRAIN),
+              "--ensemble_member_chunk", str(chunk), "--device", DEVICE])
+    torch.cuda.synchronize()
+    path = os.path.join(out, "eval_results_ensemble.json")
+    return {"counts": kernels.launch_counts(), "wall_s": time.perf_counter() - t0,
+            "written": os.path.exists(path),
+            "metrics": json.load(open(path)) if os.path.exists(path) else None}
+
+
+def ensemble_phase(data_dir: str, smi: str) -> dict:
+    """Phase 15: three seeded aadensenet121 members saved by the checkpoint
+    store, evaluated through the CLI unchunked and at chunk 1; then, on the
+    same members and batches, the ensemble's mean logits against the mean
+    of the three single-model evaluate passes, and chunk 1 against chunk 3,
+    in f32 (gated) and bf16 (reported)."""
+    from chexpert_tpu_torch.checkpoint import save_model_checkpoint
+    from chexpert_tpu_torch.data import Batches, ChexpertIndex
+    from chexpert_tpu_torch.eval.ensemble import (
+        _plan_member_chunk,
+        ensemble_outputs,
+        list_checkpoints,
+        load_member,
+    )
+    from chexpert_tpu_torch.models import build_model
+    from chexpert_tpu_torch.ops.fused_attention import NAME
+    from chexpert_tpu_torch.train import TrainState, eval_logits, prepare_image
+    from chexpert_tpu_torch.train.loop import evaluate
+
+    members = os.path.join(data_dir, "members")
+    os.makedirs(members)
+    for k in range(ENS_MEMBERS):
+        sd = build_model(ENS_MODEL, image_size=IMAGE,
+                         generator=torch.Generator().manual_seed(k)).state_dict()
+        save_model_checkpoint(os.path.join(members, f"checkpoint_{k}.pt"), sd, k)
+    n_batches = ENS_VALID // B_TRAIN
+    per_pass = ENS_MEMBERS * 3 * n_batches  # members x AA transitions x valid batches
+    runs = {chunk: _ensemble_cli(data_dir, members, chunk) for chunk in (0, 1)}
+
+    dev = torch.device(DEVICE)
+    model = build_model(ENS_MODEL, image_size=IMAGE, device=dev)
+    batches = Batches(ChexpertIndex(data_dir, "valid"), B_TRAIN, image_size=IMAGE)
+    paths = list_checkpoints(members)
+    planned = _plan_member_chunk(model, len(paths), batches, dev, torch.bfloat16)
+    timings = []
+    ensemble_outputs(model, paths, batches, dev, torch.bfloat16, planned, ENS_MODEL, timings)
+    ms_member_batch = (sum(t["seconds"] for t in timings) * 1e3
+                       / sum(t["members"] * t["batches"] for t in timings))
+    # one member's forward on a resident batch: events around the call, and
+    # the profiler's device time (the host's share is the difference)
+    member = load_member(model, paths[0], ENS_MODEL)
+    image = prepare_image(torch.from_numpy(next(iter(batches))["image"]).to(dev))
+
+    def member_forward():
+        return eval_logits(member, image, torch.bfloat16)
+
+    resident_ms = time_ms(member_forward, reps=5, inner=1)
+    device_fwd_ms = profiled_device_ms(member_forward, reps=3)
+    del member, image
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ens = ensemble_outputs(model, paths, batches, dev, dtype, len(paths), ENS_MODEL)[0]
+        one = ensemble_outputs(model, paths, batches, dev, dtype, 1, ENS_MODEL)[0]
+        singles = [evaluate(TrainState(load_member(model, p, ENS_MODEL), None, None), batches,
+                            dev, dtype)[0] for p in paths]
+        mean = np.mean(np.stack(singles), axis=0)
+        scale = float(np.abs(mean).max())
+        errs[str(dtype).split(".")[-1]] = {
+            "vs_single_passes": float(np.abs(ens - mean).max()) / scale,
+            "chunk1_vs_all": float(np.abs(one - ens).max()) / scale}
+    m0, m1 = runs[0]["metrics"], runs[1]["metrics"]
+    metric_d = max(abs(m0[key][c] - m1[key][c]) for key in ("aucs", "loss") for c in m0[key]
+                   if not (np.isnan(m0[key][c]) and np.isnan(m1[key][c])))
+    checks = {
+        "written": runs[0]["written"] and runs[1]["written"],
+        # the unchunked run's planner measures one forward of the CLI's model
+        # first (on a card; on the CPU it plans nothing)
+        "launches_unchunked": runs[0]["counts"] == {NAME: per_pass + 3 * (dev.type == "cuda")},
+        "launches_chunk1": runs[1]["counts"] == {NAME: per_pass},
+        "f32_mean_of_single_passes": errs["float32"]["vs_single_passes"] <= ENS_TOL,
+        "f32_chunk1_equals_unchunked": errs["float32"]["chunk1_vs_all"] <= ENS_TOL,
+        "cli_chunk1_metrics_equal_unchunked": metric_d <= ENS_TOL,
+    }
+    print(f"ensemble {ENS_MEMBERS} x {ENS_MODEL} {IMAGE}x{IMAGE} bf16 batch {B_TRAIN}, "
+          f"{n_batches} valid batches: CLI launches unchunked {runs[0]['counts']} / chunk 1 "
+          f"{runs[1]['counts']} ({per_pass} = members x 3 B1 x batches, + 3 for the planning "
+          f"forward); planned chunk {planned}; {ms_member_batch:.3f} ms per member per batch "
+          f"(bf16, batch loop wall, decode overlapped), one member's forward on a resident "
+          f"batch {resident_ms:.3f} ms (events) of which device {device_fwd_ms:.3f} ms "
+          f"(profiler) on {smi}; mean logits vs the single "
+          f"passes' mean, and chunk 1 vs unchunked, max |d| / max |logit|: {errs} (f32 gated "
+          f"at {ENS_TOL}); CLI metrics chunk 1 vs unchunked max |d| {metric_d:.3g}; wall "
+          f"{runs[0]['wall_s']:.1f} / {runs[1]['wall_s']:.1f} s; checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"ensemble checks failed: {checks}")
+    return {"counts": runs[0]["counts"], "counts_chunk1": runs[1]["counts"],
+            "planned_chunk": planned, "ms_per_member_per_batch": ms_member_batch,
+            "member_forward_resident_ms": resident_ms, "member_forward_device_ms": device_fwd_ms,
+            "timings": timings, "errors": errs, "cli_metric_max_abs_d": metric_d,
+            "wall_s": [runs[0]["wall_s"], runs[1]["wall_s"]], "members": members,
+            "card": smi}
+
+
+def predict_phase(data_dir: str, members: str, smi: str) -> dict:
+    """Phase 16: cli.predict on a test csv of the fixture's valid images
+    (absolute paths), for each checkpoint and for the directory."""
+    from chexpert_tpu_torch import kernels
+    from chexpert_tpu_torch.cli.predict import main as predict_main
+    from chexpert_tpu_torch.data import ATTR_NAMES, DIR_NAME
+    from chexpert_tpu_torch.data.chexpert import read_csv, write_csv
+    from chexpert_tpu_torch.ops.fused_attention import NAME
+
+    header, rows = read_csv(os.path.join(data_dir, DIR_NAME, "valid.csv"))
+    test_csv = os.path.join(data_dir, "test.csv")
+    write_csv(test_csv, header, [[os.path.join(data_dir, r[0]), *r[1:]] for r in rows])
+    studies = sorted({os.path.join(data_dir, r[0]).rsplit("/", 1)[0] for r in rows})
+    n_batches = -(-len(rows) // B_TRAIN)
+    out = {}
+    for k in [*range(ENS_MEMBERS), "dir"]:
+        restore = members if k == "dir" else os.path.join(members, f"checkpoint_{k}.pt")
+        csv_path = os.path.join(data_dir, f"predict_{k}.csv")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        predict_main([test_csv, csv_path, "--restore_path", restore, "--model", ENS_MODEL,
+                      "--image_size", str(IMAGE), "--batch_size", str(B_TRAIN),
+                      "--compute_dtype", "bfloat16", "--device", DEVICE])
+        torch.cuda.synchronize()
+        got_header, got = read_csv(csv_path)
+        out[k] = {"counts": kernels.launch_counts(), "wall_s": time.perf_counter() - t0,
+                  "header": got_header, "studies": [r[0] for r in got],
+                  "values": np.array([[float(v) for v in r[1:]] for r in got])}
+    singles = [out[k]["values"] for k in range(ENS_MEMBERS)]
+    dir_d = float(np.abs(out["dir"]["values"] - np.mean(singles, axis=0)).max())
+    per_checkpoint = {NAME: 3 * n_batches}
+    checks = {
+        "header": all(o["header"] == ["Study", *ATTR_NAMES] for o in out.values()),
+        "one_row_per_study": all(o["studies"] == studies for o in out.values()),
+        "values_in_unit_interval": all(np.isfinite(o["values"]).all()
+                                       and (o["values"] >= 0).all() and (o["values"] <= 1).all()
+                                       for o in out.values()),
+        "launches_per_checkpoint": all(out[k]["counts"] == per_checkpoint
+                                       for k in range(ENS_MEMBERS)),
+        "launches_directory": out["dir"]["counts"] == {NAME: 3 * n_batches * ENS_MEMBERS},
+        "directory_is_the_mean": dir_d <= PREDICT_TOL,
+    }
+    print(f"predict {ENS_MODEL} {IMAGE}x{IMAGE} bf16 batch {B_TRAIN}: {len(rows)} images, "
+          f"{len(studies)} studies; launches per checkpoint {out[0]['counts']}, directory "
+          f"{out['dir']['counts']}; directory csv vs the checkpoints' mean max |d| "
+          f"{dir_d:.3g} (tol {PREDICT_TOL}); wall {[round(o['wall_s'], 2) for o in out.values()]}"
+          f" s on {smi}; checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"predict checks failed: {checks}")
+    return {"counts": {str(k): o["counts"] for k, o in out.items()}, "directory_max_abs_d": dir_d,
+            "wall_s": {str(k): o["wall_s"] for k, o in out.items()}, "card": smi}
+
+
+def gradcam_phase(data_dir: str, smi: str, name: str, image: int, per_forward: dict,
+                  route: dict, layout=None, calibrate=False, residual_gamma=None) -> dict:
+    """Phase 17, one model: collect_visualization (Grad-CAM, probabilities,
+    attention capture) through the CLI's Runner on the vis subset, bf16;
+    launches read just after must be ``per_forward`` per vis batch and no
+    other kernel (capture runs the einsum route). Then the f32 kernel route's
+    CAM against the f32 plain route's (``route``) on the first vis batch.
+    ``calibrate`` sets the seeded model's BatchNorm statistics from the vis
+    images (the input the CAMs are taken on; statistics from other images
+    leave a random efficientnet-b4's logits at ~1e5 there, where two f32
+    routes part); ``residual_gamma`` damps the residual branches first."""
+    from chexpert_tpu_torch import kernels
+    from chexpert_tpu_torch.checkpoint import save_model_checkpoint
+    from chexpert_tpu_torch.cli.chexpert import Runner, collect_visualization, config_from_args
+    from chexpert_tpu_torch.data import Batches, ChexpertIndex
+    from chexpert_tpu_torch.interpret import grad_cam
+    from chexpert_tpu_torch.models import build_model
+    from chexpert_tpu_torch.train import prepare_image
+
+    model = build_model(name, image_size=image, generator=torch.Generator().manual_seed(0))
+    if residual_gamma is not None:
+        damp_residuals(model, residual_gamma)
+    if calibrate:
+        index = ChexpertIndex(data_dir, "vis")
+        host = next(iter(Batches(index, len(index), image_size=image)))
+        calibrate_bn_on(model.to(DEVICE), prepare_image(torch.from_numpy(host["image"])
+                                                         .to(DEVICE)))
+    ckpt = os.path.join(data_dir, f"{name}_vis.pt")
+    save_model_checkpoint(ckpt, model.state_dict())
+    del model
+    with attn_layout_env(layout):
+        runner = Runner(config_from_args([
+            "--visualize", "--restore", ckpt, "--data_path", data_dir, "--output_dir",
+            os.path.join(data_dir, f"vis_{name}"), "--model", name, "--image_size", str(image),
+            "--batch_size", str(B), "--compute_dtype", "bfloat16", "--device", DEVICE]))
+        vis_batches = runner.batches(runner.index("vis"), train=False)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        vis = collect_visualization(runner)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        x = prepare_image(torch.from_numpy(next(iter(vis_batches))["image"]).to(DEVICE))
+
+        def cam_bf16():
+            return grad_cam(runner.state.model, x, compute_dtype=torch.bfloat16)
+
+        ms_per_batch = time_ms(cam_bf16, reps=5, inner=1)
+        device_per_batch = profiled_device_ms(cam_bf16, reps=3)
+        cam_k, logits_k = grad_cam(runner.state.model, x, compute_dtype=torch.float32)
+    ref = build_model(name, image_size=image, **route)
+    ref.load_state_dict(runner.state.model.state_dict(), strict=True)
+    cam_r, logits_r = grad_cam(ref.to(DEVICE), x, compute_dtype=torch.float32)
+    cam_d = (cam_k - cam_r).abs().max().item()
+    logit_d = ((logits_k - logits_r).abs().max() / logits_r.abs().max()).item()
+    cams, n = vis["cams"], len(vis["images"])
+    row_err = max((float(np.abs(w.sum(-1) - 1).max()) for w in vis["attn_weights"]), default=0.0)
+    n_batches = len(vis_batches)
+    checks = {
+        "launches_per_vis_batch": counts == {k: v * n_batches for k, v in per_forward.items()},
+        "cams": (cams.shape == (n, 1, image, image) and bool(np.isfinite(cams).all())
+                 and float(cams.min()) >= 0.0 and float(cams.max()) <= 1.0),
+        "probs": bool(np.isfinite(vis["probs"]).all()) and vis["probs"].shape == (n, 5),
+        "captured": (len(vis["attn_weights"]) == sum(per_forward.values())
+                     if name != EFF else vis["attn_weights"] == []),
+        "captured_rows_sum_to_1": row_err <= ROW_SUM_TOL,
+        "f32_cam_vs_plain_route": cam_d <= CAM_TOL,
+    }
+    shapes = sorted({tuple(w.shape) for w in vis["attn_weights"]})
+    print(f"gradcam {name} {image}x{image} bf16 batch {B} layout {layout or 'bn'}: {n} vis images "
+          f"in {n_batches} batches; launches {counts} (want {per_forward} per batch, none else); "
+          f"CAM range [{float(cams.min()):.4g}, {float(cams.max()):.4g}], mean "
+          f"{float(cams.mean()):.4g}; captured {len(vis['attn_weights'])} layers {shapes}, row "
+          f"sums max |d| {row_err:.3g}; {ms_per_batch:.3f} ms per vis batch (Grad-CAM alone, "
+          f"bf16, events around the call) of which device {device_per_batch:.3f} ms "
+          f"(profiler) on {smi}; collect wall {wall_s:.2f} s; f32 kernel "
+          f"route vs {route}: CAM max |d| {cam_d:.3g} (tol {CAM_TOL}), logits max |d| / max "
+          f"|logit| {logit_d:.3g}; checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"gradcam {name} checks failed: {checks}")
+    del runner, ref, vis
+    torch.cuda.empty_cache()
+    return {"counts": counts, "vis_images": n, "vis_batches": n_batches,
+            "ms_per_vis_batch": ms_per_batch, "device_ms_per_vis_batch": device_per_batch,
+            "collect_wall_s": wall_s,
+            "f32_cam_max_abs_d": cam_d, "f32_logit_rel_d": logit_d, "row_sum_max_abs_d": row_err,
+            "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1477,12 +1781,35 @@ def main() -> int:
         AA_RES, IMAGE, AA_TRAIN_LR, hil_step, {HIL_FWD: N_AA},
         lambda d: grad_reference_phase(d, AA_RES, "hil", N_AA, AA_TRAIN_LR),
         layout="hil", also=("bn", bn_step, {NAME: N_AA}))
+    # after training: ensemble and predict (phases 15, 16), Grad-CAM and capture (17)
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        make_synthetic_dataset(d, n_train=4, n_valid=ENS_VALID, image_size=IMAGE,
+                               views_per_study=2)
+        ensemble = ensemble_phase(d, smi)
+        predict = predict_phase(d, ensemble.pop("members"), smi)
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        make_synthetic_dataset(d, n_train=4, n_valid=VIS_VALID, image_size=IMAGE)
+        gradcam = {
+            "aadensenet121": gradcam_phase(d, smi, "aadensenet121", IMAGE, {NAME: 3},
+                                           {"attn_impl": "einsum"}),
+            f"{AA_RES} hil": gradcam_phase(d, smi, AA_RES, IMAGE, {HIL_FWD: N_AA},
+                                           {"attn_impl": "einsum"}, layout="hil",
+                                           calibrate=True, residual_gamma=AA_RESIDUAL_GAMMA),
+            EFF: gradcam_phase(d, smi, EFF, EFF_IMAGE, {DW_FWD: DW_LAYERS},
+                               {"dw_impl": "library"}, calibrate=True),
+        }
     paths = {"serve aadensenet121": serve["counts"], "train aadensenet121": train["counts"],
              f"serve {EFF}": eff_serve["counts"], f"train {EFF}": eff_train["counts"],
              f"serve {AA_RES} hil": aa_serve["hil"]["counts"],
              f"serve {AA_RES} bn": aa_serve["bn"]["counts"],
              f"train {AA_RES} hil": aa_train["counts"],
-             f"train {AA_RES} bn": aa_train["also"]["counts"]}
+             f"train {AA_RES} bn": aa_train["also"]["counts"],
+             "ensemble aadensenet121": ensemble["counts"],
+             "ensemble aadensenet121 chunk 1": ensemble["counts_chunk1"],
+             **{f"predict aadensenet121 {k}": c for k, c in predict["counts"].items()},
+             **{f"gradcam {k}": g["counts"] for k, g in gradcam.items()}}
 
     def launches(name):  # each path's counts, reset just before it and read just after
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -1677,7 +2004,8 @@ def main() -> int:
         "b6_whole": {**aa_bound("bwd16"), "ms": per_aa("bwd16", "ms")},
         "sm_clock_max_mhz": sm_clock_mhz(),
         "hil_calls": hil_rows,
-        f"serve {AA_RES}": aa_serve, f"train {AA_RES}": {**aa_train, "card": smi}}
+        f"serve {AA_RES}": aa_serve, f"train {AA_RES}": {**aa_train, "card": smi},
+        "ensemble": ensemble, "predict": predict, "gradcam": gradcam}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record))
     print(smi)

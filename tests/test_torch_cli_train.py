@@ -1,6 +1,6 @@
 """The port's training CLI (``chexpert_tpu_torch.cli.chexpert``) on the CPU,
 on the synthetic fixture: artifacts, resume, config overlay, and the
-device / not-ported guards."""
+device / ensemble / visualize / plot_roc / not-ported guards."""
 
 import json
 import os
@@ -94,11 +94,34 @@ def test_load_config_overlay(run, tmp_path):
     assert json.load(open(os.path.join(out, "config.json")))["mini_data"] == 8
 
 
+@pytest.mark.parametrize("case", ["ensemble_restore_is_a_file", "ensemble_empty_directory",
+                                  "plot_roc_without_results", "visualize_without_attention"])
+def test_ensemble_visualize_and_plot_roc_guards(run, tmp_path, case):
+    """The JAX CLI's guards (chexpert_tpu/cli/chexpert.py): --evaluate_ensemble
+    wants a directory of checkpoints and fails on an empty one; --plot_roc
+    with no eval_results*.json raises RuntimeError; --visualize on a model
+    without attention writes the Grad-CAM grids and no attention map."""
+    data, out = run
+    new = str(tmp_path / "x")
+    if case == "ensemble_restore_is_a_file":
+        with pytest.raises(AssertionError, match="must be directory"):
+            main(["--evaluate_ensemble", *_args(data, new), "--restore",
+                  os.path.join(out, "checkpoint_latest.pt")])
+    elif case == "ensemble_empty_directory":
+        (tmp_path / "empty").mkdir()
+        with pytest.raises(AssertionError, match="no checkpoints found"):
+            main(["--evaluate_ensemble", *_args(data, new), "--restore", str(tmp_path / "empty")])
+    elif case == "plot_roc_without_results":
+        with pytest.raises(RuntimeError, match="No `eval_results` files found"):
+            main(["--plot_roc", *_args(data, new)])
+    else:
+        main(["--visualize", *_args(data, new), "--model", "densenet-tiny"])
+        vis = sorted(os.listdir(os.path.join(new, "vis")))
+        assert len(vis) == 8 and all(v.startswith("vis_") and v.endswith("_step_0.png")
+                                     for v in vis)
+
+
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--evaluate_ensemble"], NotImplementedError, "slice 3"),
-    (["--ensemble_member_chunk", "2"], NotImplementedError, "slice 3"),
-    (["--visualize"], NotImplementedError, "slice 6"),
-    (["--plot_roc"], NotImplementedError, "slice 6"),
     (["--multihost"], NotImplementedError, "slice 7"),
     (["--packed_cache"], NotImplementedError, "slice 8"),
     (["--pretrained"], NotImplementedError, "slice 8"),

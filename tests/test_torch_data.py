@@ -28,6 +28,7 @@ from chexpert_tpu_torch.data import (
     extract_patient_ids,
     make_synthetic_dataset,
 )
+from chexpert_tpu_torch.data.chexpert import read_csv, write_csv
 from chexpert_tpu_torch.eval import avg_auc, compute_metrics
 
 FIXTURE = dict(n_train=24, n_valid=12, image_size=48, views_per_study=2, uncertain_frac=0.5)
@@ -113,8 +114,40 @@ def test_jax_index_reads_the_ports_caches(roots, tmp_path):
 def test_missing_dataset_and_test_mode_raise(tmp_path):
     with pytest.raises(FileNotFoundError, match="does not download"):
         ChexpertIndex(str(tmp_path), "train")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        ChexpertIndex(str(tmp_path), "test")
+    # test mode reads a csv of paths: a missing one raises as in JAX
+    with pytest.raises(FileNotFoundError):
+        ChexpertIndex(str(tmp_path / "test.csv"), "test")
+    with pytest.raises(ValueError, match="not one of"):
+        ChexpertIndex(str(tmp_path), "predict")
+
+
+@pytest.mark.parametrize("columns", ["all", "path_only"])
+def test_test_mode_equals_jax(roots, tmp_path, columns):
+    """Test mode (predict's input): a csv of absolute image paths, with every
+    column of valid.csv or with the Path column alone (the competition's
+    test csv); the Path joined to '.', every label 0, the label columns a
+    Path-only csv lacks appended, mini_data not applied, as in JAX."""
+    port, _ = roots
+    header, rows = read_csv(os.path.join(port, DIR_NAME, "valid.csv"))
+    rows = [[os.path.join(port, r[0]), *r[1:]] for r in rows]
+    test_csv = str(tmp_path / "test.csv")
+    if columns == "all":
+        write_csv(test_csv, header, rows)
+    else:
+        write_csv(test_csv, ["Path"], [[r[0]] for r in rows])
+    idx = ChexpertIndex(test_csv, "test", mini_data=3)
+    jidx = JaxIndex(test_csv, "test", mini_data=3, download=False)
+    assert len(idx) == len(jidx) == FIXTURE["n_valid"]
+    assert idx.attr_idxs == jidx.attr_idxs
+    for pos in range(len(idx)):
+        assert idx.path(pos) == jidx.path(pos) == rows[pos][0]
+        assert idx.index(pos) == jidx.index(pos)
+        np.testing.assert_array_equal(idx.labels(pos), jidx.labels(pos))
+    np.testing.assert_array_equal(idx.all_labels(), jidx.all_labels())
+    assert not idx.all_labels().any()
+    ids = idx.all_indices()
+    np.testing.assert_array_equal(extract_patient_ids(idx, ids),
+                                  jax_extract_patient_ids(jidx, ids))
 
 
 @pytest.mark.parametrize("augment,drop_last", [(False, False), (True, True)])
@@ -187,6 +220,6 @@ def test_config_round_trip_and_unported_fields(tmp_path):
     cfg.check_supported()
     for field, value, slice_ in (("multihost", True, 7), ("data_parallel", 2, 7),
                                  ("packed_cache", True, 8), ("device_aug", True, 8),
-                                 ("profile", True, 8), ("ensemble_member_chunk", 2, 3)):
+                                 ("profile", True, 8)):
         with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
             cfg.replace(**{field: value}).check_supported()

@@ -21,6 +21,9 @@ logits. The bf16 forwards and backward passes run the tensor-core kernels up
 to 64x64 and the CUDA-core kernels past it; the forwards are held at more
 ragged maps on both routes (FWD_GEOMETRIES)."""
 
+import os
+
+import numpy as np
 import pytest
 import torch
 
@@ -386,3 +389,65 @@ def test_hil_kernels_reject_what_they_do_not_take(cuda):
     wide = torch.zeros(1, 30, 2 * 32, device="cuda")  # dkh 8: not instantiated
     with pytest.raises(ValueError, match="dkh"):
         hil_attention_fwd(wide, None, None, 6, 5, 8, 3, 32)
+
+
+def test_ensemble_chunked_equals_unchunked_on_the_card(cuda, tmp_path):
+    """Three aadensenet-tiny members through B1 (one AA transition): the
+    planned chunk (all three) and chunk 1 give the same mean logits, losses
+    and targets (the kernels are deterministic), and a pass launches B1 once
+    per member per batch and no backward kernel."""
+    from chexpert_tpu_torch.checkpoint import save_model_checkpoint
+    from chexpert_tpu_torch.data import Batches, ChexpertIndex, make_synthetic_dataset
+    from chexpert_tpu_torch.eval import list_checkpoints
+    from chexpert_tpu_torch.eval.ensemble import _plan_member_chunk, ensemble_outputs
+    from chexpert_tpu_torch.models import build_model
+
+    arch, root = "aadensenet-tiny", str(tmp_path)
+    make_synthetic_dataset(root, n_train=4, n_valid=12, image_size=32)
+    os.makedirs(os.path.join(root, "members"))
+    for k in range(3):
+        sd = build_model(arch, image_size=32, generator=torch.Generator().manual_seed(k)
+                         ).state_dict()
+        save_model_checkpoint(os.path.join(root, "members", f"checkpoint_{k}.pt"), sd, k)
+    paths = list_checkpoints(os.path.join(root, "members"))
+    model = build_model(arch, image_size=32, device=cuda)
+    batches = Batches(ChexpertIndex(root, "valid"), 4, image_size=32, workers=2)
+    chunk = _plan_member_chunk(model, 3, batches, cuda, torch.float32)
+    assert chunk == 3
+    kernels.reset_launch_counts()
+    full = ensemble_outputs(model, paths, batches, cuda, torch.float32, chunk, arch)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {NAME: 3 * 3}  # members x batches
+    one = ensemble_outputs(model, paths, batches, cuda, torch.float32, 1, arch)
+    for a, b in zip(full, one):
+        assert a.shape == b.shape and np.isfinite(a).all()
+        assert np.abs(a - b).max() <= 1e-6 * max(1.0, np.abs(b).max())
+
+
+@pytest.mark.parametrize("arch,layout", [("aadensenet-tiny", "bn"), ("aadensenet-tiny", "hil"),
+                                         ("efficientnet-b0", "bn")])
+def test_grad_cam_launches_the_forward_kernels_only(cuda, arch, layout):
+    """Grad-CAM records only the head: B1 / B5 / B3 launch once per layer and
+    forward, and no backward kernel (B2, B6, B4) launches; the CAMs lie in
+    [0, 1]. The attention capture takes the einsum route: no launch."""
+    from chexpert_tpu_torch.interpret import capture_attention_weights, grad_cam
+    from chexpert_tpu_torch.models import build_model
+    from chexpert_tpu_torch.models.efficientnet import DepthwiseConv
+
+    size = 32 if arch.startswith("aa") else 64
+    model = build_model(arch, image_size=size, attn_layout=layout, device=cuda)
+    n_dw = sum(1 for m in model.modules() if isinstance(m, DepthwiseConv) and m.stride == 1)
+    want = {DW_FWD: n_dw} if n_dw else {FWD if layout == "hil" else NAME: 1}
+    x = torch.randn(3, 3, size, size, generator=torch.Generator().manual_seed(0)).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        kernels.reset_launch_counts()
+        cam, logits = grad_cam(model, x, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == want, dtype
+        assert cam.shape == (3, 1, size, size) and torch.isfinite(cam).all()
+        assert cam.min() >= 0 and cam.max() <= 1 and logits.shape == (3, 5)
+        kernels.reset_launch_counts()
+        weights = capture_attention_weights(model, x, compute_dtype=dtype)
+        assert kernels.launch_counts() == {}
+        for w in weights:
+            assert torch.allclose(torch.from_numpy(w).sum(-1), torch.ones(()), atol=1e-3)

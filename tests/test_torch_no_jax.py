@@ -38,7 +38,9 @@ def test_scan_covers_the_package():
                    "configs/config.py", "data/chexpert.py", "data/pipeline.py",
                    "data/synthetic.py", "data/transforms.py", "eval/metrics.py",
                    "checkpoint/store.py", "checkpoint/tracker.py", "train/loop.py",
-                   "train/optim.py", "train/steps.py", "utils/io.py", "utils/logging.py"):
+                   "train/optim.py", "train/steps.py", "utils/io.py", "utils/logging.py",
+                   "cli/predict.py", "eval/ensemble.py", "interpret/gradcam.py",
+                   "interpret/capture.py", "interpret/plots.py"):
         assert f"chexpert_tpu_torch/{module}" in names, module
 
 
@@ -50,6 +52,7 @@ def test_no_jax_imports(path):
 
 def test_serve_import_leaves_jax_unloaded():
     code = ("import sys, chexpert_tpu_torch.cli.serve, chexpert_tpu_torch.cli.chexpert, "
+            "chexpert_tpu_torch.cli.predict, chexpert_tpu_torch.interpret, "
             "chexpert_tpu_torch.models; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{tuple(sorted(FORBIDDEN))}); print(bad)")
