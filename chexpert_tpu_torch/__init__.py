@@ -22,6 +22,8 @@ package's so each counterpart is easy to find:
     artifacts (vis grids, attention maps, ROC / PR plots);
   * ``train`` — loss, optimizers and schedules, train / eval steps, loops;
   * ``checkpoint`` — atomic ``.pt`` model and optimizer state, best-K tracker;
+  * ``parallel`` — multi-process training, one process per device under
+    ``torch.distributed``: launch, the grid of ranks, the global BatchNorm;
   * ``cli.chexpert`` (train / evaluate / ensemble / visualize / plot ROC),
     ``cli.predict`` (per-study probabilities csv) and ``cli.serve`` (HTTP
     inference).

@@ -20,7 +20,18 @@ model with attention), and --plot_roc plots/roc_pr_<eval_results name>.png
 for every eval_results*.json in --output_dir (the PNGs need matplotlib).
 The run goes on ``--device`` (default ``cuda``; asking for it on a host
 without a card raises, the CPU runs only when asked). The JAX package's
-multi-process and TPU-only flags raise NotImplementedError.
+TPU-only flags raise NotImplementedError.
+
+Multi-process training: one process per device, started by a launcher,
+with ``--multihost`` and an explicit ``--output_dir``:
+
+    torchrun --nproc_per_node N -m chexpert_tpu_torch.cli.chexpert --train \
+        --multihost --output_dir D [--data_parallel DP --model_parallel MP] ...
+
+``--batch_size`` is the global batch; each rank loads its data row's slice
+of it, BatchNorm reduces over the global batch, the gradients are averaged
+by DistributedDataParallel, eval gathers every rank's rows, and rank 0 alone
+writes (chexpert_tpu_torch/parallel). ``--visualize`` runs in one process.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import pprint
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from chexpert_tpu_torch.checkpoint import load_model_checkpoint, load_optim_checkpoint
 from chexpert_tpu_torch.configs import Config, resolve_output_dir, setup_output_dir
@@ -47,7 +59,20 @@ from chexpert_tpu_torch.interpret import (
 )
 from chexpert_tpu_torch.models import build_model, normalize_state_dict, optimizer_spec
 from chexpert_tpu_torch.models.attn import ATTN_IMPLS
-from chexpert_tpu_torch.train import TrainState, make_optimizer, prepare_image
+from chexpert_tpu_torch.parallel import (
+    convert_global_batchnorm,
+    create_hybrid_mesh,
+    create_mesh,
+    host_batch_slice_from_mesh,
+    multihost,
+)
+from chexpert_tpu_torch.train import (
+    TrainState,
+    data_parallel,
+    make_optimizer,
+    prepare_image,
+    rank_seed,
+)
 from chexpert_tpu_torch.train.loop import evaluate_single_model, train_and_evaluate
 from chexpert_tpu_torch.utils import MetricsWriter, load_json, resolve_device, save_json
 
@@ -92,12 +117,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ensemble_member_chunk", type=int, default=0,
                    help="members per ensemble pass; 0 = planned from the free device "
                         "memory, halved on an out-of-memory error")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="data rows of the (data, model) grid of ranks; 0 = all ranks")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="model columns of the grid (the ensemble splits its members "
+                        "over them)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process run: join the launcher's process group "
+                        "(torchrun's RANK / WORLD_SIZE / MASTER_ADDR ...)")
     # the JAX package's flags the port does not run yet: accepted, and refused
     # by Config.check_supported
     p.add_argument("--profile", action="store_true")
-    p.add_argument("--data_parallel", type=int, default=0)
-    p.add_argument("--model_parallel", type=int, default=1)
-    p.add_argument("--multihost", action="store_true")
     p.add_argument("--packed_cache", action="store_true")
     p.add_argument("--device_aug", action="store_true")
     return p
@@ -115,10 +145,24 @@ def config_from_args(argv=None) -> Config:
 
 
 class Runner:
-    """Holds the live objects: device, model, optimizer, state, pipelines."""
+    """Holds the live objects: mesh, device, model, optimizer, state, pipelines."""
 
     def __init__(self, cfg: Config):
-        self.device = resolve_device(cfg.device)
+        device = resolve_device(cfg.device)
+        if cfg.multihost:
+            multihost.initialize(device)
+            # each rank loads its data row's contiguous slice of the global
+            # batch, derived from (and checked against) the grid of ranks
+            self.mesh = create_hybrid_mesh(cfg.data_parallel, cfg.model_parallel).connect()
+            self.host_slice = host_batch_slice_from_mesh(self.mesh, cfg.batch_size)
+        else:
+            self.mesh = create_mesh(cfg.data_parallel, cfg.model_parallel)
+            self.host_slice = None
+        n_data = self.mesh.data_parallel
+        if cfg.batch_size % n_data:
+            raise AssertionError(
+                f"batch_size {cfg.batch_size} must divide over data axis {n_data}")
+        self.device = multihost.local_device(device)
         self.compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         model = build_model(cfg.model, image_size=cfg.resize or cfg.image_size,
                             attn_impl=cfg.attn_impl,
@@ -146,18 +190,24 @@ class Runner:
             model.load_state_dict(normalize_state_dict(ck["state_dict"], cfg.model), strict=True)
             self.start_step = ck["global_step"]
         model = model.to(self.device)
+        if n_data > 1:  # before the optimizer: the converted model keeps its parameters
+            convert_global_batchnorm(model, self.mesh.data_group)
         optimizer, scheduler, self.schedule = make_optimizer(
             spec, model.parameters(), cfg.lr, cfg.lr_warmup_steps)
         # the train-mode random parts draw from this, on the model's device
-        generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        row = self.mesh.data_index
+        generator = torch.Generator(device=self.device).manual_seed(rank_seed(cfg.seed, row))
+        ddp = data_parallel(model, self.device) if cfg.train and self.mesh.world > 1 else None
         self.state = TrainState(model, optimizer, scheduler, step=self.start_step,
-                                generator=generator)
+                                generator=generator, ddp=ddp)
         if restore and cfg.train:
             optim_path = os.path.join(os.path.dirname(cfg.restore),
                                       "optim_" + os.path.basename(cfg.restore))
             if os.path.exists(optim_path):
                 print("Restoring optimizer.")
                 load_optim_checkpoint(optim_path, optimizer, scheduler, generator)
+                if row:  # the checkpoint holds data row 0's generator
+                    generator.manual_seed(rank_seed(cfg.seed, row, self.start_step))
 
     def index(self, mode: str) -> ChexpertIndex:
         cfg = self.cfg
@@ -170,7 +220,8 @@ class Runner:
         return Batches(index, cfg.batch_size, shuffle=train, augment=train and cfg.data_aug,
                        image_size=cfg.image_size, resize=cfg.resize, workers=cfg.data_workers,
                        seed=cfg.seed, epoch=epoch,
-                       drop_last=train and len(index) >= cfg.batch_size)
+                       drop_last=train and len(index) >= cfg.batch_size,
+                       host_slice=self.host_slice)
 
     def n_params(self) -> int:
         return sum(p.numel() for p in self.state.model.parameters())
@@ -236,7 +287,27 @@ def plot_eval_results(output_dir: str) -> None:
 def main(argv=None) -> int:
     cfg = config_from_args(argv)
     cfg.check_supported()
-    resolve_device(cfg.device)  # before any artifact is written
+    device = resolve_device(cfg.device)
+    # the process group comes up before any artifact is written: the rank
+    # gates the writes, and a timestamped default output_dir would differ
+    # between the ranks
+    created = cfg.multihost and multihost.initialize(device)
+    try:
+        if multihost.world_size() > 1:
+            if not cfg.output_dir:
+                raise AssertionError("--multihost requires an explicit --output_dir")
+            if cfg.visualize:
+                # per-rank batch slices would hand each process part of a
+                # category, and the ranks would race on the PNGs
+                raise AssertionError("--visualize is a single-process tool: run it without "
+                                     "--multihost on one host, restoring the checkpoint")
+        return _run(cfg)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _run(cfg: Config) -> int:
     cfg = resolve_output_dir(cfg)
     setup_output_dir(cfg)
     writer = MetricsWriter(cfg.output_dir)
@@ -244,8 +315,10 @@ def main(argv=None) -> int:
         writer.add_text("config", str(cfg.to_dict()))
         runner = Runner(cfg)
         cfg = runner.cfg
+        mesh = runner.mesh
         print(f"Loaded {cfg.model} (number of parameters: {runner.n_params():,}; "
-              f"weights trained to step {runner.start_step}) on {runner.device}")
+              f"weights trained to step {runner.start_step}) on {runner.device}; "
+              f"mesh {mesh.shape}, rank {mesh.rank}")
         valid_index = runner.index("valid")
         valid_batches = runner.batches(valid_index, train=False)
         if cfg.train:
@@ -255,10 +328,10 @@ def main(argv=None) -> int:
             train_and_evaluate(cfg, runner.state,
                                lambda epoch: runner.batches(train_index, True, epoch),
                                valid_batches, runner.schedule, writer, runner.device,
-                               runner.compute_dtype)
+                               runner.compute_dtype, mesh=mesh)
         if cfg.evaluate_single_model:
             metrics = evaluate_single_model(runner.state, valid_batches, runner.device,
-                                            runner.compute_dtype)
+                                            runner.compute_dtype, mesh)
             step = runner.state.step
             print(f"Evaluate metrics -- \n\t restore: {cfg.restore} \n\t step: {step}:")
             print("AUC:\n", pprint.pformat(metrics["aucs"]))
@@ -271,14 +344,14 @@ def main(argv=None) -> int:
             print(f"Running ensemble prediction using {len(paths)} checkpoints.")
             metrics = evaluate_ensemble(runner.state.model, paths, valid_batches, runner.device,
                                         runner.compute_dtype, cfg.model,
-                                        member_chunk=cfg.ensemble_member_chunk)
+                                        member_chunk=cfg.ensemble_member_chunk, mesh=mesh)
             print("AUC:\n", pprint.pformat(metrics["aucs"]))
             print("Loss:\n", pprint.pformat(metrics["loss"]))
             save_json(metrics, "eval_results_ensemble", cfg.output_dir)
         if cfg.visualize:
             render_visualization(collect_visualization(runner), cfg.output_dir,
                                  runner.state.step)
-        if cfg.plot_roc:
+        if cfg.plot_roc and multihost.is_primary():
             plot_eval_results(cfg.output_dir)
     finally:
         writer.close()

@@ -19,8 +19,10 @@ its flags plus ``--device``):
 
 The reference's undefined-variable bug at predict.py:42 (``idxs`` for
 ``idx``) is fixed as the JAX CLI fixes it. The run goes on ``--device``
-(default ``cuda``; the CPU runs only when asked); ``--data_parallel`` > 0
-raises NotImplementedError (ROADMAP.md slice 7).
+(default ``cuda``; the CPU runs only when asked). One process drives one
+device: ``--data_parallel`` 0 or 1 runs on it, and a larger value raises the
+JAX ``create_mesh`` assertion ("mesh 2x1 needs 2 devices, have 1"). To
+predict on N cards, run one process per card on its part of the csv.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from chexpert_tpu_torch.data import extract_patient_ids
 from chexpert_tpu_torch.data.chexpert import format_float, write_csv
 from chexpert_tpu_torch.eval import compute_metrics, list_checkpoints
 from chexpert_tpu_torch.models import build_model, normalize_state_dict
+from chexpert_tpu_torch.parallel import create_mesh
 from chexpert_tpu_torch.train import eval_logits, prepare_image
 from chexpert_tpu_torch.utils import resolve_device
 
@@ -119,9 +122,7 @@ def debug_metrics(studies: List[str], probs: np.ndarray, data_dir: str) -> dict:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.data_parallel > 0:
-        raise NotImplementedError(f"--data_parallel {args.data_parallel} is not ported to "
-                                  "PyTorch yet (ROADMAP.md slice 7)")
+    create_mesh(args.data_parallel, 1)  # one device: a larger mesh raises
     device = resolve_device(args.device)
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     model = build_model(args.model, image_size=args.resize or args.image_size, device=device)

@@ -2,8 +2,8 @@
 chexpert_tpu/configs/config.py (same field names, so one ``config.json``
 serves both packages), plus ``device``.
 
-Fields that drive what the port does not run yet (multi-process training
-and the TPU-only machinery) are kept so a JAX run's config.json loads, but
+Fields that drive what the port does not run yet (the TPU-only machinery)
+are kept so a JAX run's config.json loads, but
 setting one to a non-default raises NotImplementedError naming
 the ROADMAP.md slice that ports it (``check_supported``).
 """
@@ -15,6 +15,8 @@ import json
 import os
 from dataclasses import dataclass
 from typing import Any, Optional
+
+from chexpert_tpu_torch.parallel import multihost
 
 
 @dataclass(frozen=True)
@@ -76,10 +78,12 @@ class Config:
     # halved on an out-of-memory error
     ensemble_member_chunk: int = 0
 
-    # --- knobs of the JAX package not ported yet (check_supported) ---
+    # --- multi-process training (chexpert_tpu_torch.parallel) ---
     data_parallel: int = 0
     model_parallel: int = 1
     multihost: bool = False
+
+    # --- knobs of the JAX package not ported yet (check_supported) ---
     profile: bool = False
     packed_cache: bool = False
     device_aug: bool = False
@@ -114,8 +118,7 @@ class Config:
 
 
 # field -> the ROADMAP.md slice that ports what it drives
-_NOT_PORTED = {"data_parallel": 7, "model_parallel": 7, "multihost": 7,
-               "profile": 8, "packed_cache": 8, "device_aug": 8}
+_NOT_PORTED = {"profile": 8, "packed_cache": 8, "device_aug": 8}
 
 
 def resolve_output_dir(cfg: Config, now: Optional[str] = None) -> Config:
@@ -132,10 +135,13 @@ def resolve_output_dir(cfg: Config, now: Optional[str] = None) -> Config:
 
 def setup_output_dir(cfg: Config) -> None:
     """Create output_dir and vis/ plots/ best_checkpoints/ subdirs and persist
-    config.json once (reference chexpert.py:444-450)."""
+    config.json once (reference chexpert.py:444-450). In a multi-process run
+    every rank makes the directories, the primary writes config.json, and
+    every rank waits for the others before it goes on."""
     os.makedirs(cfg.output_dir, exist_ok=True)
     for sub in ("vis", "plots", "best_checkpoints"):
         os.makedirs(os.path.join(cfg.output_dir, sub), exist_ok=True)
     cfg_path = os.path.join(cfg.output_dir, "config.json")
-    if not os.path.exists(cfg_path):
+    if not os.path.exists(cfg_path) and multihost.is_primary():
         cfg.save(cfg_path)
+    multihost.barrier()

@@ -64,10 +64,15 @@ def read_csv(path: str) -> Tuple[List[str], List[List[str]]]:
 
 
 def write_csv(path: str, header: Sequence[str], rows: Sequence[Sequence[str]]) -> None:
-    with open(path, "w", newline="") as f:
+    """Written beside ``path`` and renamed over it, so a concurrent reader
+    (another rank building the same processed cache) sees the whole file or
+    none of it."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w", newline="") as f:
         writer = csv.writer(f, lineterminator="\n")
         writer.writerow(header)
         writer.writerows(rows)
+    os.replace(tmp, path)
 
 
 def format_float(x: float) -> str:

@@ -1,12 +1,18 @@
 """Host input pipeline: threaded JPEG decode -> numpy batches -> device
-prefetch (port of chexpert_tpu/data/pipeline.py, single process).
+prefetch (port of chexpert_tpu/data/pipeline.py).
 
   * a thread pool decodes and crops JPEGs (PIL releases the GIL in decode);
   * train batches drop the last partial batch (a zero-padded one would
     pollute the BatchNorm batch statistics); eval batches zero-pad the last
     one and carry a validity mask, so every batch has one shape;
   * augmentation draws from a RandomState seeded per example from (seed,
-    epoch, position), so batches do not depend on the worker schedule;
+    epoch, position), so batches do not depend on the worker schedule, and
+    neither they nor the shuffle order depend on the rank;
+  * in a multi-process run each rank loads its ``host_slice`` of every
+    global batch (``parallel.mesh.host_batch_slice_from_mesh``); the padding
+    of the last global batch sits at its tail, so the valid rows of any
+    slice are a prefix of it, and the ranks' slices in row order tile the
+    one-process batches exactly;
   * ``device_prefetch`` copies batches from pinned host memory to the card
     on a side stream, ``depth`` batches ahead of the step.
 
@@ -45,6 +51,7 @@ class Batches:
         drop_last: bool = False,
         seed: int = 0,
         epoch: int = 0,
+        host_slice: Optional[slice] = None,
     ):
         self.index = index
         self.batch_size = batch_size
@@ -56,6 +63,7 @@ class Batches:
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = epoch
+        self.host_slice = host_slice or slice(0, batch_size)
 
     def __len__(self) -> int:
         n = len(self.index)
@@ -74,11 +82,15 @@ class Batches:
             np.random.RandomState(self.seed + self.epoch).shuffle(order)
         hw = self.resize or self.image_size
         bs = self.batch_size
+        lo, hi, _ = self.host_slice.indices(bs)
+        local_bs = hi - lo  # this rank's rows of each global batch
         with ThreadPoolExecutor(self.workers) as pool:
             for start in range(0, n, bs):
-                chunk = order[start : start + bs]
-                if len(chunk) < bs and self.drop_last:
+                global_chunk = order[start : start + bs]
+                if len(global_chunk) < bs and self.drop_last:
                     break
+                nb = max(0, min(hi, len(global_chunk)) - lo)
+                chunk = global_chunk[lo : lo + nb]
                 rngs = [
                     np.random.RandomState(
                         (self.seed * 1_000_003 + self.epoch * 10_007 + int(p)) % (2**31))
@@ -86,15 +98,15 @@ class Batches:
                     for p in chunk
                 ]
                 imgs = list(pool.map(self._decode, chunk, rngs))
-                nb = len(chunk)
-                image = np.zeros((bs, hw, hw, 1), np.float32)
-                label = np.zeros((bs, len(self.index.attr_idxs)), np.float32)
-                idx = np.zeros((bs,), np.int64)
-                mask = np.zeros((bs,), np.float32)
-                image[:nb] = np.stack(imgs)
-                label[:nb] = np.stack([self.index.labels(p) for p in chunk])
-                idx[:nb] = [self.index.index(p) for p in chunk]
-                mask[:nb] = 1.0
+                image = np.zeros((local_bs, hw, hw, 1), np.float32)
+                label = np.zeros((local_bs, len(self.index.attr_idxs)), np.float32)
+                idx = np.zeros((local_bs,), np.int64)
+                mask = np.zeros((local_bs,), np.float32)
+                if nb:
+                    image[:nb] = np.stack(imgs)
+                    label[:nb] = np.stack([self.index.labels(p) for p in chunk])
+                    idx[:nb] = [self.index.index(p) for p in chunk]
+                    mask[:nb] = 1.0
                 # U-Ignore: -1 labels excluded from the loss per element
                 label_mask = (label != -1.0).astype(np.float32)
                 yield {"image": image, "label": np.clip(label, 0.0, 1.0),

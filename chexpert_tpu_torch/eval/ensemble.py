@@ -1,5 +1,4 @@
-"""N-checkpoint ensemble evaluation (port of chexpert_tpu/eval/ensemble.py,
-one device).
+"""N-checkpoint ensemble evaluation (port of chexpert_tpu/eval/ensemble.py).
 
 The JAX package stacks the K members' parameters and vmaps one forward over
 them. The port's attention and depthwise kernels are ctypes launches, which
@@ -19,9 +18,17 @@ Memory: the group size (``member_chunk``) is planned from the free device
 memory (``_plan_member_chunk``), and a ``torch.cuda.OutOfMemoryError`` halves
 it and retries. Members run in turn, so a group's activations do not grow
 with its size: k members cost k times one member's parameter and buffer
-bytes plus one member's peak activation bytes. The mesh code of the JAX
-module (``member_sharding``, the ``shard_map`` step, the multi-process
-allgather) belongs to multi-process training (ROADMAP.md slice 7).
+bytes plus one member's peak activation bytes.
+
+Multi-process (``mesh``): each rank evaluates its data row's slice of every
+valid batch. When the model axis has more than one rank and divides the
+member count, the members are split over it in contiguous blocks, as the
+JAX ``member_sharding`` shards the stacked member axis
+(``member_range``): each rank runs its own members, the sums of their
+outputs and losses are all-reduced over the data row before the division
+by K, and the data rows' rows are then gathered, as the JAX module's
+allgather does. Otherwise every rank of a row runs every member. The
+memory planner plans for the rank's own members.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from chexpert_tpu_torch.checkpoint import load_model_checkpoint, refuse_msgpack
 from chexpert_tpu_torch.data.pipeline import Batches, device_prefetch
 from chexpert_tpu_torch.eval.metrics import compute_metrics
 from chexpert_tpu_torch.models.convert import normalize_state_dict
+from chexpert_tpu_torch.parallel.mesh import Mesh
 from chexpert_tpu_torch.train.loss import bce_with_logits
 from chexpert_tpu_torch.train.steps import eval_logits, prepare_image
 
@@ -63,6 +71,17 @@ def load_member(model: torch.nn.Module, path: str, arch: str) -> torch.nn.Module
     member.load_state_dict(normalize_state_dict(load_model_checkpoint(path)["state_dict"], arch),
                            strict=True)
     return member.eval()
+
+
+def member_range(mesh: Optional[Mesh], n_members: int) -> range:
+    """The members this rank runs: its model column's contiguous block when
+    the model axis has more than one rank and divides ``n_members``, else
+    all of them (the JAX ``member_sharding``)."""
+    mp = 1 if mesh is None else mesh.model_parallel
+    if mp > 1 and n_members % mp == 0:
+        per = n_members // mp
+        return range(mesh.model_index * per, (mesh.model_index + 1) * per)
+    return range(n_members)
 
 
 def _member_groups(n: int, chunk: int) -> List[range]:
@@ -135,12 +154,12 @@ def _plan_member_chunk(model: torch.nn.Module, n_members: int, batches: Batches,
 
 def ensemble_outputs(model: torch.nn.Module, paths: List[str], batches: Batches,
                      device: torch.device, compute_dtype: torch.dtype, chunk: int,
-                     arch: str, timings: Optional[list] = None
+                     arch: str, timings: Optional[list] = None, mesh: Optional[Mesh] = None
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """One ensemble pass with members evaluated ``chunk`` at a time: (the
-    mean over the K members of the logits, the targets, the mean of the
-    per-element losses) of the valid rows, each (N, 5), as
-    ``compute_metrics`` takes them.
+    """One ensemble pass with the rank's members (``member_range``; all of
+    ``paths`` in one process) evaluated ``chunk`` at a time: (the mean over
+    the K members of the logits, the targets, the mean of the per-element
+    losses) of the valid rows, each (N, 5), as ``compute_metrics`` takes them.
 
     Member groups outer, valid batches inner: device memory holds one group's
     members and one member's forward at a time. Several passes over the valid
@@ -148,9 +167,10 @@ def ensemble_outputs(model: torch.nn.Module, paths: List[str], batches: Batches,
     ``timings``, when given, gets one dict per group: its members, batches and
     the seconds of its batch loop (loading excluded)."""
     K = len(paths)
+    own = [paths[i] for i in member_range(mesh, K)]
     out_sum = loss_sum = targets = mask = None
-    for gi, group in enumerate(_member_groups(K, chunk)):
-        members = [load_member(model, paths[i], arch) for i in group]
+    for gi, group in enumerate(_member_groups(len(own), chunk)):
+        members = [load_member(model, own[i], arch) for i in group]
         outs, losses, tgts, msks = [], [], [], []
         t0 = time.perf_counter()
         for batch in device_prefetch(batches, device):
@@ -174,27 +194,32 @@ def ensemble_outputs(model: torch.nn.Module, paths: List[str], batches: Batches,
         out_sum = o if out_sum is None else out_sum + o
         loss_sum = l if loss_sum is None else loss_sum + l
         if gi == 0:
-            targets, mask = np.concatenate(tgts), np.concatenate(msks)
-    keep = mask.astype(bool)
-    return (out_sum / K)[keep], targets[keep], (loss_sum / K)[keep]
+            targets, mask, batch_rows = np.concatenate(tgts), np.concatenate(msks), len(msks[0])
+    rows = out_sum, targets, loss_sum, mask
+    if mesh is not None:
+        if len(own) < K:  # the members are split over the data row
+            rows = mesh.sum_over_model(out_sum), targets, mesh.sum_over_model(loss_sum), mask
+        rows = mesh.gather_batches(rows, batch_rows)
+    keep = rows[3].astype(bool)
+    return (rows[0] / K)[keep], rows[1][keep], (rows[2] / K)[keep]
 
 
 def evaluate_ensemble(model: torch.nn.Module, paths: List[str], batches: Batches,
                       device: torch.device, compute_dtype: torch.dtype, arch: str,
-                      member_chunk: int = 0, log=print) -> Dict:
+                      member_chunk: int = 0, log=print, mesh: Optional[Mesh] = None) -> Dict:
     """Metrics of the K-member ensemble. ``member_chunk`` 0 plans the chunk
-    from the free device memory (all K on the CPU); on
+    from the free device memory (all of the rank's members on the CPU); on
     ``torch.cuda.OutOfMemoryError`` the chunk is halved and the pass
     retried. ``member_chunk`` > 0 pins the chunk and skips planning.
     ``model`` is the built model on ``device``: each member is a copy."""
     if not paths:
         raise AssertionError("no checkpoints found to ensemble")
-    chunk = member_chunk or _plan_member_chunk(model, len(paths), batches, device,
-                                               compute_dtype, log)
+    chunk = member_chunk or _plan_member_chunk(model, len(member_range(mesh, len(paths))),
+                                               batches, device, compute_dtype, log)
     while True:
         try:
             return compute_metrics(*ensemble_outputs(model, paths, batches, device,
-                                                     compute_dtype, chunk, arch))
+                                                     compute_dtype, chunk, arch, mesh=mesh))
         except torch.cuda.OutOfMemoryError:
             if chunk <= 1:
                 raise

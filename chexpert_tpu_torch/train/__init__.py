@@ -3,9 +3,11 @@ from chexpert_tpu_torch.train.optim import make_optimizer, make_schedule
 from chexpert_tpu_torch.train.state import TrainState
 from chexpert_tpu_torch.train.steps import (
     autocast,
+    data_parallel,
     eval_logits,
     eval_step,
     prepare_image,
+    rank_seed,
     train_step,
 )
 
@@ -16,8 +18,10 @@ __all__ = [
     "make_schedule",
     "TrainState",
     "autocast",
+    "data_parallel",
     "eval_logits",
     "eval_step",
     "prepare_image",
+    "rank_seed",
     "train_step",
 ]

@@ -1,16 +1,21 @@
-"""Train / evaluate loops (port of chexpert_tpu/train/loop.py, one
-process): per-step BCE loss, scalars every ``log_interval`` steps, inline
-eval + best-K checkpointing every ``eval_interval`` steps, and an eval
-after each epoch written to eval_results_step_N.json (reference
-chexpert.py:152-255). Eval batches are zero-padded and masked, so padded
-rows never reach the metrics.
+"""Train / evaluate loops (port of chexpert_tpu/train/loop.py): per-step
+BCE loss, scalars every ``log_interval`` steps, inline eval + best-K
+checkpointing every ``eval_interval`` steps, and an eval after each epoch
+written to eval_results_step_N.json (reference chexpert.py:152-255). Eval
+batches are zero-padded and masked, so padded rows never reach the metrics.
+
+In a multi-process run (``mesh`` over more than one rank) each rank steps
+on its slice of every global batch; the logged loss is the global batch's
+(the mean over the data rows), images per second count global images, eval
+gathers every rank's rows before the metrics, so every rank computes the
+same ones, and only the primary process writes.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,15 +28,21 @@ from chexpert_tpu_torch.checkpoint import (
 from chexpert_tpu_torch.configs import Config
 from chexpert_tpu_torch.data.pipeline import Batches, device_prefetch
 from chexpert_tpu_torch.eval.metrics import avg_auc, compute_metrics, sum_loss
+from chexpert_tpu_torch.parallel.mesh import Mesh, create_mesh
+from chexpert_tpu_torch.parallel.multihost import is_primary
 from chexpert_tpu_torch.train.state import TrainState
 from chexpert_tpu_torch.train.steps import eval_step, train_step
 from chexpert_tpu_torch.utils import MetricsWriter, save_json
 
 
 def evaluate(state: TrainState, batches: Batches, device: torch.device,
-             compute_dtype: torch.dtype) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+             compute_dtype: torch.dtype, mesh: Optional[Mesh] = None
+             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Full pass collecting (outputs, targets, per-element losses) of the
-    valid rows (reference evaluate, chexpert.py:198-211)."""
+    valid rows (reference evaluate, chexpert.py:198-211). Over several data
+    rows the rank's unmasked rows are all-gathered in global batch order
+    (equal shapes on every rank) and the padding mask is applied after, as
+    the JAX loop does."""
     outs, targets, losses, masks = [], [], [], []
     for batch in device_prefetch(batches, device):
         out, per_elem = eval_step(state, batch, compute_dtype)
@@ -39,14 +50,17 @@ def evaluate(state: TrainState, batches: Batches, device: torch.device,
         targets.append(batch["label"].cpu().numpy())
         losses.append(per_elem.cpu().numpy())
         masks.append(batch["mask"].cpu().numpy())
-    keep = np.concatenate(masks).astype(bool)
-    return (np.concatenate(outs)[keep], np.concatenate(targets)[keep],
-            np.concatenate(losses)[keep])
+    rows = (np.concatenate(outs), np.concatenate(targets), np.concatenate(losses),
+            np.concatenate(masks))
+    if mesh is not None:
+        rows = mesh.gather_batches(rows, len(masks[0]))
+    keep = rows[3].astype(bool)
+    return rows[0][keep], rows[1][keep], rows[2][keep]
 
 
 def evaluate_single_model(state: TrainState, batches: Batches, device: torch.device,
-                          compute_dtype: torch.dtype) -> Dict:
-    return compute_metrics(*evaluate(state, batches, device, compute_dtype))
+                          compute_dtype: torch.dtype, mesh: Optional[Mesh] = None) -> Dict:
+    return compute_metrics(*evaluate(state, batches, device, compute_dtype, mesh))
 
 
 def _log_eval(writer: MetricsWriter, metrics: Dict, step: int) -> None:
@@ -57,7 +71,10 @@ def _log_eval(writer: MetricsWriter, metrics: Dict, step: int) -> None:
 
 def _checkpoint(cfg: Config, state: TrainState, metrics: Dict, step: int) -> None:
     """latest + optimizer + tracked best-K (reference save_checkpoint,
-    chexpert.py:90-123)."""
+    chexpert.py:90-123), written by the primary process alone: the model is
+    the same on every rank and the metrics are gathered ones."""
+    if not is_primary():
+        return
     eval_loss = sum_loss(metrics)
     auc_mean = avg_auc(metrics)
     sd = state.model.state_dict()
@@ -75,16 +92,17 @@ def _checkpoint(cfg: Config, state: TrainState, metrics: Dict, step: int) -> Non
 def train_epoch(cfg: Config, state: TrainState, train_batches: Batches,
                 valid_batches: Batches, schedule: Callable, writer: MetricsWriter,
                 device: torch.device, compute_dtype: torch.dtype, epoch: int,
-                log_fn=print) -> TrainState:
+                log_fn=print, mesh: Optional[Mesh] = None) -> TrainState:
     """(reference train_epoch, chexpert.py:152-196)"""
+    mesh = mesh or create_mesh()
     t0, imgs = time.time(), 0
     for batch in device_prefetch(train_batches, device, depth=cfg.prefetch):
         loss = train_step(state, batch, compute_dtype)
         step = state.step
         # train drops partial batches, so every batch is full
-        imgs += int(batch["mask"].shape[0])
+        imgs += int(batch["mask"].shape[0]) * mesh.data_parallel
         if cfg.log_interval and step % cfg.log_interval == 0:
-            loss_val = float(loss)  # waits for the step to finish
+            loss_val = mesh.mean_over_data(float(loss))  # waits for the step to finish
             lr = schedule(step - 1)
             dt = time.time() - t0
             ips = imgs / dt if dt > 0 else 0.0
@@ -95,7 +113,7 @@ def train_epoch(cfg: Config, state: TrainState, train_batches: Batches,
                    f"loss {loss_val:.4f} lr {lr:.3e} {ips:.1f} img/s")
             t0, imgs = time.time(), 0
         if cfg.eval_interval and step % cfg.eval_interval == 0:
-            metrics = evaluate_single_model(state, valid_batches, device, compute_dtype)
+            metrics = evaluate_single_model(state, valid_batches, device, compute_dtype, mesh)
             _log_eval(writer, metrics, step)
             _checkpoint(cfg, state, metrics, step)
             t0, imgs = time.time(), 0
@@ -105,13 +123,13 @@ def train_epoch(cfg: Config, state: TrainState, train_batches: Batches,
 def train_and_evaluate(cfg: Config, state: TrainState, make_train_batches: Callable,
                        valid_batches: Batches, schedule: Callable, writer: MetricsWriter,
                        device: torch.device, compute_dtype: torch.dtype,
-                       log_fn=print) -> TrainState:
+                       log_fn=print, mesh: Optional[Mesh] = None) -> TrainState:
     """(reference train_and_evaluate, chexpert.py:238-255); make_train_batches
     (epoch) -> Batches, so shuffling reseeds per epoch."""
     for epoch in range(cfg.n_epochs):
         state = train_epoch(cfg, state, make_train_batches(epoch), valid_batches, schedule,
-                            writer, device, compute_dtype, epoch, log_fn)
-        metrics = evaluate_single_model(state, valid_batches, device, compute_dtype)
+                            writer, device, compute_dtype, epoch, log_fn, mesh)
+        metrics = evaluate_single_model(state, valid_batches, device, compute_dtype, mesh)
         log_fn(f"Evaluate metrics @ step {state.step}:")
         log_fn("AUC: " + str(metrics["aucs"]))
         log_fn("Loss: " + str(metrics["loss"]))

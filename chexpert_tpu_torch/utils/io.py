@@ -1,5 +1,7 @@
 """JSON IO helpers (reference chexpert.py:81-88) and the entry points'
-device resolution."""
+device resolution. In a multi-process run only the primary process (rank
+0) writes: every rank computes the same metrics (eval gathers), and the
+others would only race on the same files."""
 
 from __future__ import annotations
 
@@ -9,9 +11,13 @@ from typing import Any
 
 import torch
 
+from chexpert_tpu_torch.parallel.multihost import is_primary
+
 
 def save_json(data: Any, filename: str, output_dir: str) -> str:
     path = os.path.join(output_dir, filename + ".json")
+    if not is_primary():
+        return path
     with open(path, "w") as f:
         json.dump(data, f, indent=4)
     return path

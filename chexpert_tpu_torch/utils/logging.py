@@ -1,6 +1,7 @@
 """Scalar metric logging: an append-only JSONL log, ``scalars.jsonl``, one
 object per line (the JAX package's MetricsWriter without its optional
-TensorBoard mirror)."""
+TensorBoard mirror). In a multi-process run only the primary process (rank
+0) writes; every rank computes the same scalars."""
 
 from __future__ import annotations
 
@@ -8,14 +9,20 @@ import json
 import os
 import time
 
+from chexpert_tpu_torch.parallel.multihost import is_primary
+
 
 class MetricsWriter:
     def __init__(self, logdir: str):
         self.logdir = logdir
-        os.makedirs(logdir, exist_ok=True)
-        self._f = open(os.path.join(logdir, "scalars.jsonl"), "a")
+        self._f = None
+        if is_primary():
+            os.makedirs(logdir, exist_ok=True)
+            self._f = open(os.path.join(logdir, "scalars.jsonl"), "a")
 
     def _write(self, rec: dict) -> None:
+        if self._f is None:
+            return
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
 
@@ -26,4 +33,5 @@ class MetricsWriter:
         self._write({"tag": tag, "text": text, "ts": time.time()})
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()

@@ -131,6 +131,27 @@ Run from the root of a checkout. Phases, each failing the run on error:
    within 1e-3 of the f32 einsum / library route's on the first vis batch;
    prints ms per vis batch, and its device time. No PNG is rendered on the
    card.
+18. multi-process training (chexpert_tpu_torch.parallel): (a) phase 5's run
+   (fixture, lr, bf16, batch 16), 3 steps, through cli.chexpert.main
+   --multihost with torchrun's variables for world 1 (RANK=0 WORLD_SIZE=1
+   LOCAL_RANK=0, a free MASTER_PORT): one NCCL process group of world 1, the
+   launches of phase 5 per step and eval forward, the artifacts; prints its
+   ms/step beside phase 5's. (b) world 2 on the one card under gloo (NCCL
+   refuses two ranks on one device): this script re-run twice as ranks
+   (WORKER_FLAG), each calling cli.chexpert.main --multihost in its own
+   process, f32, TF32 off, aadensenet121 320x320, global batch 8, 3 steps
+   at lr 1e-4, eval and checkpoint after each step, against world 1 of the
+   same run in this process and beside world 1 with its first input moved
+   one ulp (the noise floor of f32 rounding): the first step's loss within
+   1e-6 of the largest loss; every step's loss within 1e-4 of it, and the
+   parameters and BatchNorm statistics after each step (per tensor max |d| /
+   max |change|, median over tensors) within 1e-3, or within 2x the noise
+   floor where rounding alone moves world 1 past those bounds; each rank 3
+   B1 + 3 of each B2 pass per step and 3 B1 per eval forward, all at bn 32;
+   the loss rank 0 logs the mean of the ranks' local losses; the global
+   BatchNorm run on CUDA tensors in training; the artifacts of world 1,
+   written once. A gloo collective that refuses CUDA tensors fails the
+   rank, and the phase with it.
 
 The phases take three to four minutes on an H100, the build included (the run
 prints its own time). The last lines are one {"kernels": [...]} JSON line, the nvidia-smi line, and
@@ -146,6 +167,7 @@ import importlib.util
 import io
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -190,6 +212,23 @@ LOGIT_TOL = 1e-4
 GRAD_TOL = 1e-3                            # f32 grads, kernel route vs einsum route
 N_REQUESTS = 8
 TRAIN_STEPS, TRAIN_LR, EVAL_INTERVAL = 6, 0.01, 3
+MP_TRAIN_STEPS = 3                         # phase 18(a): phase 5 under --multihost, shorter
+DDP_BATCH, DDP_STEPS = 8, 3                # phase 18(b): global batch (bn 32 a rank), steps
+# lr 1e-4: at 1e-2 and 1e-3 three f32 steps amplify rounding so far that world
+# 1 with its first input moved one ulp parts from world 1 by 1e-3..6e-3 of
+# the loss and 0.29..0.42 (median) of the parameters' change; at 1e-4 by
+# 4.7e-4 and 0.066 (measured on an H100 80GB HBM3 at 700 W: the noise floor below)
+DDP_LR = 1e-4
+DDP_FIRST_LOSS_TOL = 1e-6                  # the first step's loss (one forward, no update yet)
+# world 2 vs world 1, losses of the largest loss and parameters (per-tensor
+# max |d| / max |change|, median over tensors) after each step: within
+# DDP_LOSS_TOL / GRAD_TOL, or within NOISE_FACTOR x the one-ulp noise floor
+# where rounding alone moves world 1 past them (ReLUs whose sign flips,
+# ROADMAP C.8: the first step's gradients already part by ~7e-3)
+DDP_LOSS_TOL = 1e-4
+NOISE_FACTOR = 2.0
+DDP_TIMEOUT_S = 600
+WORKER_FLAG = "--ddp-worker"               # chip_smoke.py re-run as one rank of phase 18(b)
 
 EFF, EFF_IMAGE = "efficientnet-b4", 380    # its own resolution in SCALING_PARAMS
 EFF_TRAIN_LR = 3e-4                        # RMSprop, eps 1e-3: see phase 9 above
@@ -1164,10 +1203,11 @@ def _scalars(run_dir: str, tag: str):
 
 
 def train_phase(data_dir: str, smi: str, model: str, image: int, lr: float,
-                per_step: dict, per_eval: dict, steps: int = TRAIN_STEPS, run: str = "run"):
-    """The port's training CLI on the card; launch counts read just after:
-    ``per_step`` launches per train step and ``per_eval`` per eval forward,
-    and no launch of any other kernel."""
+                per_step: dict, per_eval: dict, steps: int = TRAIN_STEPS, run: str = "run",
+                extra: tuple = ()):
+    """The port's training CLI on the card (``extra``: more CLI flags); launch
+    counts read just after: ``per_step`` launches per train step and
+    ``per_eval`` per eval forward, and no launch of any other kernel."""
     from chexpert_tpu_torch import kernels
     from chexpert_tpu_torch.cli.chexpert import main as cli_main
 
@@ -1179,7 +1219,7 @@ def train_phase(data_dir: str, smi: str, model: str, image: int, lr: float,
               "--image_size", str(image), "--compute_dtype", "bfloat16",
               "--batch_size", str(B_TRAIN), "--n_epochs", str(steps),
               "--lr", str(lr), "--log_interval", "1",
-              "--eval_interval", str(EVAL_INTERVAL), "--device", DEVICE])
+              "--eval_interval", str(EVAL_INTERVAL), "--device", DEVICE, *extra])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -1203,7 +1243,7 @@ def train_phase(data_dir: str, smi: str, model: str, image: int, lr: float,
     ips_med = statistics.median(steady)
     ms_step = B_TRAIN / ips_med * 1e3
     print(f"train {model} {image}x{image} bf16 batch {B_TRAIN} lr {lr} layout "
-          f"{os.environ.get(LAYOUT_ENV, 'bn')}: "
+          f"{os.environ.get(LAYOUT_ENV, 'bn')}{''.join(' ' + f for f in extra)}: "
           f"losses {[round(x, 4) for x in losses]}; launches {counts} (want {want}); "
           f"median over steps 2..{steps}: {ms_step:.2f} ms/step, {ips_med:.2f} img/s "
           f"(all steps img/s {[round(x, 2) for x in ips]}); wall {wall_s:.1f} s "
@@ -1672,6 +1712,335 @@ def gradcam_phase(data_dir: str, smi: str, name: str, image: int, per_forward: d
             "card": smi}
 
 
+@contextlib.contextmanager
+def launch_env(rank: int, world: int, port: int):
+    """torchrun's variables for one rank on card 0 (every rank of a world
+    that shares the one card has local rank 0), restored afterwards."""
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def recorded_process_groups():
+    """Record the (backend, world size) of every process group init."""
+    import torch.distributed as dist
+
+    calls, init = [], dist.init_process_group
+
+    def record(backend=None, *args, **kwargs):
+        calls.append((str(backend), kwargs.get("world_size")))
+        return init(backend, *args, **kwargs)
+
+    dist.init_process_group = record
+    try:
+        yield calls
+    finally:
+        dist.init_process_group = init
+
+
+def ddp_args(data_dir: str, run_dir: str, lr: float, steps: int) -> list:
+    """Phase 18(b)'s CLI run: f32, global batch DDP_BATCH, one step per
+    epoch on the DDP_BATCH-image fixture, eval and checkpoint after every
+    step (the tracker keeps each step's parameters)."""
+    return ["--train", "--evaluate_single_model", "--data_path", data_dir,
+            "--output_dir", run_dir, "--model", "aadensenet121", "--image_size", str(IMAGE),
+            "--compute_dtype", "float32", "--batch_size", str(DDP_BATCH),
+            "--n_epochs", str(steps), "--lr", str(lr), "--log_interval", "1",
+            "--eval_interval", "1", "--device", DEVICE]
+
+
+def ddp_worker(argv) -> int:
+    """One rank of phase 18(b), in its own process (argv: rank, world, port,
+    steps, lr, data dir, run dir, out): joins a gloo group of ``world`` ranks
+    on card 0, runs cli.chexpert.main --multihost, and writes
+    to ``out``: its launch counts, its launches by kernel and bn, its local
+    train losses, and its global BatchNorm calls by (training, on CUDA)."""
+    rank, world, port, steps = (int(a) for a in argv[:4])
+    lr = float(argv[4])
+    data_dir, run_dir, out = argv[5:8]
+    import torch.distributed as dist
+
+    from chexpert_tpu_torch import kernels
+    from chexpert_tpu_torch.cli.chexpert import main as cli_main
+    from chexpert_tpu_torch.parallel.sync_bn import GlobalBatchNorm2d
+    from chexpert_tpu_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    bn_calls, shapes, losses = {}, {}, []
+    bn_forward, launch, train_step = GlobalBatchNorm2d.forward, kernels.launch, loop.train_step
+
+    def counted_bn(self, x):
+        key = f"training={self.training} cuda={x.is_cuda}"
+        bn_calls[key] = bn_calls.get(key, 0) + 1
+        return bn_forward(self, x)
+
+    def shaped_launch(name, fn, pointers, ints, device):
+        key = f"{name} bn={ints[0]}"
+        shapes[key] = shapes.get(key, 0) + 1
+        return launch(name, fn, pointers, ints, device)
+
+    def recorded_step(state, batch, compute_dtype):
+        loss = train_step(state, batch, compute_dtype)
+        losses.append(float(loss))
+        return loss
+
+    GlobalBatchNorm2d.forward = counted_bn
+    kernels.launch = shaped_launch
+    loop.train_step = recorded_step
+    with launch_env(rank, world, port):
+        dist.init_process_group("gloo", init_method="env://", rank=rank, world_size=world)
+        try:
+            kernels.reset_launch_counts()
+            cli_main([*ddp_args(data_dir, run_dir, lr, steps), "--multihost"])
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump({"rank": rank, "counts": counts, "launches_by_bn": shapes,
+                   "local_losses": losses, "global_bn_calls": bn_calls}, f)
+    return 0
+
+
+def _steady_ms(run_dir: str, batch: int) -> float:
+    """ms per step from the median images/s of steps 2.. (rank 0's log; the
+    first step includes the kernel library loads and cuDNN's planning)."""
+    ips = [v for _, v in _scalars(run_dir, "images_per_sec")]
+    return batch / statistics.median(ips[1:] or ips) * 1e3
+
+
+@contextlib.contextmanager
+def first_input_moved_one_ulp():
+    """The train loop's first step sees its input images moved by one ulp
+    (toward +inf): the noise of a one-ulp change of the input."""
+    from chexpert_tpu_torch.train import loop
+
+    step = loop.train_step
+
+    def moved(state, batch, compute_dtype):
+        if state.step == 0:
+            image = batch["image"]
+            batch = {**batch, "image": torch.nextafter(image, torch.full_like(image, np.inf))}
+        return step(state, batch, compute_dtype)
+
+    loop.train_step = moved
+    try:
+        yield
+    finally:
+        loop.train_step = step
+
+
+def _state_ratios(got: dict, ref: dict, init: dict) -> dict:
+    """Per floating tensor of a state dict, |got - ref| over |ref - init|: the
+    max over the max ("max") and the L2 norm over the L2 norm ("l2")."""
+    out = {}
+    for key, r in ref.items():
+        if not r.is_floating_point():
+            continue
+        d, change = (got[key] - r).double(), (r - init[key]).double()
+        out[key] = {"max": (d.abs().max() / change.abs().max().clamp_min(1e-30)).item(),
+                    "l2": (d.norm() / change.norm().clamp_min(1e-30)).item()}
+    return out
+
+
+def _ratio_summary(ratios: dict) -> dict:
+    summary = {}
+    for kind in ("max", "l2"):
+        vals = {k: v[kind] for k, v in ratios.items()}
+        worst = max(vals, key=vals.get)
+        summary[kind] = {"worst": vals[worst], "worst_tensor": worst,
+                         "median": statistics.median(vals.values())}
+    return summary
+
+
+def nccl_world1_phase(smi: str, phase5_ms: float) -> dict:
+    """Phase 18(a): phase 5's run through cli.chexpert.main --multihost as
+    world 1 under NCCL (torchrun's variables), 3 steps."""
+    from chexpert_tpu_torch.data import make_synthetic_dataset
+    from chexpert_tpu_torch.ops.fused_attention import BWD_DKDV, BWD_DQ, NAME
+
+    per_step = {NAME: 3, BWD_DKDV: 3, BWD_DQ: 3}
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:  # phase 5's fixture and lr
+        make_synthetic_dataset(d, n_train=B_TRAIN, n_valid=B_TRAIN, image_size=IMAGE)
+        with launch_env(0, 1, free_port()), recorded_process_groups() as groups:
+            nccl = train_phase(d, smi, "aadensenet121", IMAGE, TRAIN_LR, per_step, {NAME: 3},
+                               steps=MP_TRAIN_STEPS, run="run_nccl", extra=("--multihost",))
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if groups != [(backend, 1)]:
+        raise AssertionError(f"phase 18(a) made process groups {groups}, not one {backend} "
+                             "group of world 1")
+    print(f"multi-process (a): world 1, NCCL, --multihost: {nccl['ms_per_step']:.2f} ms/step "
+          f"beside phase 5's {phase5_ms:.2f} ms/step (aadensenet121 {IMAGE}x{IMAGE} bf16 batch "
+          f"{B_TRAIN}, this call) on {smi}", flush=True)
+    return {**nccl, "phase5_ms_per_step": phase5_ms}
+
+
+def _states_by_step(run_dir: str) -> dict:
+    """global step -> state dict of every checkpoint the tracker kept."""
+    from chexpert_tpu_torch.checkpoint import load_model_checkpoint
+
+    cks = [load_model_checkpoint(str(p)) for p in Path(run_dir, "best_checkpoints").glob("*.pt")]
+    return {ck["global_step"]: ck["state_dict"] for ck in cks}
+
+
+def ddp_phase(smi: str, lr: float = DDP_LR, steps: int = DDP_STEPS) -> dict:
+    """Phase 18(b): world 2 under gloo on the one card (NCCL refuses two
+    ranks on one device), each rank a process of its own, against world 1 in
+    this process, f32, TF32 off; beside it, world 1 again with the first
+    input moved by one ulp, the noise floor of the comparison."""
+    from collections import Counter
+
+    from chexpert_tpu_torch import kernels
+    from chexpert_tpu_torch.cli.chexpert import main as cli_main
+    from chexpert_tpu_torch.data import make_synthetic_dataset
+    from chexpert_tpu_torch.models import build_model
+    from chexpert_tpu_torch.ops.fused_attention import BWD_DKDV, BWD_DQ, NAME
+
+    per_step = {NAME: 3, BWD_DKDV: 3, BWD_DQ: 3}
+    world = 2
+    names = ("world1", f"world{world}", "ulp")
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        make_synthetic_dataset(d, n_train=DDP_BATCH, n_valid=DDP_BATCH, image_size=IMAGE)
+        runs = {k: os.path.join(d, k) for k in names}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli_main(ddp_args(d, runs["world1"], lr, steps))
+        torch.cuda.synchronize()
+        world1_wall = time.perf_counter() - t0
+        world1_counts = kernels.launch_counts()
+        with first_input_moved_one_ulp():
+            cli_main(ddp_args(d, runs["ulp"], lr, steps))
+        port = free_port()
+        outs = [os.path.join(d, f"rank{r}.json") for r in range(world)]
+        t0 = time.perf_counter()
+        # each rank's output goes to a file, not a pipe: a rank blocked on a
+        # full pipe would hold the other in its next collective
+        logs = [os.path.join(d, f"rank{r}.log") for r in range(world)]
+        procs = []
+        try:
+            for r in range(world):
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()), WORKER_FLAG, str(r),
+                         str(world), str(port), str(steps), str(lr), d, runs[f"world{world}"],
+                         outs[r]], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+            deadline = time.monotonic() + DDP_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        world2_wall = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(logs[r]) as log:
+                    raise AssertionError(f"phase 18(b) rank {r} exited {p.returncode}:\n"
+                                         f"{log.read()[-6000:]}")
+        ranks = [json.load(open(o)) for o in outs]
+        init = build_model("aadensenet121", image_size=IMAGE,
+                           generator=torch.Generator().manual_seed(0)).state_dict()
+        states = {k: _states_by_step(runs[k]) for k in names}
+        losses = {k: [v for _, v in _scalars(runs[k], "train_loss")] for k in names}
+        records = {k: Counter((r["tag"], r["step"]) for r in map(
+            json.loads, open(os.path.join(runs[k], "scalars.jsonl"))) if "step" in r)
+            for k in names}
+        files = {k: sorted(str(p.relative_to(runs[k])) for p in Path(runs[k]).rglob("*")
+                           if p.is_file()) for k in names}
+        ms = {k: _steady_ms(runs[k], DDP_BATCH) for k in names[:2]}
+    evals = 2 * steps + 1  # after each epoch, at each step's interval, the final one
+    want = {k: 3 * steps + 3 * evals * (k == NAME) for k in per_step}
+    rank_bn = DDP_BATCH // world * NH
+    ref = losses["world1"]
+
+    def loss_d(key, upto=None):
+        return max(abs(a - b) for a, b in zip(losses[key][:upto], ref[:upto])) / max(ref)
+
+    # parameters and BN statistics after each step, against world 1's
+    state = {k: {step: _ratio_summary(_state_ratios(states[k][step], states["world1"][step],
+                                                    init))
+                 for step in sorted(states["world1"])} for k in names[1:]}
+    two = state[f"world{world}"]
+    local_mean = [statistics.fmean(step) for step in zip(*(r["local_losses"] for r in ranks))]
+    bn_calls = [r["global_bn_calls"] for r in ranks]
+    checks = {
+        "steps": all(len(losses[k]) == steps and sorted(states[k]) == list(range(1, steps + 1))
+                     for k in names),
+        "first_loss_within_tol": loss_d(f"world{world}", 1) <= DDP_FIRST_LOSS_TOL,
+        "losses_within_tol": loss_d(f"world{world}") <= max(DDP_LOSS_TOL,
+                                                            NOISE_FACTOR * loss_d("ulp")),
+        "params_within_tol": all(
+            two[k]["max"]["median"]
+            <= max(GRAD_TOL, NOISE_FACTOR * state["ulp"][k]["max"]["median"]) for k in two),
+        "logged_loss_is_ranks_mean": max(abs(a - b) for a, b in
+                                         zip(local_mean, losses[f"world{world}"]))
+                                     <= 1e-6 * max(ref),
+        "rank_launches": [r["counts"] for r in ranks] == [want] * world,
+        "rank_launches_at_bn": all(set(r["launches_by_bn"]) == {f"{k} bn={rank_bn}" for k in want}
+                                   for r in ranks),
+        "one_set_of_artifacts": (files[f"world{world}"] == files["world1"]
+                                 and records[f"world{world}"] == records["world1"]),
+        "global_bn_on_cuda": all(c.get("training=True cuda=True", 0) > 0
+                                 and "training=True cuda=False" not in c for c in bn_calls),
+    }
+
+    def fmt(summary):
+        return {step: {kind: (float(f"{v['worst']:.3g}"), v["worst_tensor"],
+                              float(f"{v['median']:.3g}")) for kind, v in by.items()}
+                for step, by in summary.items()}
+
+    print(f"multi-process (b): world {world} under gloo on one card vs world 1, aadensenet121 "
+          f"{IMAGE}x{IMAGE} f32 (TF32 off) global batch {DDP_BATCH}, {steps} steps at lr "
+          f"{lr}: losses world {world} {losses[f'world{world}']} vs world 1 {ref}, max |d| / "
+          f"max loss: step 1 {loss_d(f'world{world}', 1):.3g} (tol {DDP_FIRST_LOSS_TOL}), all "
+          f"{loss_d(f'world{world}'):.3g} (tol {DDP_LOSS_TOL} or {NOISE_FACTOR} x the noise "
+          f"floor's); parameters and BN statistics after each step, |d| / |change| per tensor "
+          f"(worst, its tensor, median) by max and L2: {fmt(two)} (tol on each step's median "
+          f"max: {GRAD_TOL} or {NOISE_FACTOR} x the noise floor's); noise floor, world 1 "
+          f"with its first input moved one ulp: losses {losses['ulp']}, max |d| / max loss "
+          f"step 1 {loss_d('ulp', 1):.3g}, all {loss_d('ulp'):.3g}, state {fmt(state['ulp'])}; "
+          f"rank launches {[r['launches_by_bn'] for r in ranks]} (want {want} at bn {rank_bn}); "
+          f"world 1 launches {world1_counts}; global BN calls {bn_calls}; ms/step world {world} "
+          f"{ms[f'world{world}']:.2f}, world 1 {ms['world1']:.2f} (f32 batch {DDP_BATCH}, rank "
+          f"0's images/s), wall {world2_wall:.1f} s (2 processes) / {world1_wall:.1f} s on "
+          f"{smi}; checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"multi-process checks failed: {checks}")
+    return {"world2_gloo": {"lr": lr, "steps": steps, "losses": losses[f"world{world}"],
+                            "world1_losses": ref, "one_ulp_losses": losses["ulp"],
+                            "first_loss_max_rel_d": loss_d(f"world{world}", 1),
+                            "loss_max_rel_d": loss_d(f"world{world}"),
+                            "one_ulp_loss_max_rel_d": loss_d("ulp"),
+                            "state_by_step": two, "one_ulp_state_by_step": state["ulp"],
+                            "ms_per_step": ms[f"world{world}"],
+                            "world1_ms_per_step": ms["world1"],
+                            "wall_s": world2_wall, "world1_wall_s": world1_wall,
+                            "ranks": ranks, "world1_counts": world1_counts},
+            "counts": {f"train aadensenet121 world 2 gloo rank {r['rank']}": r["counts"]
+                       for r in ranks},
+            "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1800,6 +2169,9 @@ def main() -> int:
             EFF: gradcam_phase(d, smi, EFF, EFF_IMAGE, {DW_FWD: DW_LAYERS},
                                {"dw_impl": "library"}, calibrate=True),
         }
+    torch.cuda.empty_cache()
+    multiprocess = {"world1_nccl": nccl_world1_phase(smi, train["ms_per_step"])}
+    multiprocess.update(ddp_phase(smi))
     paths = {"serve aadensenet121": serve["counts"], "train aadensenet121": train["counts"],
              f"serve {EFF}": eff_serve["counts"], f"train {EFF}": eff_train["counts"],
              f"serve {AA_RES} hil": aa_serve["hil"]["counts"],
@@ -1809,7 +2181,10 @@ def main() -> int:
              "ensemble aadensenet121": ensemble["counts"],
              "ensemble aadensenet121 chunk 1": ensemble["counts_chunk1"],
              **{f"predict aadensenet121 {k}": c for k, c in predict["counts"].items()},
-             **{f"gradcam {k}": g["counts"] for k, g in gradcam.items()}}
+             **{f"gradcam {k}": g["counts"] for k, g in gradcam.items()},
+             "train aadensenet121 --multihost world 1 nccl":
+                 multiprocess["world1_nccl"]["counts"],
+             **multiprocess["counts"]}
 
     def launches(name):  # each path's counts, reset just before it and read just after
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -2005,7 +2380,8 @@ def main() -> int:
         "sm_clock_max_mhz": sm_clock_mhz(),
         "hil_calls": hil_rows,
         f"serve {AA_RES}": aa_serve, f"train {AA_RES}": {**aa_train, "card": smi},
-        "ensemble": ensemble, "predict": predict, "gradcam": gradcam}
+        "ensemble": ensemble, "predict": predict, "gradcam": gradcam,
+        "multiprocess": multiprocess}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record))
     print(smi)
@@ -2016,4 +2392,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ddp_worker(sys.argv[2:]) if sys.argv[1:2] == [WORKER_FLAG] else main())

@@ -122,7 +122,8 @@ def test_ensemble_visualize_and_plot_roc_guards(run, tmp_path, case):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--multihost"], NotImplementedError, "slice 7"),
+    (["--multihost", "--data_parallel", "2"], AssertionError,
+     "mesh 2x1 needs 2 devices, have 1"),
     (["--packed_cache"], NotImplementedError, "slice 8"),
     (["--pretrained"], NotImplementedError, "slice 8"),
 ])

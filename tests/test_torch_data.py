@@ -218,8 +218,10 @@ def test_config_round_trip_and_unported_fields(tmp_path):
     assert (jcfg.model, jcfg.mini_data, jcfg.lr) == ("aadensenet121", 7, 0.01)
     assert Config.from_dict(jcfg.to_dict()).replace(device="cpu") == cfg
     cfg.check_supported()
-    for field, value, slice_ in (("multihost", True, 7), ("data_parallel", 2, 7),
-                                 ("packed_cache", True, 8), ("device_aug", True, 8),
+    # the multi-process fields run (slice 7); a bad layout fails in the Runner
+    for field, value in (("multihost", True), ("data_parallel", 2), ("model_parallel", 2)):
+        cfg.replace(**{field: value}).check_supported()
+    for field, value, slice_ in (("packed_cache", True, 8), ("device_aug", True, 8),
                                  ("profile", True, 8)):
         with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
             cfg.replace(**{field: value}).check_supported()

@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "chexpert_tpu", "pandas", "sklearn"}
 SCRIPTS = ("profile_torch_serve.py", "profile_torch_train.py", "grad_divergence_torch.py",
            "route_noise_torch.py", "bench_attention_bwd_torch.py", "bench_attention_fwd_torch.py",
-           "bench_depthwise_torch.py", "depthwise_ablation_torch.py")
+           "bench_depthwise_torch.py", "depthwise_ablation_torch.py", "ddp_scaling_torch.py",
+           "multihost_ab_torch.py")
 FILES = (sorted((ROOT / "chexpert_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + [ROOT / "scripts" / name for name in SCRIPTS])
 

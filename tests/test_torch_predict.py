@@ -144,9 +144,14 @@ def test_debug_prints_the_jax_aucs(work, capsys, monkeypatch):
 
 
 def test_data_parallel_raises_naming_slice_7(work):
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        port_predict(_args(work["full"], os.path.join(work["root"], "x.csv"),
-                           work["dirs"]["port"], "--device", "cpu", "--data_parallel", "2"))
+    """Multi-process training (ROADMAP.md slice 7) ported --data_parallel:
+    the one device a process drives runs a mesh of 1, and a larger one
+    raises the JAX create_mesh assertion, before any csv is written."""
+    out = os.path.join(work["root"], "x.csv")
+    with pytest.raises(AssertionError, match="mesh 2x1 needs 2 devices, have 1"):
+        port_predict(_args(work["full"], out, work["dirs"]["port"], "--device", "cpu",
+                           "--data_parallel", "2"))
+    assert not os.path.exists(out)
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(work, tmp_path):
