@@ -19,8 +19,16 @@ vis/vis_<category>_step_N.png (and vis/attn_image_idx_*_layer_*.png for a
 model with attention), and --plot_roc plots/roc_pr_<eval_results name>.png
 for every eval_results*.json in --output_dir (the PNGs need matplotlib).
 The run goes on ``--device`` (default ``cuda``; asking for it on a host
-without a card raises, the CPU runs only when asked). The JAX package's
-TPU-only flags raise NotImplementedError.
+without a card raises, the CPU runs only when asked).
+
+The fast input path: ``--packed_cache`` decodes each split once into a uint8
+cache under ``<data_path>/CheXpert-v1.0-small/packed`` (with a 32-pixel crop
+margin for ``--data_aug`` training) and streams it; ``--device_aug`` then
+crops and flips on the device instead of the host. ``--profile`` writes a
+``torch.profiler`` trace of steps 3-12 of epoch 0 to
+``<output_dir>/profile/trace.json``. ``--pretrained`` starts from
+``$CHEXPERT_TPU_PRETRAINED_DIR/<model>.pth`` (the head excepted); a restore
+re-reads the flag from the restored run's config.json.
 
 Multi-process training: one process per device, started by a launcher,
 with ``--multihost`` and an explicit ``--output_dir``:
@@ -57,8 +65,11 @@ from chexpert_tpu_torch.interpret import (
     save_attn_maps,
     save_vis_grids,
 )
+from chexpert_tpu_torch.data.chexpert import DIR_NAME, PIXEL_MEAN, PIXEL_STD
+from chexpert_tpu_torch.data.packed import PackedBatches, build_packed_cache
 from chexpert_tpu_torch.models import build_model, normalize_state_dict, optimizer_spec
 from chexpert_tpu_torch.models.attn import ATTN_IMPLS
+from chexpert_tpu_torch.models.pretrained import load_pretrained
 from chexpert_tpu_torch.parallel import (
     convert_global_batchnorm,
     create_hybrid_mesh,
@@ -125,11 +136,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multihost", action="store_true",
                    help="multi-process run: join the launcher's process group "
                         "(torchrun's RANK / WORLD_SIZE / MASTER_ADDR ...)")
-    # the JAX package's flags the port does not run yet: accepted, and refused
-    # by Config.check_supported
-    p.add_argument("--profile", action="store_true")
-    p.add_argument("--packed_cache", action="store_true")
-    p.add_argument("--device_aug", action="store_true")
+    p.add_argument("--profile", action="store_true",
+                   help="Capture a torch.profiler trace of the first train steps.")
+    p.add_argument("--packed_cache", action="store_true",
+                   help="Decode-once uint8 cache for the input pipeline.")
+    p.add_argument("--device_aug", action="store_true",
+                   help="With --packed_cache --data_aug: crop and flip on the device "
+                        "(default: on the host).")
     return p
 
 
@@ -174,9 +187,15 @@ class Runner:
             if os.path.exists(latest):
                 cfg = cfg.replace(restore=latest)
         self.cfg = cfg
+        # the pretrained weights matter only for a fresh start: a pending
+        # restore would overwrite them, and a pretrained run restores without
+        # the weight file
         if cfg.pretrained and not cfg.restore:
-            raise NotImplementedError("--pretrained (ImageNet weights) is not ported to "
-                                      "PyTorch yet (ROADMAP.md slice 8)")
+            load_pretrained(model, cfg.model)
+        hw = cfg.resize or cfg.image_size
+        # --device_aug: the crop and flip run in the train step on the stored
+        # tiles (train/steps.py::device_augment)
+        self.device_crop = hw if (cfg.data_aug and cfg.packed_cache and cfg.device_aug) else None
         self.start_step = 0
         # a --restore that is not a file (a directory is --evaluate_ensemble's,
         # which reads it itself, or nothing is there yet) is skipped, as the
@@ -215,16 +234,50 @@ class Runner:
                              data_filter=json.loads(cfg.data_filter) if cfg.data_filter else None,
                              mini_data=cfg.mini_data, uncertain_policy=cfg.uncertain_policy)
 
-    def batches(self, index: ChexpertIndex, train: bool, epoch: int = 0) -> Batches:
+    def batches(self, index: ChexpertIndex, train: bool, epoch: int = 0):
+        """Batches of ``index``: from the packed cache under --packed_cache
+        (built here on first use; test mode keeps the JPEG pipeline), else
+        decoded from the JPEGs."""
         cfg = self.cfg
+        # drop_last in train: a zero-padded partial batch would pollute the
+        # BatchNorm batch statistics
+        drop_last = train and len(index) >= cfg.batch_size
+        if cfg.packed_cache and index.mode != "test":
+            hw = cfg.resize or cfg.image_size
+            path = build_packed_cache(
+                index, os.path.join(cfg.data_path, DIR_NAME, "packed"), image_size=hw,
+                resize=cfg.resize, workers=cfg.data_workers,
+                pack_margin=32 if (train and cfg.data_aug) else 0)
+            device_aug = train and cfg.data_aug and cfg.device_aug
+            return PackedBatches(index, path, cfg.batch_size, image_size=hw, shuffle=train,
+                                 augment=train and cfg.data_aug and not device_aug,
+                                 emit_stored=device_aug, drop_last=drop_last, seed=cfg.seed,
+                                 epoch=epoch, host_slice=self.host_slice)
         return Batches(index, cfg.batch_size, shuffle=train, augment=train and cfg.data_aug,
                        image_size=cfg.image_size, resize=cfg.resize, workers=cfg.data_workers,
-                       seed=cfg.seed, epoch=epoch,
-                       drop_last=train and len(index) >= cfg.batch_size,
+                       seed=cfg.seed, epoch=epoch, drop_last=drop_last,
                        host_slice=self.host_slice)
 
     def n_params(self) -> int:
         return sum(p.numel() for p in self.state.model.parameters())
+
+
+def reread_pretrained_flag(cfg: Config) -> Config:
+    """The ``pretrained`` flag re-read on restore from the config.json saved
+    beside the restore target (its run directory, stepping out of
+    best_checkpoints/), else from ``output_dir``'s (JAX
+    cli/chexpert.py::reread_pretrained_flag; reference chexpert.py:521-524)."""
+    if not cfg.restore:
+        return cfg
+    run_dir = cfg.restore if os.path.isdir(cfg.restore) else os.path.dirname(cfg.restore)
+    if os.path.basename(os.path.normpath(run_dir)) == "best_checkpoints":
+        run_dir = os.path.dirname(os.path.normpath(run_dir))
+    for saved_cfg in (os.path.join(run_dir, "config.json"),
+                      os.path.join(cfg.output_dir, "config.json")):
+        if os.path.exists(saved_cfg):
+            return cfg.replace(
+                pretrained=load_json(saved_cfg).get("pretrained", cfg.pretrained))
+    return cfg
 
 
 def collect_visualization(runner: Runner) -> dict:
@@ -240,6 +293,9 @@ def collect_visualization(runner: Runner) -> dict:
     imgs, labels, probs, cams, idx_list = [], [], [], [], []
     attn_per_layer = None
     for batch in runner.batches(vis_index, train=False):
+        if batch["image"].dtype == np.uint8:  # the packed cache's raw tiles: whiten here
+            batch = dict(batch, image=(batch["image"].astype(np.float32) / 255.0 - PIXEL_MEAN)
+                         / PIXEL_STD)
         x = prepare_image(torch.from_numpy(batch["image"]).to(runner.device))
         cam, logits = grad_cam(model, x, compute_dtype=runner.compute_dtype)
         m = batch["mask"].astype(bool)
@@ -286,7 +342,6 @@ def plot_eval_results(output_dir: str) -> None:
 
 def main(argv=None) -> int:
     cfg = config_from_args(argv)
-    cfg.check_supported()
     device = resolve_device(cfg.device)
     # the process group comes up before any artifact is written: the rank
     # gates the writes, and a timestamped default output_dir would differ
@@ -313,7 +368,7 @@ def _run(cfg: Config) -> int:
     writer = MetricsWriter(cfg.output_dir)
     try:
         writer.add_text("config", str(cfg.to_dict()))
-        runner = Runner(cfg)
+        runner = Runner(reread_pretrained_flag(cfg))
         cfg = runner.cfg
         mesh = runner.mesh
         print(f"Loaded {cfg.model} (number of parameters: {runner.n_params():,}; "
@@ -328,7 +383,8 @@ def _run(cfg: Config) -> int:
             train_and_evaluate(cfg, runner.state,
                                lambda epoch: runner.batches(train_index, True, epoch),
                                valid_batches, runner.schedule, writer, runner.device,
-                               runner.compute_dtype, mesh=mesh)
+                               runner.compute_dtype, mesh=mesh,
+                               device_crop=runner.device_crop)
         if cfg.evaluate_single_model:
             metrics = evaluate_single_model(runner.state, valid_batches, runner.device,
                                             runner.compute_dtype, mesh)

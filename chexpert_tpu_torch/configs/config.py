@@ -1,11 +1,6 @@
 """Frozen dataclass config with JSON round-trip: the port's own copy of
 chexpert_tpu/configs/config.py (same field names, so one ``config.json``
-serves both packages), plus ``device``.
-
-Fields that drive what the port does not run yet (the TPU-only machinery)
-are kept so a JAX run's config.json loads, but
-setting one to a non-default raises NotImplementedError naming
-the ROADMAP.md slice that ports it (``check_supported``).
+serves both packages), plus ``device`` and ``ensemble_member_chunk``.
 """
 
 from __future__ import annotations
@@ -83,21 +78,15 @@ class Config:
     model_parallel: int = 1
     multihost: bool = False
 
-    # --- knobs of the JAX package not ported yet (check_supported) ---
+    # torch.profiler trace of train steps 3-12 of epoch 0 into output_dir/profile
     profile: bool = False
+    # decode-once uint8 cache (data/packed.py) for the input pipeline
     packed_cache: bool = False
+    # with packed_cache and data_aug: crop and flip in the train step on the device
     device_aug: bool = False
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)
-
-    def check_supported(self) -> None:
-        """Raise NotImplementedError for a field this port does not run yet."""
-        for name, slice_ in _NOT_PORTED.items():
-            if getattr(self, name) != getattr(Config, name):
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported to PyTorch yet "
-                    f"(ROADMAP.md slice {slice_})")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -115,10 +104,6 @@ class Config:
     def from_dict(cls, raw: dict) -> "Config":
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in raw.items() if k in known})
-
-
-# field -> the ROADMAP.md slice that ports what it drives
-_NOT_PORTED = {"profile": 8, "packed_cache": 8, "device_aug": 8}
 
 
 def resolve_output_dir(cfg: Config, now: Optional[str] = None) -> Config:

@@ -1,5 +1,6 @@
 """Data layer of the port: the CheXpert index (csv), host-side transforms,
-the synthetic fixture and the batch pipeline."""
+the synthetic fixture, the batch pipeline and the packed cache
+(``data.packed``)."""
 
 from chexpert_tpu_torch.data.chexpert import (
     ATTR_ALL_NAMES,
@@ -8,6 +9,7 @@ from chexpert_tpu_torch.data.chexpert import (
     PIXEL_MEAN,
     PIXEL_STD,
     ChexpertIndex,
+    compute_mean_and_std,
     extract_patient_ids,
 )
 from chexpert_tpu_torch.data.pipeline import Batches, device_prefetch
@@ -21,6 +23,7 @@ __all__ = [
     "PIXEL_MEAN",
     "PIXEL_STD",
     "ChexpertIndex",
+    "compute_mean_and_std",
     "extract_patient_ids",
     "Batches",
     "device_prefetch",

@@ -15,10 +15,10 @@ whose pandas the card host does not have).
     format pandas writes, so either package reads the other's cache;
   * vis mode: 3 examples per category (each single condition, no findings,
     exactly 2, more than 2);
-  * mini_data head-N truncation; study ids from the Path column.
-
-There is no download: a missing dataset raises and names the layout
-(ROADMAP.md slice 8).
+  * mini_data head-N truncation; study ids from the Path column;
+  * download and extract from the Stanford URL when the dataset directory
+    is absent (``download=True``, the default, as in the JAX index);
+  * ``compute_mean_and_std``: the dataset statistics by Welford's method.
 """
 
 from __future__ import annotations
@@ -26,12 +26,15 @@ from __future__ import annotations
 import csv
 import hashlib
 import json
+import math
 import os
+import zipfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-DIR_NAME = "CheXpert-v1.0-small"
+URL = "http://download.cs.stanford.edu/deep/CheXpert-v1.0-small.zip"
+DIR_NAME = os.path.splitext(os.path.basename(URL))[0]  # CheXpert-v1.0-small
 
 ATTR_ALL_NAMES = [
     "No Finding", "Enlarged Cardiomediastinum", "Cardiomegaly", "Lung Opacity",
@@ -52,6 +55,36 @@ MODES = ("train", "valid", "vis", "test")
 NA_STRINGS = frozenset({
     "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
     "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null"})
+
+
+def _maybe_download_and_extract(root: str) -> None:
+    """Download and unzip the dataset into ``root`` unless ``root/DIR_NAME``
+    exists; a zip already beside it is extracted without a download
+    (reference dataset.py:94-113)."""
+    target = os.path.join(root, DIR_NAME)
+    if os.path.exists(target):
+        return
+    fpath = os.path.join(root, os.path.basename(URL))
+    if not os.path.exists(fpath):
+        from urllib import request
+
+        print(f"Downloading {URL} to {fpath}")
+
+        def _progress(n_blocks, block_size, total_bytes):
+            done = min(n_blocks * block_size, total_bytes)
+            pct = 100.0 * done / max(total_bytes, 1)
+            print(f"\rdownload: {pct:5.1f}% of {total_bytes} bytes", end="", flush=True)
+
+        request.urlretrieve(URL, fpath, _progress)
+        print()
+    print(f"Extracting {fpath}")
+    with zipfile.ZipFile(fpath, "r") as z:
+        z.extractall(root)
+    macosx = os.path.join(target, "__MACOSX")
+    if os.path.exists(macosx):
+        os.rmdir(macosx)
+    os.unlink(fpath)
+    print("Dataset extracted.")
 
 
 def read_csv(path: str) -> Tuple[List[str], List[List[str]]]:
@@ -124,7 +157,8 @@ class ChexpertIndex:
     ``root`` is the data directory holding CheXpert-v1.0-small/; in test mode
     it is a csv path, and its Path column is joined to '.' (reference
     dataset.py:37). As in the JAX index, test mode takes no filter and no
-    ``mini_data``."""
+    ``mini_data``, and the other modes download the dataset into ``root``
+    when it is absent unless ``download=False``."""
 
     def __init__(
         self,
@@ -133,6 +167,7 @@ class ChexpertIndex:
         data_filter: Optional[Dict[str, str]] = None,
         mini_data: Optional[int] = None,
         uncertain_policy: str = "ones",
+        download: bool = True,
     ):
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} is not one of {MODES}")
@@ -145,14 +180,9 @@ class ChexpertIndex:
             self.columns = header + [a for a in ATTR_NAMES if a not in header]
             self._set_rows(rows, np.zeros((len(rows), len(ATTR_NAMES)), np.float32))
             return
+        if download:
+            _maybe_download_and_extract(self.root)
         csv_dir = os.path.join(self.root, DIR_NAME)
-        if not os.path.isfile(os.path.join(csv_dir, "train.csv")) or not os.path.isfile(
-                os.path.join(csv_dir, "valid.csv")):
-            raise FileNotFoundError(
-                f"no CheXpert dataset under {self.root!r}: expected {DIR_NAME}/train.csv, "
-                f"{DIR_NAME}/valid.csv and the images their Path column names "
-                f"({DIR_NAME}/<split>/patient*/study*/view*.jpg); the PyTorch port does "
-                "not download it (ROADMAP.md slice 8)")
         self.columns, rows = self._load_processed(csv_dir, data_filter, uncertain_policy)
         attr_idxs = [self.columns.index(a) for a in ATTR_NAMES]
         self._set_rows(rows, np.array([[_to_float(row[c]) for c in attr_idxs] for row in rows],
@@ -227,3 +257,17 @@ def extract_patient_ids(index: ChexpertIndex, idxs: Sequence[int]) -> np.ndarray
     """Original row indices -> study ids like
     'CheXpert-v1.0-small/valid/patient64541/study1' (reference dataset.py:156-160)."""
     return np.array([index._by_index[int(i)].rsplit("/", 1)[0] for i in idxs], dtype=object)
+
+
+def compute_mean_and_std(image_iter) -> Tuple[float, float]:
+    """Welford's streaming mean and standard deviation over per-image means
+    (reference dataset.py:163-174); ``image_iter`` yields float arrays in
+    [0, 1]."""
+    m, s, k = 0.0, 0.0, 1
+    for img in image_iter:
+        x = float(np.mean(img))
+        new_m = m + (x - m) / k
+        s += (x - m) * (x - new_m)
+        m = new_m
+        k += 1
+    return m, math.sqrt(s / (k - 1))

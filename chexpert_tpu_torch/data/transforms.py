@@ -7,13 +7,15 @@ plus the data-augmentation stack (random crop + horizontal flip). Images stay
 single-channel (NHWC) until the channel expand, which the training path does
 on the device (``train/steps.py::prepare_image``).
 
-Decoding is PIL's (libjpeg); the JAX package's native libjpeg decoder with
-DCT-domain downscaling is ROADMAP.md slice 8. PIL is imported inside the
-functions that use it, so the module imports on hosts without it.
+JPEGs decode through the native libjpeg decoder (``chexpert_tpu_torch.native``)
+where it can be built, as in the JAX package, else through PIL. PIL is
+imported inside the functions that use it, so the module imports on hosts
+without it.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -21,10 +23,25 @@ import numpy as np
 from chexpert_tpu_torch.data.chexpert import PIXEL_MEAN, PIXEL_STD
 
 
-def load_grayscale(path: str):
-    """Decode to an 8-bit grayscale PIL image."""
+def load_grayscale(path: str, min_edge_hint: int = 0):
+    """Decode to an 8-bit grayscale PIL image.
+
+    A ``.jpg`` / ``.jpeg`` goes through the native libjpeg decoder when it is
+    built: the same bytes as PIL for an unscaled decode (both are libjpeg),
+    and with ``min_edge_hint`` > 0 a decode at 1/2 to 1/8 scale in the DCT
+    domain (never below the hint). ``CHEXPERT_TPU_NO_NATIVE`` set forces PIL;
+    a file libjpeg's memory source refuses falls back to PIL."""
     from PIL import Image
 
+    if path.lower().endswith((".jpg", ".jpeg")) and not os.environ.get("CHEXPERT_TPU_NO_NATIVE"):
+        from chexpert_tpu_torch import native
+
+        try:
+            arr = native.decode_gray(path, min_edge_hint)
+        except ValueError:
+            arr = None
+        if arr is not None:
+            return Image.fromarray(arr, mode="L")
     img = Image.open(path)
     if img.mode != "L":
         img = img.convert("L")
@@ -75,7 +92,9 @@ def decode_transform(
     /255 -> whiten. With augment=True the crop is random and a horizontal
     flip is drawn from ``rng``."""
     crop = resize if resize else image_size
-    img = load_grayscale(path)
+    # a DCT-scaled decode only where a resize follows (crop-only mode must
+    # see the original resolution)
+    img = load_grayscale(path, min_edge_hint=resize or 0)
     if resize:
         img = resize_min_edge(img, resize)
     arr = np.asarray(img, dtype=np.float32)[..., None]

@@ -28,7 +28,11 @@ JAX ``member_sharding`` shards the stacked member axis
 outputs and losses are all-reduced over the data row before the division
 by K, and the data rows' rows are then gathered, as the JAX module's
 allgather does. Otherwise every rank of a row runs every member. The
-memory planner plans for the rank's own members.
+memory planner plans for the rank's own members, with the device's free
+memory divided among the ranks that share the device; the ranks start
+from the least planned chunk. An out-of-memory error on any rank's member
+forwards is agreed by one all-reduce before the pass's data collectives,
+so every rank halves its chunk and retries together.
 """
 
 from __future__ import annotations
@@ -89,16 +93,18 @@ def _member_groups(n: int, chunk: int) -> List[range]:
     return [range(i, min(i + chunk, n)) for i in range(0, n, chunk)]
 
 
-def _device_budget_bytes(device: torch.device) -> float:
-    """Free device memory for planning, from ``torch.cuda.mem_get_info``:
-    10% safety margin plus a 1 GiB reserve for prefetched batches, outputs
-    and fragmentation. ``CHEXPERT_HBM_GB`` overrides the card's total (the
-    memory in use stays what the card reports)."""
+def _device_budget_bytes(device: torch.device, sharing: int = 1) -> float:
+    """This rank's share of the free device memory for planning, from
+    ``torch.cuda.mem_get_info`` (which is per device, not per process): 10%
+    safety margin plus a 1 GiB reserve for prefetched batches, outputs and
+    fragmentation, divided by the ``sharing`` ranks on the device.
+    ``CHEXPERT_HBM_GB`` overrides the card's total (the memory in use stays
+    what the card reports)."""
     free, total = torch.cuda.mem_get_info(device)
     env = os.environ.get("CHEXPERT_HBM_GB")
     if env:
         free = float(env) * 2**30 - (total - free)
-    return 0.9 * free - 2**30
+    return (0.9 * free - 2**30) / sharing
 
 
 def _fit_member_chunk(n_members: int, budget: float, cost_of: Callable[[int], float]) -> int:
@@ -123,11 +129,12 @@ def member_bytes(model: torch.nn.Module) -> int:
 
 def _plan_member_chunk(model: torch.nn.Module, n_members: int, batches: Batches,
                        device: torch.device, compute_dtype: torch.dtype,
-                       log=print) -> int:
-    """The largest member chunk that fits the free device memory, before any
-    member is loaded. One member's peak activation bytes are measured once,
-    around a forward of ``model`` on the first batch; the host's memory pages,
-    so the CPU returns ``n_members``."""
+                       log=print, sharing: int = 1) -> int:
+    """The largest member chunk that fits this rank's share of the free
+    device memory (``sharing`` ranks on the device), before any member is
+    loaded. One member's peak activation bytes are measured once, around a
+    forward of ``model`` on the first batch; the host's memory pages, so the
+    CPU returns ``n_members``."""
     if n_members == 1 or device.type != "cuda":
         return n_members
     batch = next(iter(batches))
@@ -144,31 +151,20 @@ def _plan_member_chunk(model: torch.nn.Module, n_members: int, batches: Batches,
     def cost_of(k: int) -> float:
         return float(k * per_member + activation)
 
-    budget = _device_budget_bytes(device)
+    budget = _device_budget_bytes(device, sharing)
     chunk = _fit_member_chunk(n_members, budget, cost_of)
     log(f"[ensemble] planned member_chunk={chunk} of {n_members}: {per_member / 1e9:.3f} GB "
         f"per member, peak activation {activation / 1e9:.3f} GB, free-memory budget "
-        f"{budget / 1e9:.1f} GB")
+        f"{budget / 1e9:.1f} GB ({sharing} rank(s) on the device)")
     return chunk
 
 
-def ensemble_outputs(model: torch.nn.Module, paths: List[str], batches: Batches,
-                     device: torch.device, compute_dtype: torch.dtype, chunk: int,
-                     arch: str, timings: Optional[list] = None, mesh: Optional[Mesh] = None
-                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """One ensemble pass with the rank's members (``member_range``; all of
-    ``paths`` in one process) evaluated ``chunk`` at a time: (the mean over
-    the K members of the logits, the targets, the mean of the per-element
-    losses) of the valid rows, each (N, 5), as ``compute_metrics`` takes them.
-
-    Member groups outer, valid batches inner: device memory holds one group's
-    members and one member's forward at a time. Several passes over the valid
-    set are the reference's protocol (it re-runs the loader per checkpoint).
-    ``timings``, when given, gets one dict per group: its members, batches and
-    the seconds of its batch loop (loading excluded)."""
-    K = len(paths)
-    own = [paths[i] for i in member_range(mesh, K)]
-    out_sum = loss_sum = targets = mask = None
+def _local_sums(model, own: List[str], batches: Batches, device: torch.device,
+                compute_dtype: torch.dtype, chunk: int, arch: str, timings: Optional[list]):
+    """The sums over the members ``own`` of the logits and per-element
+    losses of every valid batch row of this rank, with its targets, mask
+    and rows per batch; no collective."""
+    out_sum = loss_sum = targets = mask = batch_rows = None
     for gi, group in enumerate(_member_groups(len(own), chunk)):
         members = [load_member(model, own[i], arch) for i in group]
         outs, losses, tgts, msks = [], [], [], []
@@ -195,6 +191,37 @@ def ensemble_outputs(model: torch.nn.Module, paths: List[str], batches: Batches,
         loss_sum = l if loss_sum is None else loss_sum + l
         if gi == 0:
             targets, mask, batch_rows = np.concatenate(tgts), np.concatenate(msks), len(msks[0])
+    return out_sum, loss_sum, targets, mask, batch_rows
+
+
+def ensemble_outputs(model: torch.nn.Module, paths: List[str], batches: Batches,
+                     device: torch.device, compute_dtype: torch.dtype, chunk: int,
+                     arch: str, timings: Optional[list] = None, mesh: Optional[Mesh] = None
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One ensemble pass with the rank's members (``member_range``; all of
+    ``paths`` in one process) evaluated ``chunk`` at a time: (the mean over
+    the K members of the logits, the targets, the mean of the per-element
+    losses) of the valid rows, each (N, 5), as ``compute_metrics`` takes them.
+
+    Member groups outer, valid batches inner: device memory holds one group's
+    members and one member's forward at a time. Several passes over the valid
+    set are the reference's protocol (it re-runs the loader per checkpoint).
+    ``timings``, when given, gets one dict per group: its members, batches and
+    the seconds of its batch loop (loading excluded)."""
+    K = len(paths)
+    own = [paths[i] for i in member_range(mesh, K)]
+    try:
+        out_sum, loss_sum, targets, mask, batch_rows = _local_sums(
+            model, own, batches, device, compute_dtype, chunk, arch, timings)
+        oom = False
+    except torch.cuda.OutOfMemoryError:  # the rank's own forwards; its frames are gone here
+        oom = True
+    # agreed before any collective of the pass: a rank that ran out alone
+    # would otherwise retry while the others wait in the gather
+    if mesh.any_over_world(oom) if mesh is not None else oom:
+        raise torch.cuda.OutOfMemoryError(
+            f"device out of memory on {'this rank' if oom else 'another rank'} at "
+            f"member_chunk={chunk}")
     rows = out_sum, targets, loss_sum, mask
     if mesh is not None:
         if len(own) < K:  # the members are split over the data row
@@ -208,14 +235,20 @@ def evaluate_ensemble(model: torch.nn.Module, paths: List[str], batches: Batches
                       device: torch.device, compute_dtype: torch.dtype, arch: str,
                       member_chunk: int = 0, log=print, mesh: Optional[Mesh] = None) -> Dict:
     """Metrics of the K-member ensemble. ``member_chunk`` 0 plans the chunk
-    from the free device memory (all of the rank's members on the CPU); on
-    ``torch.cuda.OutOfMemoryError`` the chunk is halved and the pass
-    retried. ``member_chunk`` > 0 pins the chunk and skips planning.
-    ``model`` is the built model on ``device``: each member is a copy."""
+    from the free device memory (all of the rank's members on the CPU; the
+    least plan of the ranks); on ``torch.cuda.OutOfMemoryError`` on any rank
+    the chunk is halved on every rank and the pass retried. ``member_chunk``
+    > 0 pins the chunk and skips planning. ``model`` is the built model on
+    ``device``: each member is a copy."""
     if not paths:
         raise AssertionError("no checkpoints found to ensemble")
-    chunk = member_chunk or _plan_member_chunk(model, len(member_range(mesh, len(paths))),
-                                               batches, device, compute_dtype, log)
+    chunk = member_chunk
+    if not chunk:
+        sharing = 1 if mesh is None else mesh.ranks_on_device(device)
+        chunk = _plan_member_chunk(model, len(member_range(mesh, len(paths))), batches, device,
+                                   compute_dtype, log, sharing)
+        if mesh is not None:
+            chunk = mesh.min_over_world(chunk)
     while True:
         try:
             return compute_metrics(*ensemble_outputs(model, paths, batches, device,

@@ -1,7 +1,8 @@
 from chexpert_tpu_torch.models.attn import AAConv2d, attn_dims
 from chexpert_tpu_torch.models.convert import normalize_state_dict, state_dict_from_jax
 from chexpert_tpu_torch.models.densenet import AttnParams, DenseNet
-from chexpert_tpu_torch.models.resnet import ResNet
+from chexpert_tpu_torch.models.efficientnet import EfficientNet
+from chexpert_tpu_torch.models.resnet import ResNet, WideResNet
 from chexpert_tpu_torch.models.registry import (
     N_CLASSES,
     OptimizerSpec,
@@ -16,7 +17,9 @@ __all__ = [
     "state_dict_from_jax",
     "AttnParams",
     "DenseNet",
+    "EfficientNet",
     "ResNet",
+    "WideResNet",
     "N_CLASSES",
     "OptimizerSpec",
     "build_model",

@@ -37,7 +37,7 @@ PORTED = ("densenet121", "aadensenet121", "densenet-tiny", "aadensenet-tiny",
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
     kind: str  # 'adam' | 'sgd_nesterov' | 'rmsprop'
-    schedule: str = "constant"  # 'constant' | 'multistep' | 'exponential'
+    schedule: str = "constant"  # 'constant' | 'multistep' | 'exponential' | 'cosine'
     milestones: Tuple[int, ...] = ()
     decay_factor: float = 0.97
     decay_steps: int = 1  # staircase period for 'exponential'
@@ -54,6 +54,12 @@ def optimizer_spec(name: str) -> OptimizerSpec:
     if name in PORTED:
         return OptimizerSpec("adam")
     raise RuntimeError(f"Model architecture not supported: {name}")
+
+
+def attn_layout_from_env() -> str:
+    """The JAX package's attention layout switch, ``CHEXPERT_ATTN_LAYOUT``
+    ("bn" by default; any other value than "bn" or "hil" raises)."""
+    return check_attn_layout(os.environ.get("CHEXPERT_ATTN_LAYOUT", "bn"))
 
 
 def build_model(
@@ -89,7 +95,7 @@ def build_model(
     if prefix_stats is not None and "densenet" not in name:
         raise ValueError(f"prefix_stats is only consumed by the DenseNet family, not {name!r}")
     if attn_layout is None:
-        attn_layout = os.environ.get("CHEXPERT_ATTN_LAYOUT", "bn")
+        attn_layout = attn_layout_from_env()
     check_attn_layout(attn_layout)
     dims = (image_size, image_size)
     if name == "densenet121":

@@ -1,14 +1,17 @@
 """ResNet and its attention-augmented variants, NCHW.
 
 Port of chexpert_tpu/models/resnet.py (``BasicBlock``, ``Bottleneck``,
-``ResNet``; its ``WideResNet`` is only reached by the CIFAR bench and is
-ported with that):
+``ResNet``, ``WideResNet``):
   * BasicBlock: [conv3x3 s] -> BN -> ReLU -> conv3x3 -> BN (+identity) -> ReLU;
     the AA variant swaps the FIRST conv3x3 for AAConv2d
   * Bottleneck: conv1x1 -> BN -> ReLU -> [conv3x3 s] -> BN -> ReLU -> conv1x1
     -> BN (+identity) -> ReLU; the AA variant swaps the INNER conv3x3
   * ResNet: 7x7 s2 stem + maxpool 3x3 s2 + 4 layers, attention on layers 2-4
     only; resnet152 = Bottleneck (3, 8, 36, 3)
+  * WideResNet-d-w (the CIFAR bench's): 3x3 s1 stem + 3 layers of
+    BasicBlocks of width (16w, 32w, 64w), strides (1, 2, 2), n = (d - 4) / 6
+    blocks each; attention on layers 2-3 with ``input_dims`` scaled by w, so
+    that the 16 / planes rule gives the post-stride map (16x16 / 8x8 at 32x32)
 
 An AA layer's attention map is input_dims * 16 / planes (40x40 / 20x20 /
 10x10 on layers 2 / 3 / 4 at 320x320), already the post-stride size. With
@@ -140,6 +143,30 @@ class Stage(nn.Sequential):
         return x
 
 
+@torch.no_grad()
+def reset_residual_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init of a ResNet or WideResNet with the JAX package's
+    initializers: kaiming-normal (fan_out) convs, AAConv2d's own, BN scale 1
+    / bias 0 with running stats (0, 1) (the last BN of each residual branch
+    scale 0 under ``zero_init_residual``), uniform linear weight and zero
+    bias."""
+    aa = [m for m in model.modules() if isinstance(m, AAConv2d)]
+    aa_convs = {id(c) for m in aa for c in m.modules()}
+    for m in aa:
+        m.reset_parameters(generator)
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d) and id(m) not in aa_convs:
+            kaiming_normal_(m.weight, "fan_out", generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    if model.zero_init_residual:
+        for m in model.modules():
+            if isinstance(m, (BasicBlock, Bottleneck)):
+                m.last_bn.weight.zero_()
+    torch_linear_(model.fc.weight, generator)
+    model.fc.bias.zero_()
+
+
 class ResNet(nn.Module):
     """resnet50 (3, 4, 6, 3); resnet101 (3, 4, 23, 3); resnet152 (3, 8, 36, 3)."""
 
@@ -173,27 +200,8 @@ class ResNet(nn.Module):
             in_planes = planes * block_cls.expansion
         self.fc = nn.Linear(in_planes, num_classes)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Seeded init with the JAX package's initializers: kaiming-normal
-        (fan_out) convs, AAConv2d's own, BN scale 1 / bias 0 with running
-        stats (0, 1) (the last BN of each residual branch scale 0 under
-        ``zero_init_residual``), uniform linear weight and zero bias."""
-        aa = [m for m in self.modules() if isinstance(m, AAConv2d)]
-        aa_convs = {id(c) for m in aa for c in m.modules()}
-        for m in aa:
-            m.reset_parameters(generator)
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d) and id(m) not in aa_convs:
-                kaiming_normal_(m.weight, "fan_out", generator)
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
-        if self.zero_init_residual:
-            for m in self.modules():
-                if isinstance(m, (BasicBlock, Bottleneck)):
-                    m.last_bn.weight.zero_()
-        torch_linear_(self.fc.weight, generator)
-        self.fc.bias.zero_()
+        reset_residual_parameters(self, generator)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 capture_weights: bool = False) -> torch.Tensor:
@@ -201,6 +209,53 @@ class ResNet(nn.Module):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = layer(x, capture_weights=capture_weights)
+        x = global_avg_pool(x)
+        with torch.autocast(x.device.type, enabled=False):  # f32 head, as in JAX
+            return self.fc(x)
+
+
+class WideResNet(nn.Module):
+    """WRN-depth-width; depth = 6n + 4."""
+
+    gradcam_site = "layer3"
+
+    def __init__(self, depth: int = 28, width: int = 10, num_classes: int = 100,
+                 attn: Optional[AttnParams] = None, attn_impl: str = "pallas",
+                 attn_layout: str = "bn", zero_init_residual: bool = False):
+        super().__init__()
+        if (depth - 4) % 6:
+            raise AssertionError("depth should be 6n+4")
+        check_attn_impl(attn_impl)
+        check_attn_layout(attn_layout)
+        n = (depth - 4) // 6
+        if attn is not None:  # the 16 / planes rule, planes scaled by the width
+            attn = AttnParams(attn.k, attn.v, attn.nh, attn.relative,
+                              (attn.input_dims[0] * width, attn.input_dims[1] * width))
+        self.zero_init_residual = zero_init_residual
+        self.conv1 = conv(3, 16, 3, 1, padding=1)
+        self.bn1 = nn.BatchNorm2d(16)
+        in_planes = 16
+        # attention on layers 2-3
+        for li, (planes, s) in enumerate(zip((16 * width, 32 * width, 64 * width), (1, 2, 2))):
+            blocks = [BasicBlock(in_planes if i == 0 else planes, planes,
+                                 strides=s if i == 0 else 1,
+                                 has_downsample=i == 0 and (s != 1 or in_planes != planes),
+                                 attn=None if li == 0 else attn, attn_impl=attn_impl,
+                                 attn_layout=attn_layout)
+                      for i in range(n)]
+            setattr(self, f"layer{li + 1}", Stage(*blocks))
+            in_planes = planes
+        self.fc = nn.Linear(in_planes, num_classes)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        reset_residual_parameters(self, generator)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                capture_weights: bool = False) -> torch.Tensor:
+        del generator  # no random parts in this family
+        x = F.relu(self.bn1(self.conv1(x)))
+        for layer in (self.layer1, self.layer2, self.layer3):
             x = layer(x, capture_weights=capture_weights)
         x = global_avg_pool(x)
         with torch.autocast(x.device.type, enabled=False):  # f32 head, as in JAX

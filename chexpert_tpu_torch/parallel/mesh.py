@@ -21,6 +21,7 @@ the data rows.
 from __future__ import annotations
 
 import dataclasses
+import socket
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
@@ -123,6 +124,35 @@ class Mesh:
                          device=_collective_device(self.data_group))
         dist.all_reduce(t, group=self.data_group)
         return float(t) / self.data_parallel
+
+
+    def any_over_world(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank: one all-reduce (MAX) over
+        every rank, each of which must call it."""
+        if self.world == 1:
+            return flag
+        t = torch.tensor([int(flag)], device=_collective_device(dist.group.WORLD))
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+    def min_over_world(self, value: int) -> int:
+        """The least ``value`` over every rank (one all-reduce, MIN)."""
+        if self.world == 1:
+            return value
+        t = torch.tensor([value], dtype=torch.int64,
+                         device=_collective_device(dist.group.WORLD))
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        return int(t.item())
+
+    def ranks_on_device(self, device: torch.device) -> int:
+        """How many ranks of the world run on ``device`` of this host
+        (this one included): one all-gather over every rank."""
+        if self.world == 1:
+            return 1
+        key = (socket.gethostname(), str(device))
+        keys = [None] * self.world
+        dist.all_gather_object(keys, key)
+        return keys.count(key)
 
 
 def _collective_device(group) -> torch.device:

@@ -3,7 +3,9 @@ from chexpert_tpu_torch.train.optim import make_optimizer, make_schedule
 from chexpert_tpu_torch.train.state import TrainState
 from chexpert_tpu_torch.train.steps import (
     autocast,
+    crop_and_flip,
     data_parallel,
+    device_augment,
     eval_logits,
     eval_step,
     prepare_image,
@@ -18,7 +20,9 @@ __all__ = [
     "make_schedule",
     "TrainState",
     "autocast",
+    "crop_and_flip",
     "data_parallel",
+    "device_augment",
     "eval_logits",
     "eval_step",
     "prepare_image",

@@ -89,15 +89,51 @@ def _checkpoint(cfg: Config, state: TrainState, metrics: Dict, step: int) -> Non
     )
 
 
+def _start_profile(cfg: Config, device: torch.device, log_fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    log_fn(f"Capturing profiler trace to {os.path.join(cfg.output_dir, 'profile')}")
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(cfg: Config, prof) -> None:
+    """Stop the trace; the primary process writes it as a Chrome trace to
+    ``<output_dir>/profile/trace.json``."""
+    prof.stop()
+    if is_primary():
+        trace_dir = os.path.join(cfg.output_dir, "profile")
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
 def train_epoch(cfg: Config, state: TrainState, train_batches: Batches,
                 valid_batches: Batches, schedule: Callable, writer: MetricsWriter,
                 device: torch.device, compute_dtype: torch.dtype, epoch: int,
-                log_fn=print, mesh: Optional[Mesh] = None) -> TrainState:
-    """(reference train_epoch, chexpert.py:152-196)"""
+                log_fn=print, mesh: Optional[Mesh] = None,
+                device_crop: Optional[int] = None) -> TrainState:
+    """(reference train_epoch, chexpert.py:152-196). Under ``cfg.profile``
+    steps 3-12 of epoch 0 (0-based) run under ``torch.profiler``, stopped at
+    the epoch's end when it is shorter (train/loop.py:132-168 of the JAX
+    package)."""
     mesh = mesh or create_mesh()
     t0, imgs = time.time(), 0
+    prof_start, prof_stop = (3, 13) if (cfg.profile and epoch == 0) else (-1, -1)
+    prof, local = None, 0
     for batch in device_prefetch(train_batches, device, depth=cfg.prefetch):
-        loss = train_step(state, batch, compute_dtype)
+        if local == prof_start:
+            prof = _start_profile(cfg, device, log_fn)
+        loss = train_step(state, batch, compute_dtype, device_crop)
+        local += 1
+        if local == prof_stop:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            _stop_profile(cfg, prof)
+            prof = None
         step = state.step
         # train drops partial batches, so every batch is full
         imgs += int(batch["mask"].shape[0]) * mesh.data_parallel
@@ -117,18 +153,24 @@ def train_epoch(cfg: Config, state: TrainState, train_batches: Batches,
             _log_eval(writer, metrics, step)
             _checkpoint(cfg, state, metrics, step)
             t0, imgs = time.time(), 0
+    if prof is not None:  # the epoch ended inside the trace window
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        _stop_profile(cfg, prof)
     return state
 
 
 def train_and_evaluate(cfg: Config, state: TrainState, make_train_batches: Callable,
                        valid_batches: Batches, schedule: Callable, writer: MetricsWriter,
                        device: torch.device, compute_dtype: torch.dtype,
-                       log_fn=print, mesh: Optional[Mesh] = None) -> TrainState:
+                       log_fn=print, mesh: Optional[Mesh] = None,
+                       device_crop: Optional[int] = None) -> TrainState:
     """(reference train_and_evaluate, chexpert.py:238-255); make_train_batches
-    (epoch) -> Batches, so shuffling reseeds per epoch."""
+    (epoch) -> Batches or PackedBatches, so shuffling reseeds per epoch;
+    ``device_crop``: the train step's on-device crop size (--device_aug)."""
     for epoch in range(cfg.n_epochs):
         state = train_epoch(cfg, state, make_train_batches(epoch), valid_batches, schedule,
-                            writer, device, compute_dtype, epoch, log_fn, mesh)
+                            writer, device, compute_dtype, epoch, log_fn, mesh, device_crop)
         metrics = evaluate_single_model(state, valid_batches, device, compute_dtype, mesh)
         log_fn(f"Evaluate metrics @ step {state.step}:")
         log_fn("AUC: " + str(metrics["aucs"]))

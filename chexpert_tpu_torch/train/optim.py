@@ -9,20 +9,20 @@ optax ones (chexpert_tpu/train/optim.py):
     multiplies the trace by the current LR instead, and the two part as
     soon as the LR changes);
   * 'hold' warmup: the LR stays at base until ``warmup_steps``, then the
-    decay clock starts (reference chexpert.py:165); multistep milestones
-    and the per-step exponential decay count from ``step - warmup_steps``.
+    decay clock starts (reference chexpert.py:165); the CIFAR bench's
+    'linear' warmup ramps from 0; multistep milestones, the staircase
+    exponential decay and the cosine decay count from ``step - warmup_steps``;
+  * weight decay as optax's ``add_decayed_weights`` ahead of the update.
 
 ``make_schedule`` is a pure function of the step; ``make_optimizer`` wraps it
 in a ``LambdaLR`` stepped once per train step, so the LR of optimizer step
 t (0-based) is ``schedule(t)``, as optax's count-indexed schedule gives.
-The CIFAR bench's linear warmup and cosine decay come with it (ROADMAP.md
-slice 8).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import torch
 
@@ -72,10 +72,23 @@ class RMSpropLRInTrace(torch.optim.Optimizer):
         return loss
 
 
-def make_schedule(spec: OptimizerSpec, base_lr: float, warmup_steps: int = 0) -> Callable:
+def make_schedule(spec: OptimizerSpec, base_lr: float, warmup_steps: int = 0,
+                  warmup_style: str = "hold",
+                  cosine_decay_steps: Optional[int] = None) -> Callable:
+    """The LR of optimizer step ``step`` (0-based). Before ``warmup_steps``
+    it is ``base_lr`` ('hold') or ``base_lr * step / warmup_steps``
+    ('linear', 0 at step 0); after, the schedule of ``spec`` on the clock
+    ``step - warmup_steps``: constant, multistep (gamma 0.1), staircase
+    exponential (``floor(eff / decay_steps)``) or cosine over
+    ``cosine_decay_steps`` (then held at 0)."""
+    if warmup_style not in ("hold", "linear"):
+        raise ValueError(f"unknown warmup_style {warmup_style!r}")
+    if spec.schedule == "cosine" and not cosine_decay_steps:
+        raise ValueError("the cosine schedule needs cosine_decay_steps")
+
     def schedule(step: int) -> float:
         if step < warmup_steps:
-            return base_lr
+            return base_lr * step / warmup_steps if warmup_style == "linear" else base_lr
         eff = step - warmup_steps
         if spec.schedule == "constant":
             return base_lr
@@ -83,16 +96,23 @@ def make_schedule(spec: OptimizerSpec, base_lr: float, warmup_steps: int = 0) ->
             return base_lr * 0.1 ** sum(eff >= m for m in spec.milestones)
         if spec.schedule == "exponential":  # staircase when decay_steps > 1
             return base_lr * spec.decay_factor ** math.floor(eff / spec.decay_steps)
+        if spec.schedule == "cosine":
+            return 0.5 * base_lr * (1.0 + math.cos(math.pi * min(eff / cosine_decay_steps, 1.0)))
         raise ValueError(f"unknown schedule {spec.schedule!r}")
 
     return schedule
 
 
 def make_optimizer(spec: OptimizerSpec, params: Iterable[torch.nn.Parameter], base_lr: float,
-                   warmup_steps: int = 0) -> Tuple[torch.optim.Optimizer,
-                                                   torch.optim.lr_scheduler.LambdaLR, Callable]:
-    """(optimizer, scheduler, schedule)."""
-    schedule = make_schedule(spec, base_lr, warmup_steps)
+                   warmup_steps: int = 0, warmup_style: str = "hold",
+                   cosine_decay_steps: Optional[int] = None
+                   ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR, Callable]:
+    """(optimizer, scheduler, schedule). ``spec.weight_decay`` is optax's
+    ``add_decayed_weights`` ahead of the optimizer: ``wd * p`` added to every
+    parameter's gradient (no mask) before the update. ``torch.optim.SGD``
+    and ``torch.optim.Adam`` take it as their ``weight_decay``, which adds it
+    at that place; ``RMSpropLRInTrace`` adds it itself, first."""
+    schedule = make_schedule(spec, base_lr, warmup_steps, warmup_style, cosine_decay_steps)
     kw = {"lr": base_lr, "weight_decay": spec.weight_decay}
     if spec.kind == "adam":
         opt = torch.optim.Adam(params, **kw)

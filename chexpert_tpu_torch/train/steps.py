@@ -3,10 +3,10 @@
 The loss follows the reference hot loop (chexpert.py:156-165): BCE with
 logits summed over classes, meaned over the batch. The forward runs under
 ``torch.autocast`` at the compute dtype with float32 parameters; the loss
-is float32. The only random draws inside a step are the model's train-mode
-ones (EfficientNet's DropConnect and Dropout), from ``state.generator``;
-augmentation runs on the host (``device_augment`` of the packed input path
-is ROADMAP.md slice 8).
+is float32. The random draws inside a step come from ``state.generator``:
+the model's train-mode ones (EfficientNet's DropConnect and Dropout) and,
+with ``device_crop`` (``--packed_cache --data_aug --device_aug``), the crop
+offsets and flips of ``device_augment``.
 
 In a multi-process run the train step calls the DistributedDataParallel
 wrapper (``data_parallel``) on the rank's slice of the global batch: the
@@ -17,7 +17,7 @@ gradient of the global batch's mean loss.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +26,34 @@ from torch.nn.parallel import DistributedDataParallel
 from chexpert_tpu_torch.data.chexpert import PIXEL_MEAN, PIXEL_STD
 from chexpert_tpu_torch.train.loss import bce_with_logits, train_loss
 from chexpert_tpu_torch.train.state import TrainState
+
+
+def crop_and_flip(img: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
+                  flips: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Per image b of (B, S, S, C): the out_size x out_size window at
+    (tops[b], lefts[b]), mirrored left-right where flips[b]; one gather."""
+    B = img.shape[0]
+    ar = torch.arange(out_size, device=img.device)
+    rows = tops.to(img.device)[:, None] + ar
+    cols = torch.where(flips.to(img.device)[:, None], out_size - 1 - ar, ar)
+    cols = lefts.to(img.device)[:, None] + cols
+    b = torch.arange(B, device=img.device)[:, None, None]
+    return img[b, rows[:, :, None], cols[:, None, :]]
+
+
+def device_augment(img: torch.Tensor, generator: Optional[torch.Generator],
+                   out_size: int) -> torch.Tensor:
+    """On-device random crop and horizontal flip of a batch of stored tiles
+    (B, S, S, C) to (B, out_size, out_size, C): offsets uniform in [0, S -
+    out_size] and flips with probability 1/2, drawn from ``generator`` on
+    the batch's device (the JAX step draws them from its step key)."""
+    B, S = img.shape[0], img.shape[1]
+    margin = S - out_size
+    kw = {"generator": generator, "device": img.device}
+    tops = torch.randint(0, margin + 1, (B,), **kw)
+    lefts = torch.randint(0, margin + 1, (B,), **kw)
+    flips = torch.rand(B, **kw) < 0.5
+    return crop_and_flip(img, tops, lefts, flips, out_size)
 
 
 def prepare_image(x: torch.Tensor) -> torch.Tensor:
@@ -66,11 +94,16 @@ def data_parallel(model: torch.nn.Module, device: torch.device) -> DistributedDa
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-               compute_dtype: torch.dtype) -> torch.Tensor:
+               compute_dtype: torch.dtype, device_crop: Optional[int] = None) -> torch.Tensor:
     """One optimizer step on ``batch`` (tensors on the model's device);
-    returns the loss as a 0-d tensor on the device (no host sync)."""
+    returns the loss as a 0-d tensor on the device (no host sync). With
+    ``device_crop``, stored tiles larger than it are cropped and flipped on
+    the device first (``device_augment``)."""
     model = (state.model if state.ddp is None else state.ddp).train()
-    image = prepare_image(batch["image"])
+    image = batch["image"]
+    if device_crop is not None and image.shape[1] > device_crop:
+        image = device_augment(image, state.generator, device_crop)
+    image = prepare_image(image)
     with autocast(image.device, compute_dtype):
         logits = model(image, generator=state.generator)
     loss = train_loss(logits, batch["label"], batch["mask"], batch.get("label_mask"))

@@ -152,6 +152,33 @@ Run from the root of a checkout. Phases, each failing the run on error:
    BatchNorm run on CUDA tensors in training; the artifacts of world 1,
    written once. A gloo collective that refuses CUDA tensors fails the
    rank, and the phase with it.
+19. the CIFAR bench (chexpert_tpu_torch.cli.bench, --synthetic, bf16, batch
+   256, 32x32): first every kernel at every geometry of the bench's models,
+   f32 and bf16 against its plain version within the bounds of phases 2, 3,
+   7 and 11 (B1, B2, B5, B6 at WideResNet-28-10's 16x16 dvh 4 and 8x8 dvh 8,
+   ResNet-50's 4x4, 2x2 and 1x1 maps and DenseNet-12-100's 16x16 and 8x8
+   at dvh 1, all at batch 256 x 8 heads; B3 and B4 at efficientnet-b0's
+   twelve stride-1 layers, 16x16 down to 1x1 at k 3 and 5, C up to 1152),
+   bf16 device times beside bound, plain version and library call; then
+   each AA conv and stride-1 depthwise conv of those models alone, f32,
+   kernel route against plain route on its captured input and upstream
+   gradient within GRAD_TOL (bench_layer_phase); then the runs through
+   cli.bench.main: wideresnet 28 10 --attn under bn and under hil, an
+   8-step --mini_data overfit with --evaluate and --vis_attn (falling loss;
+   per step 8 B1 and 8 of each B2 pass, or 8 B5 and 8 of each B6 pass; 8
+   B1 or B5 per eval forward; none on the capture), resnet 50 --attn,
+   densenet 12 100 --attn and efficientnet b0 for 4 steps (13, 2 and 12
+   layers' launches per step, counted from the models); ms/step, device
+   ms per step and busy share (profiler), img/s, peak memory.
+20. the fast input path on phase 5's model and fixture: cli.chexpert.main
+   with --packed_cache, with --packed_cache --data_aug --device_aug (the
+   crop in the train step) and with --packed_cache --profile over 8 steps
+   (a trace under <output_dir>/profile): phase 5's launches, falling loss;
+   the input pipelines alone in ms per batch (JPEG Batches, PackedBatches,
+   PackedBatches(emit_stored=True)) beside the three runs' ms/step and
+   which JPEG decoder ran (native libjpeg or PIL); then --pretrained from
+   a legacy-format densenet121.pth: the step starts from the file's
+   weights, the head excepted.
 
 The phases take three to four minutes on an H100, the build included (the run
 prints its own time). The last lines are one {"kernels": [...]} JSON line, the nvidia-smi line, and
@@ -1204,10 +1231,13 @@ def _scalars(run_dir: str, tag: str):
 
 def train_phase(data_dir: str, smi: str, model: str, image: int, lr: float,
                 per_step: dict, per_eval: dict, steps: int = TRAIN_STEPS, run: str = "run",
-                extra: tuple = ()):
+                extra: tuple = (), epochs=None):
     """The port's training CLI on the card (``extra``: more CLI flags); launch
     counts read just after: ``per_step`` launches per train step and
-    ``per_eval`` per eval forward, and no launch of any other kernel."""
+    ``per_eval`` per eval forward, and no launch of any other kernel.
+    ``epochs`` (default ``steps``, one step an epoch): the epochs the
+    ``steps`` steps span."""
+    epochs = steps if epochs is None else epochs
     from chexpert_tpu_torch import kernels
     from chexpert_tpu_torch.cli.chexpert import main as cli_main
 
@@ -1217,7 +1247,7 @@ def train_phase(data_dir: str, smi: str, model: str, image: int, lr: float,
     cli_main(["--train", "--evaluate_single_model", "--data_path", data_dir,
               "--output_dir", run_dir, "--model", model,
               "--image_size", str(image), "--compute_dtype", "bfloat16",
-              "--batch_size", str(B_TRAIN), "--n_epochs", str(steps),
+              "--batch_size", str(B_TRAIN), "--n_epochs", str(epochs),
               "--lr", str(lr), "--log_interval", "1",
               "--eval_interval", str(EVAL_INTERVAL), "--device", DEVICE, *extra])
     torch.cuda.synchronize()
@@ -1226,7 +1256,7 @@ def train_phase(data_dir: str, smi: str, model: str, image: int, lr: float,
     losses = [v for _, v in _scalars(run_dir, "train_loss")]
     ips = [v for _, v in _scalars(run_dir, "images_per_sec")]
     # one eval batch per evaluation: after each epoch, at each eval_interval, and the final one
-    evals = steps + steps // EVAL_INTERVAL + 1
+    evals = epochs + steps // EVAL_INTERVAL + 1
     want = {k: per_step.get(k, 0) * steps + per_eval.get(k, 0) * evals
             for k in {**per_step, **per_eval}}
     artifacts = ["checkpoint_latest.pt", "optim_checkpoint_latest.pt", "checkpoints_tracker.csv",
@@ -1798,8 +1828,8 @@ def ddp_worker(argv) -> int:
         shapes[key] = shapes.get(key, 0) + 1
         return launch(name, fn, pointers, ints, device)
 
-    def recorded_step(state, batch, compute_dtype):
-        loss = train_step(state, batch, compute_dtype)
+    def recorded_step(state, batch, *args):
+        loss = train_step(state, batch, *args)
         losses.append(float(loss))
         return loss
 
@@ -1836,11 +1866,11 @@ def first_input_moved_one_ulp():
 
     step = loop.train_step
 
-    def moved(state, batch, compute_dtype):
+    def moved(state, batch, *args):
         if state.step == 0:
             image = batch["image"]
             batch = {**batch, "image": torch.nextafter(image, torch.full_like(image, np.inf))}
-        return step(state, batch, compute_dtype)
+        return step(state, batch, *args)
 
     loop.train_step = moved
     try:
@@ -2041,6 +2071,747 @@ def ddp_phase(smi: str, lr: float = DDP_LR, steps: int = DDP_STEPS) -> dict:
             "card": smi}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 19: the CIFAR bench (cli.bench) and its kernel geometries
+# ---------------------------------------------------------------------------
+
+BENCH_BATCH, BENCH_IMAGE = 256, 32          # the bench's default batch, CIFAR's images
+# (subcommand and architecture, more flags): the bench runs of phase 19
+BENCH_WRN = ("wideresnet", "28", "10", "--attn")
+BENCH_SHORT = (("resnet", "50", "--attn"), ("densenet", "12", "100", "--attn"),
+               ("efficientnet", "b0"))
+BENCH_WRN_STEPS = 8                         # the --mini_data overfit (one step an epoch)
+BENCH_SHORT_EPOCHS = 2                      # --synthetic: 512 train images, 2 steps an epoch
+
+
+def bench_model(argv):
+    """The bench's model for a subcommand (f32, on the CPU, seeded 0) and
+    its geometries: AA convs as (H, W, dvh) and stride-1 depthwise convs as
+    (H, C, k), each in model order."""
+    from chexpert_tpu_torch.cli import bench
+    from chexpert_tpu_torch.models import AAConv2d
+    from chexpert_tpu_torch.models.efficientnet import DepthwiseConv
+
+    args = bench.build_parser().parse_args(list(argv) + ["--synthetic"])
+    model, _, _ = bench.build_bench_model(args, 100, 1)
+    aa = [(*m.input_dims, m.dv // m.nh) for m in model.modules() if isinstance(m, AAConv2d)]
+    dw = []
+    if any(isinstance(m, DepthwiseConv) for m in model.modules()):
+        dw = dw_stride1_layers(f"efficientnet-{args.architecture}", BENCH_IMAGE)
+    return model, aa, dw
+
+
+def _hil_inputs(H, W, dvh, batch, dtype, gen):
+    """(P, Rw, Rh, geo) of B5 / B6 at batch x NH heads, seeded."""
+    from chexpert_tpu_torch.ops.hil_attention import hil_rel_operand, hil_slot
+
+    hw, slot = H * W, hil_slot(DKH, dvh)
+    q = torch.randn(batch, hw, NH, DKH, generator=gen) * DKH ** -0.5
+    k = torch.randn(batch, hw, NH, DKH, generator=gen)
+    v = torch.randn(batch, hw, NH, dvh, generator=gen)
+    pad = torch.zeros(batch, hw, NH, slot - 2 * DKH - dvh)
+    P = torch.cat([q, k, v, pad], -1).reshape(batch, hw, NH * slot).to(DEVICE, dtype)
+    Rw = hil_rel_operand((torch.randn(DKH, 2 * W - 1, generator=gen) + DKH ** -0.5)
+                         .to(DEVICE), W).contiguous()
+    Rh = hil_rel_operand((torch.randn(DKH, 2 * H - 1, generator=gen) + DKH ** -0.5)
+                         .to(DEVICE), H).contiguous()
+    return P, Rw, Rh, (H, W, DKH, dvh, slot)
+
+
+def _rel_err(names, got, want) -> dict:
+    """max |got - want| / max(1, max |want|) per named output."""
+    return {n: ((g.float() - w.float()).abs().max()
+                / max(1.0, w.float().abs().max().item())).item()
+            for n, g, w in zip(names, got, want)}
+
+
+def bench_attention_rows(geos):
+    """B1, B2's two passes, B5 and B6's three passes at each (H, W, dvh) of
+    ``geos`` and BENCH_BATCH x NH heads, f32 and bf16, against their plain
+    versions within the bounds of phases 2, 3 and 11 (TOL on out and lse;
+    BWD_TOL on the backward relative to max(1, max |plain|)); bf16 device
+    times beside the plain versions, the library call
+    (scaled_dot_product_attention with the bias materialized; its backward
+    by the profiler) and the bound."""
+    from chexpert_tpu_torch.ops.fused_attention import (
+        attention_delta,
+        key_positions,
+        on_tensor_cores,
+        rel_attention_bwd,
+        rel_attention_bwd_dkdv,
+        rel_attention_bwd_dkdv_plain,
+        rel_attention_bwd_dq,
+        rel_attention_bwd_dq_plain,
+        rel_attention_bwd_plain,
+        rel_attention_fwd,
+        rel_attention_fwd_plain,
+    )
+    from chexpert_tpu_torch.ops.hil_attention import (
+        hil_attention_bwd,
+        hil_attention_bwd_dkdv,
+        hil_attention_bwd_dq,
+        hil_attention_bwd_drel,
+        hil_attention_bwd_plain,
+        hil_attention_delta,
+        hil_attention_fwd,
+        hil_attention_fwd_plain,
+    )
+
+    gen = torch.Generator().manual_seed(19)
+    batch, slow = BENCH_BATCH, {"reps": 5, "inner": 3}
+    rows = []
+    for H, W, dvh in geos:
+        hw, bn, L = H * W, batch * NH, DKH + W + H
+        pairs = bn * hw * hw
+        for dtype in (torch.float32, torch.bfloat16):
+            es = torch.finfo(dtype).bits // 8
+            timed = dtype == torch.bfloat16
+            row = {"geometry": f"{H}x{W}", "H": H, "W": W, "dvh": dvh, "bn": bn,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "tensor_cores": on_tensor_cores(dtype, H, W)}
+            # head-major: B1, B2
+            qr, k, v = kernel_inputs(H, W, dvh, dtype, gen, batch=batch)
+            out, lse = rel_attention_fwd(qr, k, v, H, W, DKH)
+            torch.cuda.synchronize()
+            out_p, lse_p = rel_attention_fwd_plain(qr, k, v, H, W, DKH)
+            b1_err = {"out": (out.float() - out_p.float()).abs().max().item(),
+                      "lse": (lse - lse_p).abs().max().item()}
+            del out_p, lse_p
+            dout = torch.randn(out.shape, generator=gen).to(DEVICE, dtype)
+            got = rel_attention_bwd(qr, k, v, out, lse, dout, H, W, DKH)
+            torch.cuda.synchronize()
+            b2_err = _rel_err(("dqr", "dk", "dv"), got,
+                              rel_attention_bwd_plain(qr, k, v, out, lse, dout, H, W, DKH))
+            finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, lse, *got))
+            del got
+            row["b1"] = {"abs_err": b1_err}
+            row["b2"] = {"rel_err": b2_err}
+            if timed:
+                col, krow = key_positions(hw, W, qr.device)
+                bias = (qr[..., DKH:DKH + W][..., col] + qr[..., DKH + W:][..., krow]).contiguous()
+                q = qr[..., :DKH].contiguous()
+                delta = attention_delta(out, dout)
+                args = (qr, k, v, dout, lse, delta, H, W, DKH)
+                leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+                lib_out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3],
+                                                         scale=1.0)
+                ins = (qr.numel() + k.numel() + v.numel() + dout.numel()) * es + 2 * bn * hw * 4
+                row["b1"].update({
+                    "ms": device_ms(lambda: rel_attention_fwd(qr, k, v, H, W, DKH)),
+                    "plain_ms": device_ms(lambda: rel_attention_fwd_plain(qr, k, v, H, W, DKH),
+                                          **slow),
+                    "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=bias, scale=1.0)),
+                    **b1_bound(bn, H, W, dvh, dtype)})
+                lib_bwd = profiled_device_ms(
+                    lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True))
+                row["b2"].update({
+                    "dkdv": {"ms": device_ms(lambda: rel_attention_bwd_dkdv(*args), **slow),
+                             "plain_ms": device_ms(lambda: rel_attention_bwd_dkdv_plain(*args),
+                                                   **slow),
+                             **bound(ins + (k.numel() + v.numel()) * es,
+                                     pairs * (4 * DKH + 4 * dvh + 4), dtype, pairs)},
+                    "dq": {"ms": device_ms(lambda: rel_attention_bwd_dq(*args), **slow),
+                           "plain_ms": device_ms(lambda: rel_attention_bwd_dq_plain(*args),
+                                                 **slow),
+                           **bound(ins + bn * hw * L * es, pairs * (4 * DKH + 2 * dvh + 6),
+                                   dtype, pairs)},
+                    "library_ms": lib_bwd})
+                del bias, q, delta, args, leaves, lib_out
+            del qr, k, v, out, lse, dout
+            # heads-in-lanes: B5, B6
+            P, Rw, Rh, geo = _hil_inputs(H, W, dvh, batch, dtype, gen)
+            out, lse = hil_attention_fwd(P, Rw, Rh, *geo)
+            torch.cuda.synchronize()
+            out_p, lse_p = hil_attention_fwd_plain(P, Rw, Rh, *geo)
+            b5_err = {"out": (out.float() - out_p.float()).abs().max().item(),
+                      "lse": (lse - lse_p).abs().max().item()}
+            del out_p, lse_p
+            dout = torch.randn(out.shape, generator=gen).to(DEVICE, dtype)
+            got = hil_attention_bwd(P, Rw, Rh, out, lse, dout, *geo)
+            torch.cuda.synchronize()
+            b6_err = _rel_err(("dP", "dRw", "dRh"), got,
+                              hil_attention_bwd_plain(P, Rw, Rh, out, lse, dout, *geo))
+            pads = got[0].view(batch, hw, NH, geo[4])[..., 2 * DKH + dvh:]
+            finite = (finite and int(torch.count_nonzero(pads)) == 0
+                      and all(bool(torch.isfinite(t.float()).all()) for t in (out, lse, *got)))
+            del got, pads
+            row["b5"] = {"abs_err": b5_err}
+            row["b6"] = {"rel_err": b6_err}
+            if timed:
+                tok, slot = batch * NH * hw, geo[4]
+                rel_bytes = (Rw.numel() + Rh.numel()) * 4
+                delta = hil_attention_delta(out, dout, NH)
+                dP = torch.empty_like(P)
+                args = (P, Rw, Rh, dout, lse, delta, dP, *geo)
+                drc, rc = hil_attention_bwd_dq(*args)
+                ins = (P.numel() + dout.numel()) * es + 2 * tok * 4
+                rc_bytes = tok * (W + H) * 4
+                row["b5"].update({
+                    "ms": device_ms(lambda: hil_attention_fwd(P, Rw, Rh, *geo)),
+                    "plain_ms": device_ms(lambda: hil_attention_fwd_plain(P, Rw, Rh, *geo),
+                                          **slow),
+                    **bound(P.numel() * es + rel_bytes + out.numel() * es + lse.numel() * 4,
+                            tok * hw * (2 * DKH + 4 + 2 * dvh) + tok * (W + H) * 2 * DKH,
+                            dtype, tok * hw)})
+                row["b6"].update({
+                    "dq": {"ms": device_ms(lambda: hil_attention_bwd_dq(*args), **slow),
+                           **bound(ins + rel_bytes + P.numel() * es * DKH / slot + 2 * rc_bytes,
+                                   pairs * (4 * DKH + 2 * dvh + 6) + tok * (W + H) * 4 * DKH,
+                                   dtype, pairs)},
+                    "dkdv": {"ms": device_ms(lambda: hil_attention_bwd_dkdv(*args, rc=rc),
+                                             **slow),
+                             **bound(ins + rc_bytes + P.numel() * es * (slot - DKH) / slot,
+                                     pairs * (4 * DKH + 4 * dvh + 4), dtype, pairs)},
+                    "drel": {"ms": device_ms(lambda: hil_attention_bwd_drel(P, drc, H, W, DKH,
+                                                                            slot)),
+                             **bound(P.numel() * es * DKH / slot + rc_bytes + rel_bytes,
+                                     tok * (W + H) * 2 * DKH, dtype)},
+                    "plain_ms": device_ms(
+                        lambda: hil_attention_bwd_plain(P, Rw, Rh, out, lse, dout, *geo), **slow)})
+                del delta, dP, args, drc, rc
+            del P, Rw, Rh, out, lse, dout
+            torch.cuda.empty_cache()
+            row["ok"] = (finite and max(max(b1_err.values()), max(b5_err.values())) <= TOL[dtype]
+                         and max(max(b2_err.values()), max(b6_err.values())) <= BWD_TOL[dtype])
+            rows.append(row)
+            times = ""
+            if timed:
+                times = (f"; device ms B1 {row['b1']['ms']:.4f} (plain {row['b1']['plain_ms']:.4f}"
+                         f", library {row['b1']['library_ms']:.4f}, bound "
+                         f"{row['b1']['bound_ms']:.5f}) B2 dkdv {row['b2']['dkdv']['ms']:.4f} dq "
+                         f"{row['b2']['dq']['ms']:.4f} (library bwd {row['b2']['library_ms']:.4f})"
+                         f" B5 {row['b5']['ms']:.4f} (bound {row['b5']['bound_ms']:.5f}) B6 dq "
+                         f"{row['b6']['dq']['ms']:.4f} dkdv {row['b6']['dkdv']['ms']:.4f} drel "
+                         f"{row['b6']['drel']['ms']:.4f}")
+            print(f"kernel bench attention {H}x{W} dvh={dvh} bn={bn} {row['dtype']} (tensor "
+                  f"cores {row['tensor_cores']}): B1 err "
+                  f"{ {n: float(f'{e:.3g}') for n, e in b1_err.items()} } B5 err "
+                  f"{ {n: float(f'{e:.3g}') for n, e in b5_err.items()} } (tol {TOL[dtype]}); "
+                  f"B2 rel err { {n: float(f'{e:.3g}') for n, e in b2_err.items()} } B6 rel err "
+                  f"{ {n: float(f'{e:.3g}') for n, e in b6_err.items()} } (tol "
+                  f"{BWD_TOL[dtype]}){times}", flush=True)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"an attention kernel disagrees with its plain version at a "
+                             f"bench geometry: {bad}")
+    return rows
+
+
+def bench_depthwise_rows(geos):
+    """B3 and B4 at each (H, C, k) of ``geos`` and BENCH_BATCH, f32 and bf16,
+    against their plain versions within DW_TOL / DW_W_TOL (as phase 7);
+    bf16 device times beside the plain versions, the library calls and the
+    bound."""
+    from chexpert_tpu_torch.ops.depthwise import (
+        depthwise_bwd,
+        depthwise_bwd_plain,
+        depthwise_fwd,
+        depthwise_fwd_plain,
+    )
+
+    gen = torch.Generator().manual_seed(20)
+    batch, rows = BENCH_BATCH, []
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max().clamp_min(1e-30)).item()
+
+    for H, C, k in geos:
+        p = k // 2
+        for dtype in (torch.float32, torch.bfloat16):
+            es = torch.finfo(dtype).bits // 8
+            x = torch.randn(batch, C, H, H, generator=gen).to(DEVICE, dtype)
+            g = torch.randn(batch, C, H, H, generator=gen).to(DEVICE, dtype)
+            w = (torch.randn(C, 1, k, k, generator=gen) * 0.2).to(DEVICE)
+            y = depthwise_fwd(x, w)
+            dx, dw = depthwise_bwd(x, w, g)
+            torch.cuda.synchronize()
+            dx_p, dw_p = depthwise_bwd_plain(x, w, g)
+            err = {"y": rel(y, depthwise_fwd_plain(x, w)), "dx": rel(dx, dx_p),
+                   "dw": rel(dw, dw_p)}
+            finite = all(bool(torch.isfinite(t.float()).all()) for t in (y, dx, dw))
+            row = {"geometry": f"{H}x{H}", "C": C, "k": k, "batch": batch,
+                   "dtype": str(dtype).replace("torch.", ""), "rel_err": err,
+                   "ok": (finite and err["y"] <= DW_TOL[dtype] and err["dx"] <= DW_TOL[dtype]
+                          and err["dw"] <= DW_W_TOL)}
+            del y, dx, dw, dx_p, dw_p
+            if dtype == torch.bfloat16:
+                w_lib, n = w.to(dtype), x.numel()
+                row["fwd"] = {
+                    "ms": device_ms(lambda: depthwise_fwd(x, w)),
+                    "plain_ms": device_ms(lambda: depthwise_fwd_plain(x, w)),
+                    "library_ms": device_ms(lambda: F.conv2d(x, w_lib, padding=p, groups=C)),
+                    **bound(2 * n * es + w.numel() * 4, 2 * k * k * n, torch.float32)}
+                row["bwd"] = {
+                    "ms": device_ms(lambda: depthwise_bwd(x, w, g)),
+                    "plain_ms": device_ms(lambda: depthwise_bwd_plain(x, w, g)),
+                    "library_ms": device_ms(lambda: torch.ops.aten.convolution_backward(
+                        g, x, w_lib, None, [1, 1], [p, p], [1, 1], False, [0, 0], C,
+                        [True, True, False])),
+                    **bound(3 * n * es + 2 * w.numel() * 4, 4 * k * k * n, torch.float32)}
+            rows.append(row)
+            times = ("" if "fwd" not in row else
+                     f"; device ms B3 {row['fwd']['ms']:.4f} (plain {row['fwd']['plain_ms']:.4f}, "
+                     f"library {row['fwd']['library_ms']:.4f}, bound "
+                     f"{row['fwd']['bound_ms']:.5f}) B4 {row['bwd']['ms']:.4f} (plain "
+                     f"{row['bwd']['plain_ms']:.4f}, library {row['bwd']['library_ms']:.4f}, "
+                     f"bound {row['bwd']['bound_ms']:.5f})")
+            print(f"kernel bench depthwise {H}x{H} C={C} k={k} batch {batch} {row['dtype']}: "
+                  f"rel err { {n: float(f'{e:.3g}') for n, e in err.items()} } (tol "
+                  f"{DW_TOL[dtype]}, dw {DW_W_TOL}){times}", flush=True)
+            del x, g, w
+            torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"B3 or B4 disagrees with its plain version at a bench geometry: "
+                             f"{bad}")
+    return rows
+
+
+def bench_layer_phase(argv, layout, per_layer: dict) -> dict:
+    """f32, TF32 off, at the bench's batch: one train-mode forward and
+    backward of the bench model on the plain route (einsum attention,
+    library depthwise) captures each AA conv's and stride-1 depthwise conv's
+    input and upstream gradient; then each such layer alone, on the kernel
+    route (attention in ``layout``) and on the plain route, from that input
+    and gradient. The output and every gradient (input and parameters) must
+    agree within GRAD_TOL of the largest value, as phases 6, 10 and 14 gate;
+    each layer's kernel route launches ``per_layer``. A gradient that is
+    zero on the plain route (the relative embeddings of a 1x1 map, where the
+    softmax has one key and every logit's gradient is 0) is held to
+    GRAD_TOL of the layer's largest gradient: the kernels round ds = p (dp -
+    delta) to f32 noise there, not to 0."""
+    import copy
+
+    from chexpert_tpu_torch import kernels
+    from chexpert_tpu_torch.models import AAConv2d
+    from chexpert_tpu_torch.models.efficientnet import DepthwiseConv
+
+    torch.backends.cudnn.deterministic = True
+    model, aa, dw = bench_model(argv)
+    model = model.to(DEVICE).train()
+
+    def sites():
+        for name, mod in model.named_modules():
+            if isinstance(mod, AAConv2d):
+                yield name, mod, "attn_impl", "einsum", "pallas"
+            elif isinstance(mod, DepthwiseConv) and mod.stride == 1:
+                yield name, mod, "dw_impl", "library", "kernel"
+
+    captured, handles = [], []
+    for name, mod, attr, plain, kernel in sites():
+        setattr(mod, attr, plain)
+
+        def hook(m, inputs, out, name=name, attr=attr, plain=plain, kernel=kernel):
+            rec = {"module": m, "name": name, "attr": attr, "routes": (plain, kernel),
+                   "x": inputs[0].detach().clone()}
+            out.register_hook(lambda g: rec.__setitem__("g", g.detach().clone()))
+            captured.append(rec)
+        handles.append(mod.register_forward_hook(hook))
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(BENCH_BATCH, 3, BENCH_IMAGE, BENCH_IMAGE, generator=gen).to(DEVICE)
+    y = torch.randint(0, 100, (BENCH_BATCH,), generator=gen).to(DEVICE)
+    kernels.reset_launch_counts()
+    F.cross_entropy(model(x, generator=torch.Generator(device=DEVICE).manual_seed(0)),
+                    y).backward()
+    torch.cuda.synchronize()
+    plain_counts = kernels.launch_counts()
+    for h in handles:
+        h.remove()
+    del model
+    err, counts, zero_ref = {}, [], []
+    for rec in captured:
+        res = {}
+        for route in rec["routes"]:
+            mod = copy.deepcopy(rec["module"])
+            setattr(mod, rec["attr"], route)
+            if rec["attr"] == "attn_impl":
+                mod.attn_layout = layout
+            xi = rec["x"].clone().requires_grad_()
+            kernels.reset_launch_counts()
+            out = mod(xi)
+            out.backward(rec["g"])
+            torch.cuda.synchronize()
+            if route == rec["routes"][1]:
+                counts.append(kernels.launch_counts())
+            res[route] = {"out": out.detach(), "x": xi.grad,
+                          **{n: p.grad for n, p in mod.named_parameters()}}
+            del mod, xi, out
+        got, ref = res[rec["routes"][1]], res[rec["routes"][0]]
+        layer_scale = max(t.abs().max().item() for t in ref.values())
+        for n in ref:
+            scale = ref[n].abs().max().item()
+            if scale == 0.0:  # analytically zero: softmax over one key
+                zero_ref.append(f"{rec['name']}.{n}")
+                scale = layer_scale
+            err[f"{rec['name']}.{n}"] = (got[n] - ref[n]).abs().max().item() / scale
+        del res, got, ref
+    n_sites = len(aa) + len(dw)
+    checks = {"plain_route_no_launch": plain_counts == {},
+              "layers_captured": len(captured) == n_sites and n_sites > 0,
+              "layer_launches": counts == [per_layer] * n_sites,
+              "layers_within_tol": max(err.values()) <= GRAD_TOL}
+    worst = max(err, key=err.get)
+    print(f"bench layers {' '.join(argv)} layout {layout} f32 batch {BENCH_BATCH}: {n_sites} "
+          f"layers (AA {aa}, depthwise {dw}), kernel vs plain route on the captured input and "
+          f"upstream grad: worst max|d|/max {err[worst]:.3g} ({worst}), median "
+          f"{statistics.median(err.values()):.3g}, tol {GRAD_TOL} (zero on the plain route, "
+          f"held to the layer's largest gradient: {zero_ref}); checks {checks}", flush=True)
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"bench layer checks failed for {argv} {layout}: {checks}")
+    return {"layers": n_sites, "worst": err[worst], "worst_tensor": worst,
+            "median": statistics.median(err.values()), "zero_on_plain_route": zero_ref}
+
+
+def bench_run(argv, layout, smi: str, per_step: dict, per_eval: dict, steps: int,
+              extra=(), profile_steps=(2, 4)) -> dict:
+    """cli.bench.main on the card, bf16, at the bench's batch, with
+    ``--synthetic``. Each train step, eval forward and the attention capture
+    are wrapped to read the launches they make; each step is timed on the
+    host clock between synchronizations, and steps ``profile_steps`` run
+    under the profiler for the device time per step. Gates: ``steps``
+    steps, finite losses, ``per_step`` launches per step, ``per_eval`` per
+    eval forward, none on the capture. Where matplotlib is missing the
+    attention maps are captured and not drawn: ``save_attn_maps`` is
+    replaced by a recorder of the weights' shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chexpert_tpu_torch import interpret, kernels
+    from chexpert_tpu_torch.cli import bench
+
+    rec = {"step": [], "eval": [], "capture": [], "ms": [], "device_ms": [], "wall_ms": [],
+           "top_kernels_ms": []}
+
+    def counted(kind, fn):
+        def run(*a, **kw):
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            prof = None
+            if kind == "step" and len(rec["step"]) in range(*profile_steps):
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                avgs = prof.key_averages()
+                attr = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
+                        else "self_cuda_time_total")
+                dev = sorted(((getattr(e, attr) / 1e3, e.key) for e in avgs
+                              if e.device_type == torch.autograd.DeviceType.CUDA
+                              and not getattr(e, "is_user_annotation", False)), reverse=True)
+                rec["device_ms"].append(sum(t for t, _ in dev))
+                rec["top_kernels_ms"].append([(name[:80], t) for t, name in dev[:8]])
+                rec["wall_ms"].append(ms)
+            elif kind == "step":
+                rec["ms"].append(ms)
+            after = kernels.launch_counts()
+            rec[kind].append({k: after[k] - before.get(k, 0) for k in after
+                              if after[k] != before.get(k, 0)})
+            return out
+        return run
+
+    originals = (bench.train_step, bench.eval_logits, interpret.capture_attention_weights,
+                 interpret.save_attn_maps)
+    bench.train_step = counted("step", bench.train_step)
+    bench.eval_logits = counted("eval", bench.eval_logits)
+    interpret.capture_attention_weights = counted("capture", interpret.capture_attention_weights)
+    rendered = importlib.util.find_spec("matplotlib") is not None
+    maps = []
+    if not rendered:  # no matplotlib on this host: keep what would be drawn
+        interpret.save_attn_maps = lambda x, w, *a, **kw: maps.append(
+            [tuple(t.shape) for t in w])
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT) as d, attn_layout_env(layout):
+            run_dir = os.path.join(d, "bench")
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            bench.main([*argv, "--synthetic", "--train", "--device", DEVICE,
+                        "--output_dir", run_dir, "--log_interval", "1", *extra])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            losses = [v for _, v in _scalars(run_dir, "train_loss")]
+            evals = {t: [v for _, v in _scalars(run_dir, t)]
+                     for t in ("eval_loss", "acc@top1", "acc@top5")}
+            vis = sorted(os.listdir(os.path.join(run_dir, "vis"))) if os.path.isdir(
+                os.path.join(run_dir, "vis")) else []
+            artifacts = all(os.path.exists(os.path.join(run_dir, a)) for a in
+                            ("config.json", "scalars.jsonl", "checkpoint.pt",
+                             "optim_checkpoint.pt"))
+    finally:
+        (bench.train_step, bench.eval_logits, interpret.capture_attention_weights,
+         interpret.save_attn_maps) = originals
+    steady = rec["ms"][1:] or rec["ms"]  # the first step builds kernels' tables, plans cuDNN
+    ms_step = statistics.median(steady)
+    device_step = statistics.median(rec["device_ms"]) if rec["device_ms"] else float("nan")
+    checks = {
+        "steps": len(rec["step"]) == steps and len(losses) == steps,
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "launches_per_step": rec["step"] == [per_step] * steps,
+        "launches_per_eval_forward": rec["eval"] == [per_eval] * len(rec["eval"])
+                                     and len(rec["eval"]) > 0,
+        "no_launch_on_capture": all(c == {} for c in rec["capture"]),
+        "vis_attn": "--vis_attn" not in extra or (
+            len(rec["capture"]) == 1 and (len(vis) > 0 if rendered else len(maps) == 8)),
+        "artifacts": artifacts,
+    }
+    out = {"argv": list(argv), "layout": layout or "bn", "losses": losses, "evals": evals,
+           "counts": counts, "per_step_launches": per_step, "per_eval_launches": per_eval,
+           "eval_forwards": len(rec["eval"]), "captures": len(rec["capture"]),
+           "ms_per_step": ms_step, "step_ms": rec["ms"],
+           "device_ms_per_step": device_step, "profiled_wall_ms": rec["wall_ms"],
+           "top_kernels_ms": rec["top_kernels_ms"],
+           "busy_share": device_step / ms_step, "images_per_sec": BENCH_BATCH / ms_step * 1e3,
+           "peak_gib": peak_gib, "wall_s": wall_s, "vis_files": len(vis),
+           "attn_maps_rendered": rendered, "attn_maps_unrendered": maps, "card": smi}
+    print(f"bench {' '.join(argv)} {' '.join(extra)} layout {out['layout']} bf16 batch "
+          f"{BENCH_BATCH}: losses {[round(x, 4) for x in losses]}; eval {evals}; launches per "
+          f"step {rec['step'][-1] if rec['step'] else {}} (want {per_step}), per eval forward "
+          f"{rec['eval'][-1] if rec['eval'] else {}} (want {per_eval}), {len(rec['capture'])} "
+          f"captures; {ms_step:.2f} ms/step (median after the first; steps "
+          f"{[round(t, 2) for t in rec['ms']]}), device {device_step:.2f} ms/step (profiler), "
+          f"busy {out['busy_share']:.3f}, {out['images_per_sec']:.1f} img/s, peak "
+          f"{peak_gib:.2f} GiB, wall {wall_s:.1f} s, {len(vis)} vis files (matplotlib "
+          f"{'present' if rendered else f'absent: {len(maps)} calls kept'}), on {smi}; checks "
+          f"{checks}; top device kernels of the profiled step (ms) "
+          f"{[(n, round(t, 3)) for n, t in (rec['top_kernels_ms'] or [[]])[-1]]}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"bench {argv} {layout} checks failed: {checks}")
+    return out
+
+
+def bench_phase(smi: str) -> dict:
+    """Phase 19: the kernels at every geometry of the bench runs, each bench
+    layer on the kernel route against the plain route, then the bench runs
+    themselves through cli.bench.main."""
+    from chexpert_tpu_torch.ops.depthwise import BWD as DW_BWD
+    from chexpert_tpu_torch.ops.depthwise import FWD as DW_FWD
+    from chexpert_tpu_torch.ops.fused_attention import BWD_DKDV, BWD_DQ, NAME
+    from chexpert_tpu_torch.ops.hil_attention import BWD_PASSES as HIL_PASSES
+    from chexpert_tpu_torch.ops.hil_attention import FWD as HIL_FWD
+
+    geos = {}
+    for argv in (BENCH_WRN, *BENCH_SHORT):
+        _, aa, dw = bench_model(argv)
+        geos[" ".join(argv)] = {"aa": aa, "dw": dw}
+    attn_geos = list(dict.fromkeys(g for m in geos.values() for g in m["aa"]))
+    dw_geos = list(dict.fromkeys(g for m in geos.values() for g in m["dw"]))
+    print(f"bench geometries at {BENCH_IMAGE}x{BENCH_IMAGE}, batch {BENCH_BATCH}: {geos}",
+          flush=True)
+    attn_rows = bench_attention_rows(attn_geos)
+    dw_rows = bench_depthwise_rows(dw_geos)
+
+    def launches(argv, layout):
+        n_aa, n_dw = len(geos[" ".join(argv)]["aa"]), len(geos[" ".join(argv)]["dw"])
+        if n_dw:
+            return {DW_FWD: n_dw, DW_BWD: n_dw}, {DW_FWD: n_dw}, {DW_FWD: 1, DW_BWD: 1}
+        if layout == "hil":
+            return ({HIL_FWD: n_aa, **{p: n_aa for p in HIL_PASSES}}, {HIL_FWD: n_aa},
+                    {HIL_FWD: 1, **{p: 1 for p in HIL_PASSES}})
+        return ({NAME: n_aa, BWD_DKDV: n_aa, BWD_DQ: n_aa}, {NAME: n_aa},
+                {NAME: 1, BWD_DKDV: 1, BWD_DQ: 1})
+
+    cases = [(BENCH_WRN, "bn"), (BENCH_WRN, "hil")] + [(a, "bn") for a in BENCH_SHORT]
+    layers = {f"{' '.join(a)} {lay}": bench_layer_phase(a, lay, launches(a, lay)[2])
+              for a, lay in cases}
+    runs = {}
+    for argv, layout in cases:
+        per_step, per_eval, _ = launches(argv, layout)
+        if argv == BENCH_WRN:
+            runs[f"{' '.join(argv)} {layout}"] = bench_run(
+                argv, layout, smi, per_step, per_eval, BENCH_WRN_STEPS,
+                extra=("--mini_data", "--n_epochs", str(BENCH_WRN_STEPS), "--lr_warmup_epochs",
+                       "0", "--evaluate", "--vis_attn"))
+            losses = runs[f"{' '.join(argv)} {layout}"]["losses"]
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"bench {argv} {layout}: the overfit loss did not fall: "
+                                     f"{losses}")
+        else:
+            runs[f"{' '.join(argv)} {layout}"] = bench_run(
+                argv, layout, smi, per_step, per_eval, 2 * BENCH_SHORT_EPOCHS,
+                extra=("--n_epochs", str(BENCH_SHORT_EPOCHS)), profile_steps=(2, 3))
+    return {"geometries": geos, "attention_rows": attn_rows, "depthwise_rows": dw_rows,
+            "layers": layers, "runs": runs}
+
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the fast input path (packed cache, native decode, device crop,
+# --profile) and --pretrained
+# ---------------------------------------------------------------------------
+
+PROFILE_BATCHES = 4                         # phase 20(c): train batches an epoch, 2 epochs
+PIPELINE_EPOCHS = 3                         # epochs the input pipelines are timed over
+
+
+def pipeline_ms(make, epochs: int = PIPELINE_EPOCHS) -> float:
+    """Median host ms per batch of iterating ``make(epoch)``'s batches (the
+    pipeline alone, no device): every batch of ``epochs`` epochs, the first
+    epoch's first batch (pool start-up, page cache) left out."""
+    times = []
+    for epoch in range(epochs):
+        it = iter(make(epoch))
+        while True:
+            t0 = time.perf_counter()
+            try:
+                next(it)
+            except StopIteration:
+                break
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def input_phase(smi: str, phase5_ms: float) -> dict:
+    """Phase 20 on phase 5's model and fixture: aadensenet121 320x320 bf16
+    batch 16 through cli.chexpert.main with (a) --packed_cache, (b)
+    --packed_cache --data_aug --device_aug (the crop and flip in the train
+    step: every step's batch arrives as 352x352 stored tiles) and (c) (a)
+    with --profile over 2 epochs of PROFILE_BATCHES steps (the trace opens
+    before step 3 and closes at the epoch's end): phase 5's launches per
+    step and eval forward, falling loss, and (c) a trace file. The input
+    pipelines timed alone, ms per batch: Batches (JPEG decode, host
+    augment), PackedBatches (host crop) and PackedBatches(emit_stored=True);
+    the decoder that ran. Then --pretrained: a seeded densenet121 saved in
+    the legacy torchvision format (norm.1 / conv.2 keys, an ImageNet head,
+    no num_batches_tracked) as $CHEXPERT_TPU_PRETRAINED_DIR/densenet121.pth,
+    one train step of densenet121 --pretrained: the parameters and
+    statistics the step starts from equal the file's, the head excepted."""
+    from chexpert_tpu_torch import native
+    from chexpert_tpu_torch.data import Batches, ChexpertIndex, make_synthetic_dataset
+    from chexpert_tpu_torch.data.chexpert import DIR_NAME
+    from chexpert_tpu_torch.data.packed import PackedBatches, build_packed_cache
+    from chexpert_tpu_torch.models import build_model, normalize_state_dict
+    from chexpert_tpu_torch.ops.fused_attention import BWD_DKDV, BWD_DQ, NAME
+    from chexpert_tpu_torch.train import loop, steps
+
+    per_step, per_eval = {NAME: 3, BWD_DKDV: 3, BWD_DQ: 3}, {NAME: 3}
+    out = {"decoder": "native libjpeg" if native.available() else "PIL", "card": smi}
+    crops = []
+    augment = steps.device_augment
+
+    def counting_augment(img, generator, size):
+        crops.append(tuple(img.shape))
+        return augment(img, generator, size)
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        make_synthetic_dataset(d, n_train=B_TRAIN, n_valid=B_TRAIN, image_size=IMAGE)
+        out["a_packed"] = train_phase(d, smi, "aadensenet121", IMAGE, TRAIN_LR, per_step,
+                                      per_eval, run="run_packed", extra=("--packed_cache",))
+        steps.device_augment = counting_augment
+        try:
+            out["b_packed_device_aug"] = train_phase(
+                d, smi, "aadensenet121", IMAGE, TRAIN_LR, per_step, per_eval, run="run_dev_aug",
+                extra=("--packed_cache", "--data_aug", "--device_aug"))
+        finally:
+            steps.device_augment = augment
+        stored = (B_TRAIN, IMAGE + 32, IMAGE + 32, 1)
+        if crops != [stored] * TRAIN_STEPS:
+            raise AssertionError(f"phase 20(b): device_augment saw {crops}, not {TRAIN_STEPS} "
+                                 f"batches of {stored}")
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        make_synthetic_dataset(d, n_train=PROFILE_BATCHES * B_TRAIN, n_valid=B_TRAIN,
+                               image_size=IMAGE)
+        c = train_phase(d, smi, "aadensenet121", IMAGE, TRAIN_LR, per_step, per_eval,
+                        steps=2 * PROFILE_BATCHES, epochs=2, run="run_profile",
+                        extra=("--packed_cache", "--profile"))
+        trace = os.path.join(d, "run_profile", "profile", "trace.json")
+        c["trace_bytes"] = os.path.getsize(trace) if os.path.exists(trace) else 0
+        if not c["trace_bytes"]:
+            raise AssertionError(f"phase 20(c): no trace at {trace}")
+        out["c_packed_profile"] = c
+        # the input pipelines alone, on the train split at batch 16 (host clock)
+        index = ChexpertIndex(d, "train")
+        cache = os.path.join(d, DIR_NAME, "packed")
+        tiles = build_packed_cache(index, cache, image_size=IMAGE, pack_margin=32)
+        centre = build_packed_cache(index, cache, image_size=IMAGE, pack_margin=0)
+        out["pipeline_ms_per_batch"] = {
+            "Batches (JPEG, host augment)": pipeline_ms(lambda e: Batches(
+                index, B_TRAIN, shuffle=True, augment=True, image_size=IMAGE, epoch=e,
+                drop_last=True)),
+            "Batches (JPEG)": pipeline_ms(lambda e: Batches(
+                index, B_TRAIN, shuffle=True, image_size=IMAGE, epoch=e, drop_last=True)),
+            "PackedBatches (host crop)": pipeline_ms(lambda e: PackedBatches(
+                index, tiles, B_TRAIN, image_size=IMAGE, shuffle=True, augment=True, epoch=e,
+                drop_last=True)),
+            "PackedBatches (centre)": pipeline_ms(lambda e: PackedBatches(
+                index, centre, B_TRAIN, image_size=IMAGE, shuffle=True, epoch=e,
+                drop_last=True)),
+            "PackedBatches(emit_stored=True)": pipeline_ms(lambda e: PackedBatches(
+                index, tiles, B_TRAIN, image_size=IMAGE, shuffle=True, emit_stored=True,
+                epoch=e, drop_last=True)),
+        }
+    # --pretrained
+    start = []
+    step_fn = loop.train_step
+
+    def first_step(state, *a, **kw):
+        if not start:
+            start.append({k: v.detach().cpu().clone() for k, v in
+                          state.model.state_dict().items()})
+        return step_fn(state, *a, **kw)
+
+    ref = build_model("densenet121", generator=torch.Generator().manual_seed(1)).state_dict()
+    legacy = {}
+    for k, v in ref.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        k = k.replace("norm1.", "norm.1.").replace("norm2.", "norm.2.").replace(
+            "conv1.", "conv.1.").replace("conv2.", "conv.2.") if "denselayer" in k else k
+        legacy[k] = v
+    legacy["classifier.weight"] = torch.randn(1000, ref["classifier.weight"].shape[1])
+    legacy["classifier.bias"] = torch.zeros(1000)
+    old_env = os.environ.get("CHEXPERT_TPU_PRETRAINED_DIR")
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        torch.save(legacy, os.path.join(d, "densenet121.pth"))
+        os.environ["CHEXPERT_TPU_PRETRAINED_DIR"] = d
+        make_synthetic_dataset(d, n_train=B_TRAIN, n_valid=B_TRAIN, image_size=IMAGE)
+        loop.train_step = first_step
+        try:
+            from chexpert_tpu_torch.cli.chexpert import main as cli_main
+
+            cli_main(["--train", "--pretrained", "--data_path", d, "--output_dir",
+                      os.path.join(d, "run"), "--model", "densenet121", "--image_size",
+                      str(IMAGE), "--batch_size", str(B_TRAIN), "--n_epochs", "1",
+                      "--log_interval", "1", "--eval_interval", "0", "--device", DEVICE])
+        finally:
+            loop.train_step = step_fn
+            if old_env is None:
+                os.environ.pop("CHEXPERT_TPU_PRETRAINED_DIR", None)
+            else:
+                os.environ["CHEXPERT_TPU_PRETRAINED_DIR"] = old_env
+        loaded = normalize_state_dict(legacy, "densenet121")
+        compared = [k for k in ref if not k.startswith("classifier.")
+                    and not k.endswith("num_batches_tracked")]
+        diff = max((start[0][k] - loaded[k]).abs().max().item() for k in compared)
+        head_kept = start[0]["classifier.weight"].shape == ref["classifier.weight"].shape
+        losses = [v for _, v in _scalars(os.path.join(d, "run"), "train_loss")]
+    out["pretrained"] = {"tensors_compared": len(compared), "max_abs_diff": diff,
+                         "head_is_the_models": head_kept, "losses": losses}
+    print(f"pretrained densenet121 {IMAGE}x{IMAGE}: {len(compared)} tensors of the legacy "
+          f"torchvision file against the step's start, max |d| {diff:.3g}; head kept "
+          f"{head_kept}; loss {losses}", flush=True)
+    if not (diff == 0.0 and head_kept and len(losses) == 1 and np.isfinite(losses).all()):
+        raise AssertionError(f"phase 20 --pretrained failed: {out['pretrained']}")
+    ms = {"phase 5 (JPEG)": phase5_ms, "(a) --packed_cache": out["a_packed"]["ms_per_step"],
+          "(b) --packed_cache --data_aug --device_aug":
+              out["b_packed_device_aug"]["ms_per_step"]}
+    out["ms_per_step"] = ms
+    print(f"input path aadensenet121 {IMAGE}x{IMAGE} bf16 batch {B_TRAIN}, decoder "
+          f"{out['decoder']}: pipeline alone ms per batch "
+          f"{ {k: round(v, 3) for k, v in out['pipeline_ms_per_batch'].items()} }; train ms/step "
+          f"{ {k: round(v, 2) for k, v in ms.items()} }; (c) trace {c['trace_bytes']} bytes; "
+          f"on {smi}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2172,6 +2943,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     multiprocess = {"world1_nccl": nccl_world1_phase(smi, train["ms_per_step"])}
     multiprocess.update(ddp_phase(smi))
+    bench = bench_phase(smi)  # phase 19
+    torch.cuda.empty_cache()
+    inputs = input_phase(smi, train["ms_per_step"])  # phase 20
+    torch.cuda.empty_cache()
     paths = {"serve aadensenet121": serve["counts"], "train aadensenet121": train["counts"],
              f"serve {EFF}": eff_serve["counts"], f"train {EFF}": eff_train["counts"],
              f"serve {AA_RES} hil": aa_serve["hil"]["counts"],
@@ -2184,7 +2959,10 @@ def main() -> int:
              **{f"gradcam {k}": g["counts"] for k, g in gradcam.items()},
              "train aadensenet121 --multihost world 1 nccl":
                  multiprocess["world1_nccl"]["counts"],
-             **multiprocess["counts"]}
+             **multiprocess["counts"],
+             **{f"bench {k}": r["counts"] for k, r in bench["runs"].items()},
+             **{f"train aadensenet121 {k}": inputs[k]["counts"]
+                for k in ("a_packed", "b_packed_device_aug", "c_packed_profile")}}
 
     def launches(name):  # each path's counts, reset just before it and read just after
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -2298,6 +3076,57 @@ def main() -> int:
     hil_bwd_src = "chexpert_tpu_torch/csrc/hil_attention_bwd.cu"
     hil_bwd_replaces = "chexpert_tpu/ops/pallas_attention.py:853"
 
+    # phase 19's geometries (bf16, batch 256): per geometry the kernel's device
+    # time beside its plain version, its bound and the library call, and the
+    # sum over WideResNet-28-10's AA convs (one forward, or one step's pass)
+    wrn_aa = bench["geometries"][" ".join(BENCH_WRN)]["aa"]
+    bench_attn = [r for r in bench["attention_rows"] if r["dtype"] == "bfloat16"]
+    bench_dw = [r for r in bench["depthwise_rows"] if r["dtype"] == "bfloat16"]
+
+    def bench_geometries(part, sub=None, plain=None, library=None, library_is=None):
+        rows = []
+        for r in bench_attn:
+            t = r[part] if sub is None else r[part][sub]
+            rows.append({"geometry": r["geometry"], "dvh": r["dvh"], "bn": r["bn"],
+                         "ms": t["ms"], "plain_ms": t.get("plain_ms", plain and r[plain[0]]
+                                                         [plain[1]]),
+                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                         "library_ms": (t.get("library_ms") if library is None
+                                        else r[library[0]][library[1]])})
+        ms = {(r["H"], r["W"], r["dvh"]): row["ms"] for r, row in zip(bench_attn, rows)}
+        return {"batch": BENCH_BATCH, "calls": rows, "library_is": library_is,
+                "wideresnet_28_10_ms": sum(ms[g] for g in wrn_aa),
+                "wideresnet_28_10_launches": len(wrn_aa)}
+
+    def bench_dw_geometries(call):
+        return {"batch": BENCH_BATCH, "calls": [
+            {"geometry": r["geometry"], "C": r["C"], "k": r["k"],
+             **{k: r[call][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+            for r in bench_dw],
+            "efficientnet_b0_ms": sum(
+                next(r[call]["ms"] for r in bench_dw if (int(r["geometry"].split("x")[0]),
+                                                         r["C"], r["k"]) == g)
+                for g in bench["geometries"]["efficientnet b0"]["dw"])}
+
+    sdpa_fwd = "F.scaled_dot_product_attention with the relative bias materialized, device time"
+    sdpa_bwd = ("backward of F.scaled_dot_product_attention w.r.t. q, k, v and a materialized "
+                "bias (the profiler's device time): the whole backward, every pass")
+    bench_by_kernel = {
+        NAME: bench_geometries("b1", library_is=sdpa_fwd),
+        BWD_DKDV: bench_geometries("b2", "dkdv", library=("b2", "library_ms"),
+                                   library_is=sdpa_bwd),
+        BWD_DQ: bench_geometries("b2", "dq", library=("b2", "library_ms"), library_is=sdpa_bwd),
+        HIL_FWD: bench_geometries("b5", library=("b1", "library_ms"),
+                                  library_is=sdpa_fwd + " (head-major operands, no head-split "
+                                                        "copies)"),
+        **{p: bench_geometries("b6", key, plain=("b6", "plain_ms"),
+                               library=("b2", "library_ms"),
+                               library_is=sdpa_bwd + "; plain_ms: the whole plain backward")
+           for p, key in ((HIL_DKDV, "dkdv"), (HIL_DQ, "dq"), (HIL_DREL, "drel"))},
+        DW_FWD: bench_dw_geometries("fwd"),
+        DW_BWD: bench_dw_geometries("bwd"),
+    }
+
     record = {"kernels": [{
         "name": NAME,
         "route": "cuda",
@@ -2381,7 +3210,9 @@ def main() -> int:
         "hil_calls": hil_rows,
         f"serve {AA_RES}": aa_serve, f"train {AA_RES}": {**aa_train, "card": smi},
         "ensemble": ensemble, "predict": predict, "gradcam": gradcam,
-        "multiprocess": multiprocess}
+        "multiprocess": multiprocess, "bench": bench, "input_path": inputs}
+    for entry in record["kernels"]:
+        entry["bench_geometries"] = bench_by_kernel[entry["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record))
     print(smi)

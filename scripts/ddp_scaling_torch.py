@@ -126,12 +126,12 @@ def profiled_rank(argv: list) -> int:
                                               torch.profiler.ProfilerActivity.CUDA])
     t0 = [0.0]
 
-    def train_step(state, batch, compute_dtype):
+    def train_step(state, batch, *args):
         if traced and state.step == 2:
             torch.cuda.synchronize()
             prof.start()
             t0[0] = time.perf_counter()
-        loss = step(state, batch, compute_dtype)
+        loss = step(state, batch, *args)
         if traced and state.step == 4:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0[0]) * 1e3

@@ -17,7 +17,15 @@ check:
 
 where the ranks, released together by a barrier, build ``ChexpertIndex``
 over a fixture with no processed cache yet and save the train and valid
-lengths and paths to ``OUT_PREFIX{rank}.json``.
+lengths and paths to ``OUT_PREFIX{rank}.json``. Or one rank of the
+ensemble's out-of-memory check:
+
+    python tests/_torch_dist_worker.py ensemble_oom OUT_PREFIX DATA_ROOT CKPT_DIR OOM_RANK
+
+where each rank evaluates the checkpoints of CKPT_DIR (densenet-tiny, 32x32)
+on its slice of the valid batches, rank OOM_RANK's first member forward
+raising ``torch.cuda.OutOfMemoryError``, and saves the metrics and the
+ensemble's log lines to ``OUT_PREFIX{rank}.json``.
 """
 
 from __future__ import annotations
@@ -135,10 +143,56 @@ def _index_rank(prefix: str, root: str) -> None:
     torch.distributed.destroy_process_group()
 
 
+ENS_ARCH, ENS_IMAGE, ENS_BATCH = "densenet-tiny", 32, 8
+
+
+def ensemble_batches(root: str, host_slice=None):
+    from chexpert_tpu_torch.data import Batches, ChexpertIndex
+
+    return Batches(ChexpertIndex(root, "valid", download=False), ENS_BATCH,
+                   image_size=ENS_IMAGE, workers=1, host_slice=host_slice)
+
+
+def _ensemble_oom_rank(prefix: str, root: str, ckpt_dir: str, oom_rank: int) -> None:
+    import json
+
+    import torch
+
+    from chexpert_tpu_torch.eval import ensemble
+    from chexpert_tpu_torch.models import build_model
+    from chexpert_tpu_torch.parallel import (
+        create_hybrid_mesh,
+        host_batch_slice_from_mesh,
+        multihost,
+    )
+
+    multihost.initialize(torch.device("cpu"))
+    mesh = create_hybrid_mesh(0, 1).connect()
+    if mesh.rank == oom_rank:
+        forward, raised = ensemble.eval_logits, []
+
+        def eval_logits(*a, **kw):
+            if not raised:
+                raised.append(True)
+                raise torch.cuda.OutOfMemoryError("injected")
+            return forward(*a, **kw)
+        ensemble.eval_logits = eval_logits
+    log = []
+    metrics = ensemble.evaluate_ensemble(
+        build_model(ENS_ARCH, image_size=ENS_IMAGE), ensemble.list_checkpoints(ckpt_dir),
+        ensemble_batches(root, host_batch_slice_from_mesh(mesh, ENS_BATCH)),
+        torch.device("cpu"), torch.float32, ENS_ARCH, log=log.append, mesh=mesh)
+    with open(f"{prefix}{mesh.rank}.json", "w") as f:
+        json.dump({"metrics": metrics, "log": log}, f)
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "bn":
         _bn_rank(sys.argv[2], int(sys.argv[3]))
     elif sys.argv[1] == "index":
         _index_rank(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "ensemble_oom":
+        _ensemble_oom_rank(sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]))
     else:
         raise SystemExit(f"unknown mode {sys.argv[1]!r}")

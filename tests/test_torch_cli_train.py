@@ -124,11 +124,14 @@ def test_ensemble_visualize_and_plot_roc_guards(run, tmp_path, case):
 @pytest.mark.parametrize("flags,exc,match", [
     (["--multihost", "--data_parallel", "2"], AssertionError,
      "mesh 2x1 needs 2 devices, have 1"),
-    (["--packed_cache"], NotImplementedError, "slice 8"),
-    (["--pretrained"], NotImplementedError, "slice 8"),
+    (["--model", "no-such-arch"], RuntimeError, "Model architecture not supported"),
+    (["--pretrained"], FileNotFoundError, "CHEXPERT_TPU_PRETRAINED_DIR/aadensenet-tiny.pth"),
 ])
-def test_unported_and_bad_flags_raise(run, tmp_path, flags, exc, match):
+def test_unported_and_bad_flags_raise(run, tmp_path, monkeypatch, flags, exc, match):
+    """Bad flags raise the JAX CLI's errors; --pretrained without its weight
+    file raises the JAX FileNotFoundError (every flag is ported since slice 8)."""
     data, _ = run
+    monkeypatch.delenv("CHEXPERT_TPU_PRETRAINED_DIR", raising=False)
     with pytest.raises(exc, match=match):
         main(["--train", *_args(data, str(tmp_path / "x")), *flags])
 

@@ -41,7 +41,9 @@ def test_scan_covers_the_package():
                    "checkpoint/store.py", "checkpoint/tracker.py", "train/loop.py",
                    "train/optim.py", "train/steps.py", "utils/io.py", "utils/logging.py",
                    "cli/predict.py", "eval/ensemble.py", "interpret/gradcam.py",
-                   "interpret/capture.py", "interpret/plots.py"):
+                   "interpret/capture.py", "interpret/plots.py", "cli/bench.py",
+                   "cli/data_tools.py", "data/packed.py", "native/__init__.py",
+                   "models/pretrained.py", "__main__.py"):
         assert f"chexpert_tpu_torch/{module}" in names, module
 
 
@@ -54,7 +56,9 @@ def test_no_jax_imports(path):
 def test_serve_import_leaves_jax_unloaded():
     code = ("import sys, chexpert_tpu_torch.cli.serve, chexpert_tpu_torch.cli.chexpert, "
             "chexpert_tpu_torch.cli.predict, chexpert_tpu_torch.interpret, "
-            "chexpert_tpu_torch.models; "
+            "chexpert_tpu_torch.models, chexpert_tpu_torch.cli.bench, "
+            "chexpert_tpu_torch.cli.data_tools, chexpert_tpu_torch.data.packed, "
+            "chexpert_tpu_torch.native, chexpert_tpu_torch.models.pretrained; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{tuple(sorted(FORBIDDEN))}); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

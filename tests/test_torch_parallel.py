@@ -265,3 +265,40 @@ def test_ranks_building_the_index_cache_together_read_whole_files(tmp_path):
     for r in range(4):
         with open(f"{prefix}{r}.json") as f:
             assert json.load(f) == want, f"rank {r}"
+
+
+def test_ensemble_oom_on_one_rank_halves_the_chunk_on_every_rank(tmp_path):
+    """2 gloo ranks evaluate a three-member ensemble over their slices of the
+    valid batches; rank 1's first member forward raises
+    torch.cuda.OutOfMemoryError. The ranks agree on it before the gather
+    (one all-reduce), both halve the chunk 3 -> 2 and retry, and both finish
+    with the metrics of one process within 1e-6. Before, rank 1 alone
+    retried and waited in a gather that rank 0 had passed."""
+    from _torch_dist_worker import ENS_ARCH, ENS_IMAGE, ensemble_batches
+
+    from chexpert_tpu_torch.checkpoint import save_model_checkpoint
+    from chexpert_tpu_torch.eval.ensemble import evaluate_ensemble, list_checkpoints
+    from chexpert_tpu_torch.models import build_model
+
+    root, ckpts = str(tmp_path / "data"), tmp_path / "ckpts"
+    make_synthetic_dataset(root, n_train=4, n_valid=12, image_size=ENS_IMAGE)
+    ckpts.mkdir()
+    for seed in range(3):
+        model = build_model(ENS_ARCH, image_size=ENS_IMAGE,
+                            generator=torch.Generator().manual_seed(seed))
+        save_model_checkpoint(str(ckpts / f"checkpoint_{seed}.pt"), model.state_dict())
+    prefix = str(tmp_path / "rank")
+    worker = os.path.join(os.path.dirname(__file__), "_torch_dist_worker.py")
+    for res in launch(2, [worker, "ensemble_oom", prefix, root, str(ckpts), "1"], str(tmp_path),
+                      timeout=240):
+        assert res.returncode == 0, res.stderr[-3000:]
+    want = evaluate_ensemble(build_model(ENS_ARCH, image_size=ENS_IMAGE),
+                             list_checkpoints(str(ckpts)), ensemble_batches(root),
+                             torch.device("cpu"), torch.float32, ENS_ARCH, log=lambda m: None)
+    for r in range(2):
+        with open(f"{prefix}{r}.json") as f:
+            got = json.load(f)
+        assert got["log"] == ["[ensemble] device out of memory: retrying with member_chunk=2"]
+        for part in ("aucs", "loss"):
+            for k, v in want[part].items():
+                assert abs(got["metrics"][part][str(k)] - v) <= 1e-6, (r, part, k)
