@@ -34,12 +34,17 @@
 // this one is consumed. Pass dq (four blocks of 4 warps) keeps one buffer: its
 // blocks cover each other's staging, and a second buffer measured 2.5 %.
 //
-// Padding lives in shared memory only: dkh 20 -> 32 as a contraction (two k16
-// steps) and -> 24 as an output width (three n8 tiles), dvh -> 8 as a width
-// and -> 16 as a contraction (the upper half of the fragment is the constant
-// 0), ragged token tails as zero rows with lse = LSE_PAD (so p = 0) and masked
-// stores. p and ds are rounded to bf16 once, where they become MMA operands;
-// every sum is f32.
+// The head widths come from the build: each width class (KW, VW) of
+// ops/fused_attention.py::width_class is its own library, compiled with
+// -DATTN_KW=KW -DATTN_VW=VW, and takes every dkh <= KW and dvh <= VW, passed at
+// run time. Padding lives in shared memory only: dkh -> KW as a contraction
+// (KW / 16 k16 steps) and -> 8 * ND as an output width (ND n8 tiles), dvh -> VW
+// as a width (VW / 8 n8 tiles) and -> 16 as a contraction where VW is 8 (the
+// upper half of the fragment is the constant 0), ragged token tails as zero
+// rows with lse = LSE_PAD (so p = 0) and masked stores. A row of dkh or dvh
+// bf16 is 8-byte aligned only where the width is a multiple of 4: other
+// widths (dkh 26) are staged by 2-byte loads. p and ds are rounded to bf16
+// once, where they become MMA operands; every sum is f32.
 
 #pragma once
 
@@ -49,25 +54,48 @@
 #include <cstddef>
 #include <cstdint>
 
+#ifndef ATTN_KW
+#error "build with -DATTN_KW=<32|64|128> -DATTN_VW=<8|16|32|64> (fused_attention.py::width_class)"
+#endif
+#ifndef ATTN_VW
+#error "build with -DATTN_VW=<8|16|32|64> (ops/fused_attention.py::width_class)"
+#endif
+
 namespace amma {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int DKH = 20;          // the AAConv head width (min_dk_per_head)
-constexpr int KS = 40;           // bf16 row stride of a dkh-wide tile: columns DKH..31 are
-                                 // zero, 32..39 spread the rows over the banks (80 bytes)
-constexpr int KW = 32;           // staged columns of a dkh-wide tile
-constexpr int VS = 8;            // bf16 row stride of a dvh-wide tile (dvh <= 8; zero beyond dvh)
+constexpr int KW = ATTN_KW;      // staged columns of a dkh-wide tile: dkh <= KW, KW / 16 k16 steps
+constexpr int VW = ATTN_VW;      // staged columns of a dvh-wide tile: dvh <= VW
+static_assert(KW == 32 || KW == 64 || KW == 128, "KW: a width class of ops/fused_attention.py");
+static_assert(VW == 8 || VW == 16 || VW == 32 || VW == 64, "VW: a width class");
+constexpr int KS = KW + 8;       // bf16 row stride of a dkh-wide tile: columns dkh..KW-1 are
+                                 // zero, KW..KS-1 spread the rows over the banks
+constexpr int VS = VW == 8 ? 8 : VW + 8;  // bf16 row stride of a dvh-wide tile (zero beyond dvh)
+constexpr int KK = KW / 16;      // k16 steps of a product over dkh
+constexpr int VK = (VW + 15) / 16;  // k16 steps of a product over dvh (VW 8: one, half of it 0)
+constexpr int NV = VW / 8;       // n8 tiles of a dvh-wide output
 constexpr int TN = 64;           // rows of the tile a pass loops over
-constexpr int ND = 3;            // n8 tiles that cover DKH
 constexpr int DQ_WARPS = 4;      // pass dq: 64 queries a block
 constexpr int DKDV_WARPS = 8;    // pass dkdv: 128 keys a block
+constexpr int DKDV_MIN_BLOCKS = KW == 32 ? 2 : 1;  // pass dkdv blocks per SM (registers)
 constexpr int DQ_ROWS = DQ_WARPS * 16;
 constexpr int DKDV_ROWS = DKDV_WARPS * 16;
-constexpr int DQS = 25;          // f32 row stride of dq rows dumped to shared memory (dq_dump)
 constexpr int MAX_BIN_TILES = 16;  // ceil(W/8) + ceil(H/8) that pass dq is instantiated for
 constexpr float LSE_PAD = 1e30f;   // lse of a padded query row: exp(S - LSE_PAD) == 0
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The model zoo's head width (min_dk_per_head). Every kernel has an
+// instantiation that takes it as a compile-time constant (DKC = DK_ZOO; DKC =
+// 0 reads dkh at run time), so the zoo's attention runs the code it was tuned
+// as, with its offsets and row widths folded in.
+constexpr int DK_ZOO = 20;
+
+// The n8 tiles of a dkh-wide output (dq, dk), a template argument of the
+// backward passes: KW / 8, and in the narrowest class 3 where dkh <= 24, so
+// that the model zoo's dkh 20 keeps the tiles and registers it was tuned with.
+constexpr int ND_SMALL = KW == 32 ? 3 : KW / 8;
+inline int nd_tiles(int dkh) { return dkh <= 8 * ND_SMALL ? ND_SMALL : KW / 8; }
 
 // The f32 row stride of the RC tile: >= W + H and = 4 mod 8, so that the
 // reads of pass dkdv (rows 2t, columns g) fall on 32 distinct banks and
@@ -86,12 +114,12 @@ __host__ __device__ inline int bin_tiles(int W, int H) { return (W + 7) / 8 + (H
 inline bool mma_fits(int W, int H) { return bin_tiles(W, H) <= MAX_BIN_TILES; }
 
 // The bf16 row stride of a tile of whole head-major qr rows [q ; RW ; RH]: >= L
-// and >= 32 (the q fragments read 32 columns; what lies past DKH meets the
+// and >= KW (the q fragments read KW columns; what lies past dkh meets the
 // zeros of k), and = 8 mod 16, which keeps rows 16-byte aligned for ldmatrix
 // and spreads the fragment reads (rows g, words t) and the RC reads over the
 // banks.
 inline int qr_stride_of(int L) {
-  const int x = L > 32 ? L : 32;
+  const int x = L > KW ? L : KW;
   return x + ((8 - x % 16) + 16) % 16;
 }
 
@@ -305,12 +333,12 @@ __device__ __forceinline__ void stage_key_table(int* tab_s, const int* __restric
   for (int e = tid * 4; e < words; e += nthreads * 4) cp_async<16>(tab_s + e, src + e);
 }
 
-// The A fragments (16 rows x 32 columns, two k16 steps) of a bf16 tile of
+// The A fragments (16 rows x KW columns, KK k16 steps) of a bf16 tile of
 // row stride stride: fragment rows g and g+8 are the tile's rows ra and rb.
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[2][4], const bf16* tile, int stride,
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[KK][4], const bf16* tile, int stride,
                                              int ra, int rb, int t) {
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
+  for (int ks = 0; ks < KK; ++ks) {
     a[ks][0] = lds32(tile + ra * stride + ks * 16 + 2 * t);
     a[ks][1] = lds32(tile + rb * stride + ks * 16 + 2 * t);
     a[ks][2] = lds32(tile + ra * stride + ks * 16 + 8 + 2 * t);
@@ -318,27 +346,67 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[2][4], const bf16* ti
   }
 }
 
+// The same over a dvh-wide tile (row stride VS): 16 rows x VW columns, VK
+// k16 steps; where VW is 8 the upper half of the step is the constant 0.
+__device__ __forceinline__ void load_v_frags(uint32_t (&a)[VK][4], const bf16* tile, int ra,
+                                             int rb, int t) {
+#pragma unroll
+  for (int vk = 0; vk < VK; ++vk) {
+    a[vk][0] = lds32(tile + ra * VS + vk * 16 + 2 * t);
+    a[vk][1] = lds32(tile + rb * VS + vk * 16 + 2 * t);
+    a[vk][2] = VW > 8 ? lds32(tile + ra * VS + vk * 16 + 8 + 2 * t) : 0u;
+    a[vk][3] = VW > 8 ? lds32(tile + rb * VS + vk * 16 + 8 + 2 * t) : 0u;
+  }
+}
+
+// c += a (16 x VW, load_v_frags) * the 8 rows of a dvh-wide tile as
+// [contraction][column]: row is the tile + (row of column g) * VS + 2t.
+__device__ __forceinline__ void mma_v(float (&c)[4], const uint32_t (&a)[VK][4],
+                                      const bf16* row) {
+#pragma unroll
+  for (int vk = 0; vk < VK; ++vk)
+    mma16816(c, a[vk][0], a[vk][1], a[vk][2], a[vk][3], lds32(row + vk * 16),
+             VW > 8 ? lds32(row + vk * 16 + 8) : 0u);
+}
+
+// c += a (16 x KW, load_a_frags) * the 8 rows of a dkh-wide tile as
+// [contraction][column]: row is the tile + (row of column g) * stride + 2t.
+__device__ __forceinline__ void mma_k(float (&c)[4], const uint32_t (&a)[KK][4],
+                                      const bf16* row) {
+#pragma unroll
+  for (int ks = 0; ks < KK; ++ks)
+    mma16816(c, a[ks][0], a[ks][1], a[ks][2], a[ks][3], lds32(row + ks * 16),
+             lds32(row + ks * 16 + 8));
+}
+
+// Whether the RC lanes of rel_s can be read two at a time (load_pair): W even
+// (two keys of a pair sit in one image row) and the lanes 4-byte aligned,
+// which a bf16 tile of head-major qr rows is not at an odd dkh.
+template <typename RelT>
+__device__ __forceinline__ bool rc_paired(const RelT* rel_s, int W) {
+  return (W & 1) == 0 && (reinterpret_cast<uintptr_t>(rel_s) & 3) == 0;
+}
+
 // ---------------------------------------------------------------------------
 // Pass dq: a warp's 16 query rows against key tiles.
 
-template <int NBT>
+template <int NBT, int ND>
 struct DqWarp {
-  uint32_t qa[2][4];   // A fragments of q (two k16 steps)
-  uint32_t doa[2];     // A fragment of dout (k 0..7; the upper half is 0)
+  uint32_t qa[KK][4];   // A fragments of q
+  uint32_t doa[VK][4];  // A fragments of dout
   float lse[2], delta[2];  // of rows g and g+8; lse times LOG2E
-  float dq[ND][4];
-  float bins[NBT][4];  // tiles of [dRC_w | dRC_h]: ceil(W/8) column tiles, then the row tiles
+  float dq[ND][4];      // ND n8 tiles cover dkh
+  float bins[NBT][4];   // tiles of [dRC_w | dRC_h]: ceil(W/8) column tiles, then the row tiles
 };
 
-template <int NBT>
-__device__ __forceinline__ void dq_init(DqWarp<NBT>& st, const bf16* q_s, int qs,
+template <int NBT, int ND>
+__device__ __forceinline__ void dq_init(DqWarp<NBT, ND>& st, const bf16* q_s, int qs,
                                         const bf16* do_s, const float* ld_s, int warp,
                                         int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;
   load_a_frags(st.qa, q_s, qs, r0, r0 + 8, t);
-  st.doa[0] = lds32(do_s + r0 * VS + 2 * t);
-  st.doa[1] = lds32(do_s + (r0 + 8) * VS + 2 * t);
+  load_v_frags(st.doa, do_s, r0, r0 + 8, t);
   st.lse[0] = ld_s[2 * r0] * LOG2E;
   st.delta[0] = ld_s[2 * r0 + 1];
   st.lse[1] = ld_s[2 * (r0 + 8)] * LOG2E;
@@ -356,14 +424,14 @@ __device__ __forceinline__ void dq_init(DqWarp<NBT>& st, const bf16* q_s, int qs
 // One key tile: k_s (TN x KS), v_s (TN x VS) and its table row kt, of which
 // kn keys exist; rel_s holds the RC rows of the block's queries; nbt bin
 // tiles (<= NBT).
-template <int NBT, typename RelT>
-__device__ __forceinline__ void dq_step(DqWarp<NBT>& st, const bf16* k_s, const bf16* v_s,
+template <int NBT, int ND, typename RelT>
+__device__ __forceinline__ void dq_step(DqWarp<NBT, ND>& st, const bf16* k_s, const bf16* v_s,
                                         const KeyTable& kt, const RelT* rel_s, int rel_stride,
                                         int W, int nbt, int kn, int warp, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const RelT* rel0 = rel_s + (warp * 16 + g) * rel_stride;
   const RelT* rel1 = rel0 + 8 * rel_stride;
-  const bool paired = (W & 1) == 0;  // rel_s + even offsets are aligned to a pair of lanes
+  const bool paired = rc_paired(rel_s, W);  // rel_s + even offsets are aligned to a pair of lanes
 #pragma unroll
   for (int kc = 0; kc < TN / 16; ++kc) {
     if (kc * 16 < kn) {  // uniform across the block
@@ -372,12 +440,8 @@ __device__ __forceinline__ void dq_step(DqWarp<NBT>& st, const bf16* k_s, const 
       for (int half = 0; half < 2; ++half) {
         const int n0 = kc * 16 + half * 8;
         float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-        const bf16* kr = k_s + (n0 + g) * KS + 2 * t;
-        mma16816(s, st.qa[0][0], st.qa[0][1], st.qa[0][2], st.qa[0][3], lds32(kr),
-                 lds32(kr + 8));
-        mma16816(s, st.qa[1][0], st.qa[1][1], st.qa[1][2], st.qa[1][3], lds32(kr + 16),
-                 lds32(kr + 24));
-        mma16816(dp, st.doa[0], st.doa[1], 0u, 0u, lds32(v_s + (n0 + g) * VS + 2 * t), 0u);
+        mma_k(s, st.qa, k_s + (n0 + g) * KS + 2 * t);
+        mma_v(dp, st.doa, v_s + (n0 + g) * VS + 2 * t);
         const int2 kp = *reinterpret_cast<const int2*>(kt.kpos + n0 + 2 * t);
         const int ca = kp.x & 0xffff, ra = kp.x >> 16;
         const int cb = kp.y & 0xffff, rb = kp.y >> 16;
@@ -426,9 +490,16 @@ __device__ __forceinline__ void dq_step(DqWarp<NBT>& st, const bf16* k_s, const 
   }
 }
 
-// The warp's dq sums into shared memory: dq_s (rows x DQS, columns 0..23).
-template <int NBT>
-__device__ __forceinline__ void dq_dump(const DqWarp<NBT>& st, float* dq_s, int warp, int lane) {
+// The f32 row stride of dq rows dumped to shared memory (dq_dump).
+template <int ND>
+__host__ __device__ constexpr int dq_stride() { return ND * 8 + 1; }
+
+// The warp's dq sums into shared memory: dq_s (rows x dq_stride, columns
+// 0 .. 8 ND - 1).
+template <int NBT, int ND>
+__device__ __forceinline__ void dq_dump(const DqWarp<NBT, ND>& st, float* dq_s, int warp,
+                                        int lane) {
+  constexpr int DQS = dq_stride<ND>();
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;
 #pragma unroll
@@ -443,8 +514,8 @@ __device__ __forceinline__ void dq_dump(const DqWarp<NBT>& st, float* dq_s, int 
 
 // The warp's bins into shared memory: bin_s (rows x bin_stride, [dRC_w (W) |
 // dRC_h (H)]).
-template <int NBT>
-__device__ __forceinline__ void bins_dump(const DqWarp<NBT>& st, float* bin_s, int bin_stride,
+template <int NBT, int ND>
+__device__ __forceinline__ void bins_dump(const DqWarp<NBT, ND>& st, float* bin_s, int bin_stride,
                                           int W, int H, int nbw, int warp, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;
@@ -476,23 +547,24 @@ __device__ __forceinline__ int dkdv_key(int warp, int lane, int i) {
   return warp * 16 + 2 * (lane >> 2) + i;
 }
 
+template <int ND>
 struct DkdvWarp {
-  uint32_t ka[2][4];  // A fragments of k
-  uint32_t va[2];     // A fragment of v (k 0..7; the upper half is 0)
-  int c[2], r[2];     // image column and row of the thread's two keys
-  bool ok[2];         // those keys exist
-  float dk[ND][4];
-  float dv[4];
+  uint32_t ka[KK][4];  // A fragments of k
+  uint32_t va[VK][4];  // A fragments of v
+  int c[2], r[2];      // image column and row of the thread's two keys
+  bool ok[2];          // those keys exist
+  float dk[ND][4];     // ND n8 tiles cover dkh
+  float dv[NV][4];
 };
 
 // k_s (DKDV_ROWS x KS) and v_s (DKDV_ROWS x VS) hold the block's keys key0 ..
-__device__ __forceinline__ void dkdv_init(DkdvWarp& st, const bf16* k_s, const bf16* v_s,
+template <int ND>
+__device__ __forceinline__ void dkdv_init(DkdvWarp<ND>& st, const bf16* k_s, const bf16* v_s,
                                           int key0, int hw, int W, int warp, int lane) {
   const int t = lane & 3;
   const int r0 = dkdv_key(warp, lane, 0), r1 = dkdv_key(warp, lane, 1);
   load_a_frags(st.ka, k_s, KS, r0, r1, t);
-  st.va[0] = lds32(v_s + r0 * VS + 2 * t);
-  st.va[1] = lds32(v_s + r1 * VS + 2 * t);
+  load_v_frags(st.va, v_s, r0, r1, t);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int j = key0 + dkdv_key(warp, lane, i);
@@ -505,23 +577,25 @@ __device__ __forceinline__ void dkdv_init(DkdvWarp& st, const bf16* k_s, const b
 #pragma unroll
     for (int i = 0; i < 4; ++i) st.dk[nd][i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) st.dv[i] = 0.f;
+  for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st.dv[nv][i] = 0.f;
 }
 
 // One query tile: q_s (TN rows of stride qs, a multiple of 8; what lies in
-// columns DKH..31 meets the zeros of k, so it only has to be finite), do_s
+// columns dkh..KW-1 meets the zeros of k, so it only has to be finite), do_s
 // (TN x VS), ld_s (TN x 2: lse, delta), rel_s (TN x rel_stride: the queries'
 // RC rows, f32 or bf16, rows and even lanes aligned to a pair), of which qn
 // queries exist.
-template <typename RelT>
-__device__ __forceinline__ void dkdv_step(DkdvWarp& st, const bf16* q_s, int qs,
+template <int ND, typename RelT>
+__device__ __forceinline__ void dkdv_step(DkdvWarp<ND>& st, const bf16* q_s, int qs,
                                           const bf16* do_s, const float* ld_s,
                                           const RelT* rel_s, int rel_stride, int W, int qn,
                                           int lane) {
   const int g = lane >> 2, t = lane & 3;
   // W even: the thread's keys are neighbours in one image row (an even key
   // sits on an even column); a key past hw has column 0 and p = 0
-  const bool paired = (W & 1) == 0;
+  const bool paired = rc_paired(rel_s, W);
 #pragma unroll
   for (int qc = 0; qc < TN / 16; ++qc) {
     if (qc * 16 < qn) {  // uniform across the block
@@ -530,12 +604,8 @@ __device__ __forceinline__ void dkdv_step(DkdvWarp& st, const bf16* q_s, int qs,
       for (int half = 0; half < 2; ++half) {
         const int n0 = qc * 16 + half * 8;
         float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-        const bf16* qrow = q_s + (n0 + g) * qs + 2 * t;
-        mma16816(s, st.ka[0][0], st.ka[0][1], st.ka[0][2], st.ka[0][3], lds32(qrow),
-                 lds32(qrow + 8));
-        mma16816(s, st.ka[1][0], st.ka[1][1], st.ka[1][2], st.ka[1][3], lds32(qrow + 16),
-                 lds32(qrow + 24));
-        mma16816(dp, st.va[0], st.va[1], 0u, 0u, lds32(do_s + (n0 + g) * VS + 2 * t), 0u);
+        mma_k(s, st.ka, q_s + (n0 + g) * qs + 2 * t);
+        mma_v(dp, st.va, do_s + (n0 + g) * VS + 2 * t);
         // (lse, delta) of queries n0+2t and n0+2t+1, and their RC rows
         const float4 ld = *reinterpret_cast<const float4*>(ld_s + 2 * (n0 + 2 * t));
         const RelT* ra = rel_s + (n0 + 2 * t) * rel_stride;
@@ -567,8 +637,11 @@ __device__ __forceinline__ void dkdv_step(DkdvWarp& st, const bf16* q_s, int qs,
         dsa[2 * half + 1] = pack_bf16(p2 * (dp[2] - ld.y), p3 * (dp[3] - ld.w));
       }
       uint32_t b0, b1;
-      ldsm_x2_trans(b0, b1, do_s + (qc * 16 + (lane & 15)) * VS);
-      mma16816(st.dv, pa[0], pa[1], pa[2], pa[3], b0, b1);
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv) {
+        ldsm_x2_trans(b0, b1, do_s + (qc * 16 + (lane & 15)) * VS + nv * 8);
+        mma16816(st.dv[nv], pa[0], pa[1], pa[2], pa[3], b0, b1);
+      }
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
         ldsm_x2_trans(b0, b1, q_s + (qc * 16 + (lane & 15)) * qs + nd * 8);

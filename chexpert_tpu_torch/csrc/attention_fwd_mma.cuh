@@ -10,9 +10,9 @@
 // operands live (each .cu stages its own tiles and writes its own outputs).
 // This header holds the warp's part, on the fragment helpers of
 // attention_bwd_mma.cuh. A warp owns 16 query rows, FWD_WARPS warps a block:
-//   - S = q k^T over a key tile: dkh 20 is padded to 32 in shared memory
-//     only (one side of the padded columns is zero), 2 k16 steps x TN/8 n8
-//     tiles of mma.sync.m16n8k16, f32 accumulators.
+//   - S = q k^T over a key tile: dkh is padded to the width class's KW in
+//     shared memory only (one side of the padded columns is zero), KW / 16
+//     k16 steps x TN/8 n8 tiles of mma.sync.m16n8k16, f32 accumulators.
 //   - The relative logits are added per accumulator element from the
 //     queries' RC rows in shared memory (f32 rows computed in the block for
 //     B5; the bf16 RW / RH lanes of the staged qr rows for B1), at the key's
@@ -24,8 +24,9 @@
 //   - l is summed from the f32 p; p is rounded to bf16 once, where the
 //     accumulators of two neighbouring n8 tiles become the A fragment
 //     (16 queries x 16 keys) of p v, with no trip through shared memory. v is
-//     read as [key][dv] through ldmatrix.trans, dvh padded to 8 columns; a
-//     column past dvh only reaches an accumulator column that is not written.
+//     read as [key][dv] through ldmatrix.trans, dvh padded to VW columns (VW /
+//     8 n8 tiles); a column past dvh only reaches an accumulator column that
+//     is not written.
 //   - lse = m + log l in f32. The backward (B2 / B6) recomputes p = exp(S -
 //     lse) from the same bf16 products summed in f32 and the same RC rows.
 // Padded query rows (past hw) compute finite rows that are never written.
@@ -43,10 +44,10 @@ constexpr int FWD_ROWS = FWD_WARPS * 16;
 constexpr int FWD_NT = TN / 8;               // n8 tiles of S per key tile
 
 struct FwdWarp {
-  uint32_t qa[2][4];  // A fragments of q (two k16 steps)
-  float m[2];         // running max of rows g and g+8
-  float l[2];         // this lane's share of their row sums (its columns)
-  float o[4];         // p v: rows g, g+8 x dv columns 2t, 2t+1
+  uint32_t qa[KK][4];  // A fragments of q
+  float m[2];          // running max of rows g and g+8
+  float l[2];          // this lane's share of their row sums (its columns)
+  float o[NV][4];      // p v: rows g, g+8 x dv columns 8 nv + 2t, 8 nv + 2t + 1
 };
 
 __device__ __forceinline__ void fwd_init(FwdWarp& st, const bf16* q_s, int qs, int warp,
@@ -59,11 +60,14 @@ __device__ __forceinline__ void fwd_init(FwdWarp& st, const bf16* q_s, int qs, i
     st.l[i] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) st.o[i] = 0.f;
+  for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st.o[nv][i] = 0.f;
 }
 
-// One key tile: k (TN rows of stride ks, DKH columns then columns that only
-// have to be finite), v (TN rows of stride vs, 16-byte aligned, 8 columns),
+// One key tile: k (TN rows of stride ks, dkh columns then columns up to KW
+// that only have to be finite), v (TN rows of stride vs, 16-byte aligned, VW
+// columns),
 // kpos (TN key positions, column | row << 16), of which kn keys exist; rel_s
 // holds the RC rows of the block's queries (rows and even lanes aligned to a
 // pair).
@@ -74,17 +78,14 @@ __device__ __forceinline__ void fwd_step(FwdWarp& st, const bf16* k_s, int ks, c
   const int g = lane >> 2, t = lane & 3;
   const RelT* rel0 = rel_s + (warp * 16 + g) * rel_stride;
   const RelT* rel1 = rel0 + 8 * rel_stride;
-  const bool paired = (W & 1) == 0;  // keys 2t and 2t+1 are neighbours in one image row
+  const bool paired = rc_paired(rel_s, W);  // keys 2t and 2t+1 share an image row
   float s[FWD_NT][4];
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int nt = 0; nt < FWD_NT; ++nt) {
     const int n0 = nt * 8;
     float c[4] = {0.f, 0.f, 0.f, 0.f};
-    const bf16* kr = k_s + (n0 + g) * ks + 2 * t;
-    mma16816(c, st.qa[0][0], st.qa[0][1], st.qa[0][2], st.qa[0][3], lds32(kr), lds32(kr + 8));
-    mma16816(c, st.qa[1][0], st.qa[1][1], st.qa[1][2], st.qa[1][3], lds32(kr + 16),
-             lds32(kr + 24));
+    mma_k(c, st.qa, k_s + (n0 + g) * ks + 2 * t);
     const int2 kp = *reinterpret_cast<const int2*>(kpos + n0 + 2 * t);
     const int ca = kp.x & 0xffff, ra = kp.x >> 16;
     const int cb = kp.y & 0xffff, rb = kp.y >> 16;
@@ -124,10 +125,13 @@ __device__ __forceinline__ void fwd_step(FwdWarp& st, const bf16* k_s, int ks, c
   st.m[0] = m0;
   st.m[1] = m1;
   float l0 = st.l[0] * a0, l1 = st.l[1] * a1;
-  st.o[0] *= a0;
-  st.o[1] *= a0;
-  st.o[2] *= a1;
-  st.o[3] *= a1;
+#pragma unroll
+  for (int nv = 0; nv < NV; ++nv) {
+    st.o[nv][0] *= a0;
+    st.o[nv][1] *= a0;
+    st.o[nv][2] *= a1;
+    st.o[nv][3] *= a1;
+  }
 #pragma unroll
   for (int kc = 0; kc < TN / 16; ++kc) {
     uint32_t pa[4];
@@ -141,17 +145,20 @@ __device__ __forceinline__ void fwd_step(FwdWarp& st, const bf16* k_s, int ks, c
       pa[2 * half] = pack_bf16(p0, p1);
       pa[2 * half + 1] = pack_bf16(p2, p3);
     }
-    uint32_t b0, b1;
-    ldsm_x2_trans(b0, b1, v_s + (kc * 16 + (lane & 15)) * vs);
-    mma16816(st.o, pa[0], pa[1], pa[2], pa[3], b0, b1);
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv) {
+      uint32_t b0, b1;
+      ldsm_x2_trans(b0, b1, v_s + (kc * 16 + (lane & 15)) * vs + nv * 8);
+      mma16816(st.o[nv], pa[0], pa[1], pa[2], pa[3], b0, b1);
+    }
   }
   st.l[0] = l0;
   st.l[1] = l1;
 }
 
-// The warp's results: out[i] (rows g, g+8 at dv columns 2t, 2t+1, as st.o)
-// and lse[r] of rows g and g+8.
-__device__ __forceinline__ void fwd_finish(const FwdWarp& st, float (&out)[4],
+// The warp's results: out[nv][i] (rows g, g+8 at dv columns 8 nv + 2t,
+// 8 nv + 2t + 1, as st.o) and lse[r] of rows g and g+8.
+__device__ __forceinline__ void fwd_finish(const FwdWarp& st, float (&out)[NV][4],
                                            float (&lse)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -159,9 +166,34 @@ __device__ __forceinline__ void fwd_finish(const FwdWarp& st, float (&out)[4],
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / l;
-    out[2 * r] = st.o[2 * r] * inv;
-    out[2 * r + 1] = st.o[2 * r + 1] * inv;
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv) {
+      out[nv][2 * r] = st.o[nv][2 * r] * inv;
+      out[nv][2 * r + 1] = st.o[nv][2 * r + 1] * inv;
+    }
     lse[r] = st.m[r] + logf(l);
+  }
+}
+
+// The warp's out and lse rows: rows i0 and i0 + 8 (the warp's g and g + 8)
+// below hw, of out (row stride o_stride, dvh wide) and lse, both at the
+// (batch, head)'s first token.
+__device__ __forceinline__ void fwd_store(const float (&o)[NV][4], const float (&l)[2],
+                                          bf16* out, size_t o_stride, float* lse, int i0,
+                                          int hw, int dvh, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = i0 + 8 * rr;
+    if (i >= hw) continue;
+    bf16* o_i = out + static_cast<size_t>(i) * o_stride;
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv) {
+      const int c = nv * 8 + 2 * t;
+      if (c < dvh) o_i[c] = __float2bfloat16(o[nv][2 * rr]);
+      if (c + 1 < dvh) o_i[c + 1] = __float2bfloat16(o[nv][2 * rr + 1]);
+    }
+    if (t == 0) lse[i] = l[rr];
   }
 }
 

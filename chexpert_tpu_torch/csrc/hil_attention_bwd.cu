@@ -54,10 +54,10 @@
 //       leaves them in a second f32 scratch rc (B, nh, hw, W+H), which pass
 //       dkdv reads back (16-byte cp.async): so dq runs first. (The CUDA-core
 //       dkdv recomputed every tile's RC in every key block.)
-//     - q / k rows of a slot are staged by 8-byte cp.async where the slot is
-//       a multiple of 4 lanes (the model's 48 is), else by 2-byte loads: any
-//       slot >= 2*dkh + dvh works. One head per block: a row's q or k lanes
-//       are 40 contiguous bytes.
+//     - q / k rows of a slot are staged by 8-byte cp.async where the slot and
+//       dkh are multiples of 4 lanes (the model's 48 and 20 are), else by
+//       2-byte loads: any slot >= 2*dkh + dvh works. One head per block: a
+//       row's q or k lanes are 2*dkh contiguous bytes.
 //     A map with ceil(W/8) + ceil(H/8) > 16 (past 64x64) takes the CUDA-core
 //     kernels below, which need no rc.
 //   f32 (the card's own reference route, held to 1e-4): the CUDA-core passes,
@@ -79,6 +79,13 @@
 // queries' tiles and E's lo parts share theirs with the key tiles: 4 blocks
 // of 128 threads per SM); dkdv 128 registers under __launch_bounds__(256,
 // 2), 67 KB for its two query-tile buffers; drel 56.
+//
+// Head widths: this file is built once per width class (KW, VW) of
+// ops/fused_attention.py::width_class (-DATTN_KW, -DATTN_VW; see
+// attention_bwd_mma.cuh) and takes dkh <= KW, dvh <= VW, as
+// rel_attention_bwd.cu does: the tensor-core passes are instantiated for
+// nd_tiles(dkh) n8 tiles of dq / dk, the CUDA-core passes and drel hold their
+// dkh-wide rows DK wide in registers.
 
 #include "hil_attention_common.cuh"
 
@@ -96,6 +103,7 @@ using hil::stage_emb;
 
 // dq += dG E for one image axis, dG the skewed bins of the warp's rows
 // (bin_rows: f32, the axis' n lanes at off), split into hi + lo bf16.
+template <int ND>
 __device__ __forceinline__ void dq_rel_axis(float (&dq)[ND][4], const bf16* e_hi, int n,
                                             int rows, const int (&pos)[2],
                                             const float* bin_rows, int rel_stride, int off,
@@ -131,15 +139,17 @@ __device__ __forceinline__ void dq_rel_axis(float (&dq)[ND][4], const bf16* e_hi
 // the keys TN at a time, then adds the relative logits' part of dq from its
 // own bins and writes the q lanes of dP and its dRC rows. vec: the slots are
 // 8-byte aligned, so q and k rows are staged by cp.async.
-template <int NBT>
+template <int NBT, int ND, int DKC>
 __global__ void __launch_bounds__(DQ_WARPS * 32)
 hil_attention_bwd_dq_mma_kernel(const bf16* __restrict__ P, const float* __restrict__ Rw,
                                 const float* __restrict__ Rh, const bf16* __restrict__ dout,
                                 const float* __restrict__ lse, const float* __restrict__ delta,
                                 const int* __restrict__ tab, bf16* __restrict__ dP,
                                 float* __restrict__ drc, float* __restrict__ rc, int hw, int H,
-                                int W, int nh, int slot, int dvh, int rel_stride, int vec) {
+                                int W, int nh, int slot, int dkh, int dvh, int rel_stride,
+                                int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (DKC > 0) dkh = DKC;
   float* rel_s = reinterpret_cast<float*>(smem_raw);  // DQ_ROWS x rel_stride: RC, then the bins
   float* ld_s = rel_s + DQ_ROWS * rel_stride;         // DQ_ROWS x 2
   const int nbw = (W + 7) / 8, nbt = nbw + (H + 7) / 8;
@@ -168,20 +178,20 @@ hil_attention_bwd_dq_mma_kernel(const bf16* __restrict__ P, const float* __restr
   const bf16* do_bh = dout + static_cast<size_t>(b) * hw * do_row + static_cast<size_t>(h) * dvh;
   const size_t bh_tok = (static_cast<size_t>(b) * nh + h) * hw;  // offset in lse / delta rows
 
-  zero_tile(q_s, DQ_ROWS * KS, tid, NT);  // the columns past DKH and the rows past hw stay zero
+  zero_tile(q_s, DQ_ROWS * KS, tid, NT);  // the columns past dkh and the rows past hw stay zero
   __syncthreads();
-  stage_rows(q_s, KS, P_bh + q0 * row, row, qn, DKH, vec, tid, NT);
+  stage_rows(q_s, KS, P_bh + q0 * row, row, qn, dkh, vec, tid, NT);
   stage_dv(do_s, do_bh + q0 * do_row, do_row, dvh, qn, DQ_ROWS, tid, NT);
   stage_ld(ld_s, lse + bh_tok + q0, delta + bh_tok + q0, qn, DQ_ROWS, tid, NT);
   for (int e = tid; e < DQ_ROWS * rel_stride; e += NT) rel_s[e] = 0.f;
   if (relative) {
-    stage_emb(e_hi, e_lo, Rw, W, xw, tid, NT);
-    stage_emb(e_hi + xw * KS, e_lo + xw * KS, Rh, H, xh, tid, NT);
+    stage_emb(e_hi, e_lo, Rw, W, xw, dkh, tid, NT);
+    stage_emb(e_hi + xw * KS, e_lo + xw * KS, Rh, H, xh, dkh, tid, NT);
   }
   cp_async_wait();
   __syncthreads();
 
-  DqWarp<NBT> st;
+  DqWarp<NBT, ND> st;
   dq_init(st, q_s, KS, do_s, ld_s, warp, lane);
   // image column and row of the warp's query rows g and g + 8
   const int i0 = q0 + warp * 16 + (lane >> 2);
@@ -201,13 +211,13 @@ hil_attention_bwd_dq_mma_kernel(const bf16* __restrict__ P, const float* __restr
   }
 
   __syncthreads();  // the queries' tiles and E's lo parts are consumed
-  zero_tile(k_s, TN * KS, tid, NT);  // the columns past DKH stay zero
+  zero_tile(k_s, TN * KS, tid, NT);  // the columns past dkh stay zero
   for (int j0 = 0; j0 < hw; j0 += TN) {
     const int kn = min(TN, hw - j0);
     __syncthreads();  // the previous key tile is consumed
-    stage_rows(k_s, KS, P_bh + j0 * row + DKH, row, kn, DKH, vec, tid, NT);
-    if (kn < TN) zero_rows(k_s, KS, kn, TN, DKH, tid, NT);
-    stage_dv(v_s, P_bh + j0 * row + 2 * DKH, row, dvh, kn, TN, tid, NT);
+    stage_rows(k_s, KS, P_bh + j0 * row + dkh, row, kn, dkh, vec, tid, NT);
+    if (kn < TN) zero_rows(k_s, KS, kn, TN, dkh, tid, NT);
+    stage_dv(v_s, P_bh + j0 * row + 2 * dkh, row, dvh, kn, TN, tid, NT);
     stage_key_table(tab_s, tab, j0 / TN, nbt, tid, NT);
     cp_async_wait();
     __syncthreads();
@@ -232,10 +242,8 @@ hil_attention_bwd_dq_mma_kernel(const bf16* __restrict__ P, const float* __restr
 #pragma unroll
         for (int nd = 0; nd < ND; ++nd) {
           const int d = nd * 8 + 2 * t;
-          if (d < DKH) {
-            dq_i[d] = __float2bfloat16(st.dq[nd][2 * rr]);
-            dq_i[d + 1] = __float2bfloat16(st.dq[nd][2 * rr + 1]);
-          }
+          if (d < dkh) dq_i[d] = __float2bfloat16(st.dq[nd][2 * rr]);
+          if (d + 1 < dkh) dq_i[d + 1] = __float2bfloat16(st.dq[nd][2 * rr + 1]);
         }
       }
     }
@@ -252,13 +260,15 @@ hil_attention_bwd_dq_mma_kernel(const bf16* __restrict__ P, const float* __restr
 // queries TN at a time; their RC rows come from the rc scratch that pass dq
 // left (each row was computed once there), by 16-byte cp.async where W + H is
 // a multiple of 4 (rc16). Writes the k, v and pad lanes of its dP rows.
-__global__ void __launch_bounds__(DKDV_WARPS * 32, 2)
+template <int ND, int DKC>
+__global__ void __launch_bounds__(DKDV_WARPS * 32, DKDV_MIN_BLOCKS)
 hil_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ P, const bf16* __restrict__ dout,
                                   const float* __restrict__ lse, const float* __restrict__ delta,
                                   const float* __restrict__ rc, bf16* __restrict__ dP, int hw,
-                                  int H, int W, int nh, int slot, int dvh, int rel_stride, int vec,
-                                  int rc16) {
+                                  int H, int W, int nh, int slot, int dkh, int dvh, int rel_stride,
+                                  int vec, int rc16) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (DKC > 0) dkh = DKC;
   // two buffers of a query tile: RC (TN x rel_stride f32), ld (TN x 2 f32),
   // q (TN x KS), dout (TN x VS)
   const int tile_words = TN * rel_stride + TN * 2 + (TN * (KS + VS)) / 2;
@@ -281,12 +291,12 @@ hil_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ P, const bf16* __rest
   const bf16* do_bh = dout + static_cast<size_t>(b) * hw * do_row + static_cast<size_t>(h) * dvh;
   const size_t bh_tok = (static_cast<size_t>(b) * nh + h) * hw;
 
-  // zeros: RC without relative logits and past hw, q's columns past DKH and rows past hw
+  // zeros: RC without relative logits and past hw, q's columns past dkh and rows past hw
   for (int e = tid; e < 2 * tile_words; e += NT) tile_s[e] = 0.f;
   zero_tile(k_s, DKDV_ROWS * KS, tid, NT);
   __syncthreads();
-  stage_rows(k_s, KS, P_bh + key0 * row + DKH, row, kn, DKH, vec, tid, NT);
-  stage_dv(v_s, P_bh + key0 * row + 2 * DKH, row, dvh, kn, DKDV_ROWS, tid, NT);
+  stage_rows(k_s, KS, P_bh + key0 * row + dkh, row, kn, dkh, vec, tid, NT);
+  stage_dv(v_s, P_bh + key0 * row + 2 * dkh, row, dvh, kn, DKDV_ROWS, tid, NT);
 
   // the cp.async part of query tile i0 into buffer buf
   auto stage_async = [&](int i0, int buf) {
@@ -294,8 +304,8 @@ hil_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ P, const bf16* __rest
     float* ld_s = rel_s + TN * rel_stride;
     bf16* q_s = reinterpret_cast<bf16*>(ld_s + TN * 2);
     const int qn = min(TN, hw - i0);
-    stage_rows(q_s, KS, P_bh + i0 * row, row, qn, DKH, vec, tid, NT);
-    if (qn < TN) zero_rows(q_s, KS, qn, TN, DKH, tid, NT);
+    stage_rows(q_s, KS, P_bh + i0 * row, row, qn, dkh, vec, tid, NT);
+    if (qn < TN) zero_rows(q_s, KS, qn, TN, dkh, tid, NT);
     stage_ld(ld_s, lse + bh_tok + i0, delta + bh_tok + i0, qn, TN, tid, NT);
     if (relative) {  // rows past hw keep finite values (zeros, or an earlier tile's): their p is 0
       const float* rc_b = rc + (bh_tok + i0) * WH;
@@ -316,7 +326,7 @@ hil_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ P, const bf16* __rest
   store_dv(dout_of(0), dv_regs, tid, NT);
   cp_async_wait();
   __syncthreads();
-  DkdvWarp st;
+  DkdvWarp<ND> st;
   dkdv_init(st, k_s, v_s, key0, hw, W, warp, lane);
 
   int buf = 0;
@@ -340,20 +350,22 @@ hil_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ P, const bf16* __rest
   for (int i = 0; i < 2; ++i) {
     const int j = key0 + dkdv_key(warp, lane, i);
     if (j < hw) {
-      bf16* dkv = dP + bh + j * row + DKH;  // [dk ; dv ; 0-pad] of key j
+      bf16* dkv = dP + bh + j * row + dkh;  // [dk ; dv ; 0-pad] of key j
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
         const int d = nd * 8 + 2 * t;
-        if (d < DKH) {
-          dkv[d] = __float2bfloat16(st.dk[nd][2 * i]);
-          dkv[d + 1] = __float2bfloat16(st.dk[nd][2 * i + 1]);
-        }
+        if (d < dkh) dkv[d] = __float2bfloat16(st.dk[nd][2 * i]);
+        if (d + 1 < dkh) dkv[d + 1] = __float2bfloat16(st.dk[nd][2 * i + 1]);
       }
-      if (2 * t < dvh) dkv[DKH + 2 * t] = __float2bfloat16(st.dv[2 * i]);
-      if (2 * t + 1 < dvh) dkv[DKH + 2 * t + 1] = __float2bfloat16(st.dv[2 * i + 1]);
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv) {
+        const int c = nv * 8 + 2 * t;
+        if (c < dvh) dkv[dkh + c] = __float2bfloat16(st.dv[nv][2 * i]);
+        if (c + 1 < dvh) dkv[dkh + c + 1] = __float2bfloat16(st.dv[nv][2 * i + 1]);
+      }
       // the pad lanes meet zero weight rows in the projection's backward:
       // they are written, as zeros, so that nothing uninitialized reaches it
-      for (int e = DKH + dvh + t; e < slot - DKH; e += 4) dkv[e] = __float2bfloat16(0.f);
+      for (int e = dkh + dvh + t; e < slot - dkh; e += 4) dkv[e] = __float2bfloat16(0.f);
     }
   }
 }
@@ -373,14 +385,14 @@ inline size_t dkdv_smem(int rel_stride) {
          static_cast<size_t>(DKDV_ROWS * (KS + VS)) * sizeof(bf16);
 }
 
-template <int NBT>
+template <int NBT, int ND, int DKC>
 int launch_dq_nbt(const void* P, const void* Rw, const void* Rh, const void* dout,
                   const void* lse, const void* delta, const void* tab, void* dP, void* drc,
-                  void* rc, int B, int hw, int H, int W, int nh, int slot, int dvh,
+                  void* rc, int B, int hw, int H, int W, int nh, int slot, int dkh, int dvh,
                   void* stream) {
   const int rel_stride = rel_stride_of(W, H);
   const size_t smem = dq_smem(rel_stride, W, H);
-  auto kern = hil_attention_bwd_dq_mma_kernel<NBT>;
+  auto kern = hil_attention_bwd_dq_mma_kernel<NBT, ND, DKC>;
   const cudaError_t e = amma::allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((hw + DQ_ROWS - 1) / DQ_ROWS, nh, B);
@@ -388,33 +400,51 @@ int launch_dq_nbt(const void* P, const void* Rw, const void* Rh, const void* dou
       static_cast<const bf16*>(P), static_cast<const float*>(Rw), static_cast<const float*>(Rh),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(tab), static_cast<bf16*>(dP),
-      static_cast<float*>(drc), static_cast<float*>(rc), hw, H, W, nh, slot, dvh, rel_stride,
-      slots_aligned(P, slot));
+      static_cast<float*>(drc), static_cast<float*>(rc), hw, H, W, nh, slot, dkh, dvh,
+      rel_stride, slots_aligned(P, slot, dkh));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int ND, int DKC>
+int launch_dq_nd(const void* P, const void* Rw, const void* Rh, const void* dout,
+                 const void* lse, const void* delta, const void* tab, void* dP, void* drc,
+                 void* rc, int B, int hw, int H, int W, int nh, int slot, int dkh, int dvh,
+                 void* stream) {
+  const int nb = bin_tiles(W, H);
+  if (nb <= 4)
+    return launch_dq_nbt<4, ND, DKC>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W,
+                                     nh, slot, dkh, dvh, stream);
+  if (nb <= 10)
+    return launch_dq_nbt<10, ND, DKC>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W,
+                                      nh, slot, dkh, dvh, stream);
+  return launch_dq_nbt<MAX_BIN_TILES, ND, DKC>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B,
+                                               hw, H, W, nh, slot, dkh, dvh, stream);
 }
 
 int launch_dq(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
               const void* delta, const void* tab, void* dP, void* drc, void* rc, int B, int hw,
-              int H, int W, int nh, int slot, int dvh, void* stream) {
+              int H, int W, int nh, int slot, int dkh, int dvh, void* stream) {
   if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = bin_tiles(W, H);
-  if (nb <= 4)
-    return launch_dq_nbt<4>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W, nh,
-                            slot, dvh, stream);
-  if (nb <= 10)
-    return launch_dq_nbt<10>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W, nh,
-                             slot, dvh, stream);
-  return launch_dq_nbt<MAX_BIN_TILES>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H,
-                                      W, nh, slot, dvh, stream);
+  if constexpr (KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_dq_nd<ND_SMALL, DK_ZOO>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw,
+                                            H, W, nh, slot, dkh, dvh, stream);
+  }
+  if (nd_tiles(dkh) == ND_SMALL)
+    return launch_dq_nd<ND_SMALL, 0>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W,
+                                     nh, slot, dkh, dvh, stream);
+  return launch_dq_nd<KW / 8, 0>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W,
+                                 nh, slot, dkh, dvh, stream);
 }
 
-int launch_dkdv(const void* P, const void* dout, const void* lse, const void* delta,
-                const void* rc, void* dP, int B, int hw, int H, int W, int nh, int slot,
-                int dvh, void* stream) {
+template <int ND, int DKC>
+int launch_dkdv_nd(const void* P, const void* dout, const void* lse, const void* delta,
+                   const void* rc, void* dP, int B, int hw, int H, int W, int nh, int slot,
+                   int dkh, int dvh, void* stream) {
   const int rel_stride = rel_stride_of(W, H);
   const size_t smem = dkdv_smem(rel_stride);
-  auto kern = hil_attention_bwd_dkdv_mma_kernel;
+  auto kern = hil_attention_bwd_dkdv_mma_kernel<ND, DKC>;
   const cudaError_t e = amma::allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((hw + DKDV_ROWS - 1) / DKDV_ROWS, nh, B);
@@ -422,9 +452,24 @@ int launch_dkdv(const void* P, const void* dout, const void* lse, const void* de
   kern<<<grid, DKDV_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(P), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(rc), static_cast<bf16*>(dP), hw, H, W, nh, slot, dvh,
-      rel_stride, slots_aligned(P, slot), rc16);
+      static_cast<const float*>(rc), static_cast<bf16*>(dP), hw, H, W, nh, slot, dkh, dvh,
+      rel_stride, slots_aligned(P, slot, dkh), rc16);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkdv(const void* P, const void* dout, const void* lse, const void* delta,
+                const void* rc, void* dP, int B, int hw, int H, int W, int nh, int slot,
+                int dkh, int dvh, void* stream) {
+  if constexpr (KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_dkdv_nd<ND_SMALL, DK_ZOO>(P, dout, lse, delta, rc, dP, B, hw, H, W, nh, slot,
+                                              dkh, dvh, stream);
+  }
+  if (nd_tiles(dkh) == ND_SMALL)
+    return launch_dkdv_nd<ND_SMALL, 0>(P, dout, lse, delta, rc, dP, B, hw, H, W, nh, slot, dkh,
+                                       dvh, stream);
+  return launch_dkdv_nd<KW / 8, 0>(P, dout, lse, delta, rc, dP, B, hw, H, W, nh, slot, dkh,
+                                   dvh, stream);
 }
 
 }  // namespace mma_passes
@@ -439,16 +484,17 @@ constexpr int TQ1 = 64;   // pass 1: queries per shared-memory tile
 constexpr int T2 = 64;    // pass 2: queries per block, one thread each
 constexpr int TK2 = 64;   // pass 2: keys per shared-memory tile
 
-template <typename T>
+template <typename T, int DK>
 __global__ void __launch_bounds__(T1)
 hil_attention_bwd_dkdv_kernel(const T* __restrict__ P, const float* __restrict__ Rw,
                               const float* __restrict__ Rh, const T* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               T* __restrict__ dP, int hw, int H, int W, int nh, int slot,
-                              int dvh, int rel_stride) {
+                              int dkh, int dvh, int rel_stride) {
   extern __shared__ float smem[];
-  float* q_s = smem;                   // TQ1 x DKH
-  float* do_s = q_s + TQ1 * DKH;       // TQ1 x DVMAX (zero beyond dvh)
+  dkh = DK == DK_ZOO ? DK_ZOO : dkh;  // the zoo's width as a constant, as it was tuned
+  float* q_s = smem;                   // TQ1 x DK (zero beyond dkh)
+  float* do_s = q_s + TQ1 * DK;        // TQ1 x DVMAX (zero beyond dvh)
   float* ld_s = do_s + TQ1 * DVMAX;    // TQ1 x 2: (lse, delta)
   float* rel_s = ld_s + TQ1 * 2;       // TQ1 x rel_stride: [RC_w | RC_h] rows
 
@@ -466,24 +512,24 @@ hil_attention_bwd_dkdv_kernel(const T* __restrict__ P, const float* __restrict__
   const float* lse_bh = lse + (static_cast<size_t>(b) * nh + h) * hw;
   const float* delta_bh = delta + (static_cast<size_t>(b) * nh + h) * hw;
 
-  float kj[DKH], vj[DVMAX], dkj[DKH], dvj[DVMAX];
+  float kj[DK], vj[DVMAX], dkj[DK], dvj[DVMAX];
 #pragma unroll
-  for (int d = 0; d < DKH; ++d) {
-    kj[d] = key_ok ? to_f32(P_bh[j * row + DKH + d]) : 0.f;
+  for (int d = 0; d < DK; ++d) {
+    kj[d] = (key_ok && d < dkh) ? to_f32(P_bh[j * row + dkh + d]) : 0.f;
     dkj[d] = 0.f;
   }
 #pragma unroll
   for (int e = 0; e < DVMAX; ++e) {
-    vj[e] = (key_ok && e < dvh) ? to_f32(P_bh[j * row + 2 * DKH + e]) : 0.f;
+    vj[e] = (key_ok && e < dvh) ? to_f32(P_bh[j * row + 2 * dkh + e]) : 0.f;
     dvj[e] = 0.f;
   }
 
   for (int i0 = 0; i0 < hw; i0 += TQ1) {
     const int qn = min(TQ1, hw - i0);
     __syncthreads();  // the previous query tile is consumed
-    for (int e = tid; e < TQ1 * DKH; e += T1) {
-      const int r = e / DKH, d = e - r * DKH;
-      q_s[e] = r < qn ? to_f32(P_bh[(i0 + r) * row + d]) : 0.f;
+    for (int e = tid; e < TQ1 * DK; e += T1) {
+      const int r = e / DK, d = e - r * DK;
+      q_s[e] = (r < qn && d < dkh) ? to_f32(P_bh[(i0 + r) * row + d]) : 0.f;
     }
     for (int e = tid; e < TQ1 * DVMAX; e += T1) {
       const int r = e / DVMAX, c = e - r * DVMAX;
@@ -495,50 +541,52 @@ hil_attention_bwd_dkdv_kernel(const T* __restrict__ P, const float* __restrict__
       ld_s[2 * tid + 1] = tid < qn ? delta_bh[i0 + tid] : 0.f;
     }
     __syncthreads();  // q_s is staged: the RC rows are computed from it
-    rel_tile(q_s, Rw, Rh, i0, TQ1, hw, H, W, rel_s, rel_stride, tid, T1);
+    rel_tile<DK>(q_s, Rw, Rh, i0, TQ1, hw, H, W, dkh, rel_s, rel_stride, tid, T1);
     __syncthreads();
     if (key_ok) {
 #pragma unroll 2
       for (int r = 0; r < qn; ++r) {
-        const float* qi = q_s + r * DKH;
+        const float* qi = q_s + r * DK;
         const float* doi = do_s + r * DVMAX;
         const float* rel = rel_s + r * rel_stride;
-        const float s = dot_dk(qi, kj) + rel[cj] + rel[rj];
+        const float s = dot_dk<DK>(qi, kj) + rel[cj] + rel[rj];
         const float p = expf(s - ld_s[2 * r]);
         const float ds = p * (dot_dv(doi, vj) - ld_s[2 * r + 1]);
 #pragma unroll
         for (int e = 0; e < DVMAX; ++e) dvj[e] = fmaf(p, doi[e], dvj[e]);
 #pragma unroll
-        for (int d = 0; d < DKH; ++d) dkj[d] = fmaf(ds, qi[d], dkj[d]);
+        for (int d = 0; d < DK; ++d) dkj[d] = fmaf(ds, qi[d], dkj[d]);
       }
     }
   }
   if (key_ok) {
-    T* dkv = dP + bh + j * row + DKH;  // [dk ; dv ; 0-pad] of key j
+    T* dkv = dP + bh + j * row + dkh;  // [dk ; dv ; 0-pad] of key j
 #pragma unroll
-    for (int d = 0; d < DKH; ++d) store(dkv + d, dkj[d]);
+    for (int d = 0; d < DK; ++d)
+      if (d < dkh) store(dkv + d, dkj[d]);
 #pragma unroll
     for (int e = 0; e < DVMAX; ++e)
-      if (e < dvh) store(dkv + DKH + e, dvj[e]);
+      if (e < dvh) store(dkv + dkh + e, dvj[e]);
     // the pad lanes meet zero weight rows in the projection's backward:
     // they are written, as zeros, so that nothing uninitialized reaches it
-    for (int e = DKH + dvh; e < slot - DKH; ++e) store(dkv + e, 0.f);
+    for (int e = dkh + dvh; e < slot - dkh; ++e) store(dkv + e, 0.f);
   }
 }
 
-template <typename T>
+template <typename T, int DK>
 __global__ void __launch_bounds__(T2)
 hil_attention_bwd_dq_kernel(const T* __restrict__ P, const float* __restrict__ Rw,
                             const float* __restrict__ Rh, const T* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             T* __restrict__ dP, float* __restrict__ drc, int hw, int H,
-                            int W, int nh, int slot, int dvh, int rel_stride) {
+                            int W, int nh, int slot, int dkh, int dvh, int rel_stride) {
   extern __shared__ float smem[];
+  dkh = DK == DK_ZOO ? DK_ZOO : dkh;  // the zoo's width as a constant, as it was tuned
   float* rel_s = smem;                      // T2 x rel_stride: [RC_w | RC_h] rows
   float* bin_s = rel_s + T2 * rel_stride;   // T2 x rel_stride: [dRC_w | dRC_h] sums
-  float* q_s = bin_s + T2 * rel_stride;     // T2 x DKH
-  float* k_s = q_s + T2 * DKH;              // TK2 x DKH
-  float* v_s = k_s + TK2 * DKH;             // TK2 x DVMAX (zero beyond dvh)
+  float* q_s = bin_s + T2 * rel_stride;     // T2 x DK (zero beyond dkh)
+  float* k_s = q_s + T2 * DK;               // TK2 x DK (zero beyond dkh)
+  float* v_s = k_s + TK2 * DK;              // TK2 x DVMAX (zero beyond dvh)
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -553,19 +601,19 @@ hil_attention_bwd_dq_kernel(const T* __restrict__ P, const float* __restrict__ R
   const T* P_bh = P + bh;
   const size_t bh_tok = (static_cast<size_t>(b) * nh + h) * hw;  // offset in lse / delta / drc rows
 
-  for (int e = tid; e < T2 * DKH; e += T2) {
-    const int r = e / DKH, d = e - r * DKH;
+  for (int e = tid; e < T2 * DK; e += T2) {
+    const int r = e / DK, d = e - r * DK;
     const int ii = q0 + r;
-    q_s[e] = ii < hw ? to_f32(P_bh[ii * row + d]) : 0.f;
+    q_s[e] = (ii < hw && d < dkh) ? to_f32(P_bh[ii * row + d]) : 0.f;
   }
   for (int e = tid; e < T2 * rel_stride; e += T2) bin_s[e] = 0.f;
   __syncthreads();
-  rel_tile(q_s, Rw, Rh, q0, T2, hw, H, W, rel_s, rel_stride, tid, T2);
+  rel_tile<DK>(q_s, Rw, Rh, q0, T2, hw, H, W, dkh, rel_s, rel_stride, tid, T2);
 
-  float q[DKH], dq[DKH], doi[DVMAX];
+  float q[DK], dq[DK], doi[DVMAX];
 #pragma unroll
-  for (int d = 0; d < DKH; ++d) {
-    q[d] = q_s[tid * DKH + d];
+  for (int d = 0; d < DK; ++d) {
+    q[d] = q_s[tid * DK + d];
     dq[d] = 0.f;
   }
 #pragma unroll
@@ -583,13 +631,13 @@ hil_attention_bwd_dq_kernel(const T* __restrict__ P, const float* __restrict__ R
   for (int j0 = 0; j0 < hw; j0 += TK2) {
     const int kn = min(TK2, hw - j0);
     __syncthreads();  // the previous key tile is consumed (and rel_s is staged)
-    for (int e = tid; e < TK2 * (DKH + DVMAX); e += T2) {
-      const int jj = e / (DKH + DVMAX), c = e - jj * (DKH + DVMAX);
-      const T* kv = P_bh + (j0 + jj) * row + DKH;  // [k ; v] of key j0 + jj
-      if (c < DKH)
-        k_s[jj * DKH + c] = jj < kn ? to_f32(kv[c]) : 0.f;
+    for (int e = tid; e < TK2 * (DK + DVMAX); e += T2) {
+      const int jj = e / (DK + DVMAX), c = e - jj * (DK + DVMAX);
+      const T* kv = P_bh + (j0 + jj) * row + dkh;  // [k ; v] of key j0 + jj
+      if (c < DK)
+        k_s[jj * DK + c] = (jj < kn && c < dkh) ? to_f32(kv[c]) : 0.f;
       else
-        v_s[jj * DVMAX + c - DKH] = (jj < kn && c - DKH < dvh) ? to_f32(kv[c]) : 0.f;
+        v_s[jj * DVMAX + c - DK] = (jj < kn && c - DK < dvh) ? to_f32(kv[dkh + c - DK]) : 0.f;
     }
     __syncthreads();
     if (row_ok) {
@@ -601,12 +649,12 @@ hil_attention_bwd_dq_kernel(const T* __restrict__ P, const float* __restrict__ R
           cur_row = krow;
           rh_val = rel[W + krow];
         }
-        const float* kj = k_s + jj * DKH;
-        const float s = dot_dk(q, kj) + rel[c] + rh_val;
+        const float* kj = k_s + jj * DK;
+        const float s = dot_dk<DK>(q, kj) + rel[c] + rh_val;
         const float p = expf(s - lse_i);
         const float ds = p * (dot_dv(doi, v_s + jj * DVMAX) - delta_i);
 #pragma unroll
-        for (int d = 0; d < DKH; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
+        for (int d = 0; d < DK; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
         bin[c] += ds;
         rh_acc += ds;
         if (++c == W) {
@@ -620,19 +668,22 @@ hil_attention_bwd_dq_kernel(const T* __restrict__ P, const float* __restrict__ R
     if (cur_row >= 0) bin[W + cur_row] += rh_acc;
     if (relative) {
       // the relative logits' part of dq, from this row's own bins
-      const float* rw = Rw + static_cast<size_t>(i % W) * DKH * W;
-      const float* rh = Rh + static_cast<size_t>(i / W) * DKH * H;
+      const float* rw = Rw + static_cast<size_t>(i % W) * dkh * W;
+      const float* rh = Rh + static_cast<size_t>(i / W) * dkh * H;
 #pragma unroll
-      for (int d = 0; d < DKH; ++d) {
-        float s = 0.f;
-        for (int m = 0; m < W; ++m) s = fmaf(bin[m], __ldg(rw + d * W + m), s);
-        for (int m = 0; m < H; ++m) s = fmaf(bin[W + m], __ldg(rh + d * H + m), s);
-        dq[d] += s;
+      for (int d = 0; d < DK; ++d) {
+        if (d < dkh) {
+          float s = 0.f;
+          for (int m = 0; m < W; ++m) s = fmaf(bin[m], __ldg(rw + d * W + m), s);
+          for (int m = 0; m < H; ++m) s = fmaf(bin[W + m], __ldg(rh + d * H + m), s);
+          dq[d] += s;
+        }
       }
     }
     T* dq_i = dP + bh + i * row;
 #pragma unroll
-    for (int d = 0; d < DKH; ++d) store(dq_i + d, dq[d]);
+    for (int d = 0; d < DK; ++d)
+      if (d < dkh) store(dq_i + d, dq[d]);
   }
   if (!relative) return;  // uniform across the block
   __syncthreads();  // every row's bins are final
@@ -646,15 +697,17 @@ hil_attention_bwd_dq_kernel(const T* __restrict__ P, const float* __restrict__ R
 // The (dkh, n) block of dRw (blockIdx.x < W: image column blockIdx.x, n = W)
 // or of dRh (above: image row blockIdx.x - W, n = H) for one batch element. A
 // thread owns one lane m of the block's dRC rows and a share of the heads, and
-// holds all dkh sums of that lane: each dRC entry is read once, the q lanes of
-// a token are the same address for every thread of a head. The heads' partial
-// sums meet in shared memory and are added in a fixed order.
-template <typename T>
+// holds all dkh sums of that lane (DK wide, zero past dkh): each dRC entry is
+// read once, the q lanes of a token are the same address for every thread of
+// a head. The heads' partial sums meet in shared memory and are added in a
+// fixed order.
+template <typename T, int DK>
 __global__ void hil_attention_bwd_drel_kernel(const T* __restrict__ P,
                                               const float* __restrict__ drc,
                                               float* __restrict__ part, int hw, int H, int W,
-                                              int nh, int slot, int hsplit) {
-  extern __shared__ float red_s[];  // hsplit x DKH x n
+                                              int nh, int slot, int dkh, int hsplit) {
+  extern __shared__ float red_s[];  // hsplit x dkh x n
+  dkh = DK == DK_ZOO ? DK_ZOO : dkh;  // the zoo's width as a constant, as it was tuned
   const int b = blockIdx.y;
   const bool is_w = static_cast<int>(blockIdx.x) < W;
   const int n = is_w ? W : H;                      // width of the block's rows
@@ -666,9 +719,9 @@ __global__ void hil_attention_bwd_drel_kernel(const T* __restrict__ P,
   const int tstep = is_w ? W : 1;
   const int lane = is_w ? m : W + m;               // this thread's dRC lane
   const size_t row = static_cast<size_t>(nh) * slot;
-  float acc[DKH];
+  float acc[DK];
 #pragma unroll
-  for (int d = 0; d < DKH; ++d) acc[d] = 0.f;
+  for (int d = 0; d < DK; ++d) acc[d] = 0.f;
   // the block has max(W, H) * hsplit threads: on the shorter axis some are spare
   for (int h = hy < hsplit ? hy : nh; h < nh; h += hsplit) {
     const T* q = P + static_cast<size_t>(b) * hw * row + static_cast<size_t>(h) * slot;
@@ -679,22 +732,43 @@ __global__ void hil_attention_bwd_drel_kernel(const T* __restrict__ P,
       const float gv = g[t * WH];
       const T* qt = q + t * row;
 #pragma unroll
-      for (int d = 0; d < DKH; ++d) acc[d] = fmaf(to_f32(qt[d]), gv, acc[d]);
+      for (int d = 0; d < DK; ++d)
+        if (d < dkh) acc[d] = fmaf(to_f32(qt[d]), gv, acc[d]);
     }
   }
   if (hy < hsplit) {
 #pragma unroll
-    for (int d = 0; d < DKH; ++d) red_s[(hy * DKH + d) * n + m] = acc[d];
+    for (int d = 0; d < DK; ++d)
+      if (d < dkh) red_s[(hy * dkh + d) * n + m] = acc[d];
   }
   __syncthreads();
-  const size_t per_b = static_cast<size_t>(DKH) * (W * W + H * H);
-  const size_t off = is_w ? static_cast<size_t>(idx) * DKH * W
-                          : static_cast<size_t>(DKH) * W * W + static_cast<size_t>(idx) * DKH * H;
-  for (int e = threadIdx.x; e < DKH * n; e += blockDim.x) {  // e = d * n + m
+  const size_t per_b = static_cast<size_t>(dkh) * (W * W + H * H);
+  const size_t off = is_w ? static_cast<size_t>(idx) * dkh * W
+                          : static_cast<size_t>(dkh) * W * W + static_cast<size_t>(idx) * dkh * H;
+  for (int e = threadIdx.x; e < dkh * n; e += blockDim.x) {  // e = d * n + m
     float sum = 0.f;
-    for (int y = 0; y < hsplit; ++y) sum += red_s[y * DKH * n + e];
+    for (int y = 0; y < hsplit; ++y) sum += red_s[y * dkh * n + e];
     part[b * per_b + off + e] = sum;
   }
+}
+
+template <typename T, int DK>
+int launch_dkdv_dk(const void* P, const void* Rw, const void* Rh, const void* dout,
+                   const void* lse, const void* delta, void* dP, int B, int hw, int H, int W,
+                   int nh, int slot, int dkh, int dvh, void* stream) {
+  const int rel_stride = (W + H) | 1;  // odd row stride spreads rows over banks
+  const size_t smem =
+      static_cast<size_t>(TQ1 * (DK + DVMAX + 2) + TQ1 * rel_stride) * sizeof(float);
+  auto kern = hil_attention_bwd_dkdv_kernel<T, DK>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((hw + T1 - 1) / T1, nh, B);
+  kern<<<grid, T1, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(P), static_cast<const float*>(Rw), static_cast<const float*>(Rh),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dP), hw, H, W, nh, slot, dkh, dvh,
+      rel_stride);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -703,18 +777,31 @@ int launch_dkdv(const void* P, const void* Rw, const void* Rh, const void* dout,
                 int nh, int slot, int dkh, int dvh, void* stream) {
   if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rel_stride = (W + H) | 1;  // odd row stride spreads rows over banks
+  if constexpr (amma::KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_dkdv_dk<T, DK_ZOO>(P, Rw, Rh, dout, lse, delta, dP, B, hw, H, W, nh, slot,
+                                       dkh, dvh, stream);
+  }
+  return launch_dkdv_dk<T, amma::KW>(P, Rw, Rh, dout, lse, delta, dP, B, hw, H, W, nh, slot,
+                                     dkh, dvh, stream);
+}
+
+template <typename T, int DK>
+int launch_dq_dk(const void* P, const void* Rw, const void* Rh, const void* dout,
+                 const void* lse, const void* delta, void* dP, void* drc, int B, int hw, int H,
+                 int W, int nh, int slot, int dkh, int dvh, void* stream) {
+  const int rel_stride = (W + H) | 1;
   const size_t smem =
-      static_cast<size_t>(TQ1 * (DKH + DVMAX + 2) + TQ1 * rel_stride) * sizeof(float);
-  auto kern = hil_attention_bwd_dkdv_kernel<T>;
+      static_cast<size_t>(2 * T2 * rel_stride + T2 * DK + TK2 * (DK + DVMAX)) * sizeof(float);
+  auto kern = hil_attention_bwd_dq_kernel<T, DK>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((hw + T1 - 1) / T1, nh, B);
-  kern<<<grid, T1, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((hw + T2 - 1) / T2, nh, B);
+  kern<<<grid, T2, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(P), static_cast<const float*>(Rw), static_cast<const float*>(Rh),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dP), hw, H, W, nh, slot, dvh,
-      rel_stride);
+      static_cast<const float*>(delta), static_cast<T*>(dP), static_cast<float*>(drc), hw, H,
+      W, nh, slot, dkh, dvh, rel_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -725,18 +812,29 @@ int launch_dq(const void* P, const void* Rw, const void* Rh, const void* dout, c
   if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr) ||
       (Rw == nullptr) != (drc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rel_stride = (W + H) | 1;
-  const size_t smem =
-      static_cast<size_t>(2 * T2 * rel_stride + T2 * DKH + TK2 * (DKH + DVMAX)) * sizeof(float);
-  auto kern = hil_attention_bwd_dq_kernel<T>;
+  if constexpr (amma::KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_dq_dk<T, DK_ZOO>(P, Rw, Rh, dout, lse, delta, dP, drc, B, hw, H, W, nh,
+                                     slot, dkh, dvh, stream);
+  }
+  return launch_dq_dk<T, amma::KW>(P, Rw, Rh, dout, lse, delta, dP, drc, B, hw, H, W, nh, slot,
+                                   dkh, dvh, stream);
+}
+
+template <typename T, int DK>
+int launch_drel_dk(const void* P, const void* drc, void* part, int B, int hw, int H, int W,
+                   int nh, int slot, int dkh, void* stream) {
+  const int n = W > H ? W : H;
+  int hsplit = 1024 / n < nh ? 1024 / n : nh;  // heads that work side by side in a block
+  while (static_cast<size_t>(hsplit) * dkh * n * sizeof(float) > 48 * 1024 && hsplit > 1) --hsplit;
+  const size_t smem = static_cast<size_t>(hsplit) * dkh * n * sizeof(float);
+  auto kern = hil_attention_bwd_drel_kernel<T, DK>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((hw + T2 - 1) / T2, nh, B);
-  kern<<<grid, T2, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(P), static_cast<const float*>(Rw), static_cast<const float*>(Rh),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dP), static_cast<float*>(drc), hw, H,
-      W, nh, slot, dvh, rel_stride);
+  const dim3 grid(W + H, B);
+  kern<<<grid, n * hsplit, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(P), static_cast<const float*>(drc), static_cast<float*>(part), hw,
+      H, W, nh, slot, dkh, hsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -745,19 +843,12 @@ int launch_drel(const void* P, const void* drc, void* part, int B, int hw, int H
                 int nh, int slot, int dkh, void* stream) {
   if (bad_shape(B, hw, H, W, nh, slot, dkh, 1) || W + H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n = W > H ? W : H;
-  if (n > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  int hsplit = 1024 / n < nh ? 1024 / n : nh;  // heads that work side by side in a block
-  while (static_cast<size_t>(hsplit) * DKH * n * sizeof(float) > 48 * 1024 && hsplit > 1) --hsplit;
-  const size_t smem = static_cast<size_t>(hsplit) * DKH * n * sizeof(float);
-  auto kern = hil_attention_bwd_drel_kernel<T>;
-  const cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(W + H, B);
-  kern<<<grid, n * hsplit, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(P), static_cast<const float*>(drc), static_cast<float*>(part), hw,
-      H, W, nh, slot, hsplit);
-  return static_cast<int>(cudaGetLastError());
+  if ((W > H ? W : H) > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (amma::KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_drel_dk<T, DK_ZOO>(P, drc, part, B, hw, H, W, nh, slot, dkh, stream);
+  }
+  return launch_drel_dk<T, amma::KW>(P, drc, part, B, hw, H, W, nh, slot, dkh, stream);
 }
 
 // The bf16 entries take the tensor-core passes wherever amma::mma_fits (every
@@ -776,7 +867,7 @@ int dkdv_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, c
   if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr) ||
       (Rw == nullptr) != (rc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return mma_passes::launch_dkdv(P, dout, lse, delta, rc, dP, B, hw, H, W, nh, slot, dvh,
+  return mma_passes::launch_dkdv(P, dout, lse, delta, rc, dP, B, hw, H, W, nh, slot, dkh, dvh,
                                  stream);
 }
 
@@ -790,7 +881,7 @@ int dq_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, con
       (Rw == nullptr) != (drc == nullptr) || (Rw == nullptr) != (rc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return mma_passes::launch_dq(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W, nh,
-                               slot, dvh, stream);
+                               slot, dkh, dvh, stream);
 }
 
 }  // namespace

@@ -12,7 +12,14 @@
 //   q_t . k_j + RC_w[t, col(j)] + RC_h[t, row(j)],  col = j % W, row = j / W.
 // The slot stride is an argument: the kernels read single elements, so any
 // stride >= 2*dkh + dvh works (the model takes the next multiple of 8, which
-// keeps every slot 16-byte aligned in bf16 for a later vectorized load).
+// keeps every slot 16-byte aligned in bf16 for a later vectorized load). In a
+// slot, k starts at element dkh and v at 2*dkh: rows of q or k go by 8-byte
+// cp.async only where dkh is a multiple of 4 (slots_aligned).
+//
+// Head widths: dkh <= KW and dvh <= VW of the width class this library is
+// built for (attention_bwd_mma.cuh). The CUDA-core kernels hold q and k DK
+// wide, zero past dkh (DK = KW; DK = dkh = 20, a constant, for the model
+// zoo's width, which keeps its code).
 
 #pragma once
 
@@ -27,8 +34,8 @@
 namespace hil {
 
 using amma::allow_smem;
-using amma::DKH;                   // the AAConv head width (min_dk_per_head)
-constexpr int DVMAX = 8;           // largest dvh (v columns staged 8 wide)
+constexpr int DVMAX = amma::VW;    // largest dvh (v columns staged VW wide)
+using amma::DK_ZOO;
 constexpr float NEG_BIG = -1e30f;  // finite "minus infinity": exp(NEG_BIG - m) == 0
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -36,11 +43,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// a . b over DKH with four partial sums (a shorter dependency chain)
+// a . b over DK (zero past dkh) with four partial sums (a shorter dependency chain)
+template <int DK>
 __device__ __forceinline__ float dot_dk(const float* a, const float* b) {
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll
-  for (int d = 0; d < DKH; d += 4) {
+  for (int d = 0; d < DK; d += 4) {
     s0 = fmaf(a[d], b[d], s0);
     s1 = fmaf(a[d + 1], b[d + 1], s1);
     s2 = fmaf(a[d + 2], b[d + 2], s2);
@@ -59,13 +67,14 @@ __device__ __forceinline__ float dot_dv(const float* a, const float* b) {
 // The compact relative logits of the query rows q0 .. q0+rows-1 of one
 // (batch, head), into shared memory: rel_s[r * rel_stride + c] holds
 // RC_w[q0+r, c] for c < W and RC_h[q0+r, c-W] above. q_s is the rows' q,
-// (rows, DKH) f32 in shared memory. Rw / Rh are read from device memory by
+// (rows, DK) f32 in shared memory. Rw / Rh are read from device memory by
 // index (threads of consecutive c read consecutive addresses; the operands
 // are at most a few hundred KB and stay in L2). Rows past hw, and every row
 // when Rw is null (attention without relative logits), get zeros.
+template <int DK>
 __device__ __forceinline__ void rel_tile(const float* q_s, const float* __restrict__ Rw,
                                          const float* __restrict__ Rh, int q0, int rows,
-                                         int hw, int H, int W, float* rel_s,
+                                         int hw, int H, int W, int dkh, float* rel_s,
                                          int rel_stride, int tid, int nthreads) {
   const int WH = W + H;
   for (int e = tid; e < rows * WH; e += nthreads) {
@@ -76,28 +85,30 @@ __device__ __forceinline__ void rel_tile(const float* q_s, const float* __restri
       const float* base;
       int stride;
       if (c < W) {
-        base = Rw + static_cast<size_t>(i % W) * DKH * W + c;
+        base = Rw + static_cast<size_t>(i % W) * dkh * W + c;
         stride = W;
       } else {
-        base = Rh + static_cast<size_t>(i / W) * DKH * H + (c - W);
+        base = Rh + static_cast<size_t>(i / W) * dkh * H + (c - W);
         stride = H;
       }
-      const float* qi = q_s + r * DKH;
+      const float* qi = q_s + r * DK;
 #pragma unroll
-      for (int d = 0; d < DKH; ++d) s = fmaf(qi[d], __ldg(base + d * stride), s);
+      for (int d = 0; d < DK; ++d)
+        if (d < dkh) s = fmaf(qi[d], __ldg(base + d * stride), s);
     }
     rel_s[r * rel_stride + c] = s;
   }
 }
 
 inline bool bad_shape(int B, int hw, int H, int W, int nh, int slot, int dkh, int dvh) {
-  return dkh != DKH || dvh < 1 || dvh > DVMAX || slot < 2 * DKH + dvh || hw != H * W ||
-         hw < 1 || B < 1 || B > 65535 || nh < 1 || nh > 65535;
+  return dkh < 1 || dkh > amma::KW || dvh < 1 || dvh > DVMAX || slot < 2 * dkh + dvh ||
+         hw != H * W || hw < 1 || B < 1 || B > 65535 || nh < 1 || nh > 65535;
 }
 
-// Whether the q / k rows of P can be copied 8 bytes at a time.
-inline int slots_aligned(const void* P, int slot) {
-  return slot % 4 == 0 && reinterpret_cast<uintptr_t>(P) % 8 == 0;
+// Whether the q / k rows of P (dkh lanes from slot elements 0 and dkh) can be
+// copied 8 bytes at a time.
+inline int slots_aligned(const void* P, int slot, int dkh) {
+  return slot % 4 == 0 && dkh % 4 == 0 && reinterpret_cast<uintptr_t>(P) % 8 == 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -109,24 +120,24 @@ inline int slots_aligned(const void* P, int slot) {
 // one product for the whole tile and a skewed store; its backward is
 //   dq[t, d] += sum_x dG[t, x] E_w[x][d],  dG[t, x] = dRC_w[t, x + c - (W - 1)],
 // a product of the skewed bins with E_w. The same over rows with E_h.
-// E is staged once per block as bf16 rows of stride KS (x rows: the W part
-// padded to a multiple of 16 rows, then the H part), split into hi + lo so
+// E is staged once per block as bf16 rows of stride KS, KW columns (x rows:
+// the W part padded to a multiple of 16 rows, then the H part), split into hi + lo so
 // that RC keeps f32 accuracy; rows and columns of padding are zero. The
 // forward (B5) and the backward's dq pass (B6) build RC by the same code, so
 // the backward's p = exp(S - lse) sees the forward's S.
 __host__ __device__ inline int emb_rows(int n) { return (2 * n - 1 + 15) / 16 * 16; }
 
 __device__ __forceinline__ void stage_emb(amma::bf16* e_hi, amma::bf16* e_lo,
-                                          const float* __restrict__ R, int n, int rows, int tid,
-                                          int nthreads) {
+                                          const float* __restrict__ R, int n, int rows, int dkh,
+                                          int tid, int nthreads) {
   using amma::KS;
   using amma::KW;
   for (int e = tid; e < rows * KW; e += nthreads) {
     const int x = e / KW, d = e - x * KW;
     float val = 0.f;
-    if (x < 2 * n - 1 && d < DKH)
+    if (x < 2 * n - 1 && d < dkh)
       val = x >= n - 1 ? __ldg(R + static_cast<size_t>(d) * n + (x - (n - 1)))
-                       : __ldg(R + (static_cast<size_t>(n - 1 - x) * DKH + d) * n);
+                       : __ldg(R + (static_cast<size_t>(n - 1 - x) * dkh + d) * n);
     const amma::bf16 hi = __float2bfloat16(val);
     e_hi[x * KS + d] = hi;
     e_lo[x * KS + d] = __float2bfloat16(val - __bfloat162float(hi));
@@ -136,7 +147,7 @@ __device__ __forceinline__ void stage_emb(amma::bf16* e_hi, amma::bf16* e_lo,
 // RC rows of the warp's 16 queries (A fragments qa of its q rows) for one
 // image axis: n = W (pos = the query's column) or H (its row); the n lanes at
 // off. Rows that are not ok are not written.
-__device__ __forceinline__ void rc_axis(const uint32_t (&qa)[2][4], const amma::bf16* e_hi,
+__device__ __forceinline__ void rc_axis(const uint32_t (&qa)[amma::KK][4], const amma::bf16* e_hi,
                                         const amma::bf16* e_lo, int n, int rows,
                                         const int (&pos)[2], const bool (&ok)[2],
                                         float* rel_rows, int rel_stride, int off, int lane) {
@@ -150,7 +161,7 @@ __device__ __forceinline__ void rc_axis(const uint32_t (&qa)[2][4], const amma::
     const amma::bf16* hi = e_hi + (nt * 8 + g) * KS + 2 * t;
     const amma::bf16* lo = e_lo + (nt * 8 + g) * KS + 2 * t;
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
+    for (int ks = 0; ks < amma::KK; ++ks) {
       mma16816(acc, qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3], lds32(hi + ks * 16),
                lds32(hi + ks * 16 + 8));
       mma16816(acc, qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3], lds32(lo + ks * 16),

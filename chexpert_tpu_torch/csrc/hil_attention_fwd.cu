@@ -25,13 +25,16 @@
 //     - the queries' RC rows (f32, W+H wide) as the product q E^T and the
 //       skewed store of hil_attention_common.cuh, the code B6's dq pass runs,
 //       so the backward recomputes the forward's S;
-//     - the key tiles as whole key rows of the head's slot: slot elements
-//       16..47 of each key ([q tail ; k ; v ; pad], 64 bytes) by 16-byte
-//       cp.async where the slot is a multiple of 8 lanes and at least 48 (the
-//       model's 48 is), so k sits at column 4 and v at column 24 (48 bytes,
-//       16-byte aligned for ldmatrix) of a row of stride KS; other slots take
-//       2-byte loads of k and v into the same columns. The queries' q lanes
-//       come by 8-byte cp.async (slot a multiple of 4 lanes) or 2-byte loads.
+//     - the key tiles as whole key rows of the head's slot where [k ; v] fit
+//       one row of KS lanes: at the model's dkh 20 and dvh <= 8, slot
+//       elements 16..47 of each key ([q tail ; k ; v ; pad], 64 bytes) by
+//       16-byte cp.async (the slot a multiple of 8 lanes, as the model's 48
+//       is, dkh a multiple of 4), so k sits at column 4 and v at column 24 (48
+//       bytes, 16-byte aligned for ldmatrix) of a row of stride KS; wider
+//       heads, ragged dkh and other slots take k rows into a KS-wide tile
+//       (8-byte cp.async where dkh and the slot are multiples of 4) and v
+//       rows into a VS-wide tile by 2-byte loads. The queries' q lanes come
+//       by 8-byte cp.async (slot and dkh multiples of 4) or 2-byte loads.
 //     A map past amma::mma_fits (past 64x64) takes the CUDA-core kernel below
 //     in bf16.
 //   f32 (the card's own reference route, held to 1e-4): the CUDA-core kernel,
@@ -60,6 +63,10 @@
 // of a 64-key tile staged in shared memory, with their own online-softmax
 // state, merged by warp shuffles at the end (the blocking of
 // rel_attention_fwd.cu's CUDA-core kernel).
+//
+// Head widths: this file is built once per width class (KW, VW) of
+// ops/fused_attention.py::width_class (-DATTN_KW, -DATTN_VW; see
+// attention_bwd_mma.cuh) and takes dkh <= KW, dvh <= VW.
 
 #include "attention_fwd_mma.cuh"
 #include "hil_attention_common.cuh"
@@ -76,27 +83,41 @@ using hil::rc_axis;
 using hil::slots_aligned;
 using hil::stage_emb;
 
-constexpr int KV_FIRST = 16;         // the first slot element of a staged key row
-constexpr int KV_COLS = 32;          // staged elements per key row: k and v of dvh <= 8
+// The zoo's key rows (DKC = DK_ZOO): slot elements KV_FIRST .. KV_FIRST +
+// KV_COLS - 1, [q tail ; k ; v ; pad], k at column 4 and v at column 24 of a
+// row of stride KS (16-byte aligned for ldmatrix).
+constexpr int KV_FIRST = 16;
+constexpr int KV_COLS = 24 + VW;
+// Blocks of 128 threads per SM that the narrowest class is built for: 7 (72
+// registers, no spill). Left to itself the compiler took 92 registers, 5
+// blocks, and the latency-bound small maps (20x20, 8x8) ran 15 % slower.
+constexpr int FWD_MIN_BLOCKS = KW == 32 && VW == 8 ? 7 : 1;
 
 // A block owns FWD_ROWS queries of one (batch, head): it computes their RC
 // rows, walks the keys TN at a time and writes its out and lse rows. vecq: q
-// rows by 8-byte cp.async; veckv: key rows by 16-byte cp.async.
-__global__ void __launch_bounds__(FWD_WARPS * 32)
+// rows by 8-byte cp.async. Key tiles: at DKC = DK_ZOO whole key rows of the
+// head's slot (KV_COLS lanes by 16-byte cp.async; the host has checked that
+// the slot holds them); else k rows into kv_s (stride KS; 8-byte cp.async
+// where vecq) and v rows into a tile of stride VS after it, by 2-byte loads.
+template <int DKC>
+__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_MIN_BLOCKS)
 hil_attention_fwd_mma_kernel(const bf16* __restrict__ P, const float* __restrict__ Rw,
                              const float* __restrict__ Rh, const int* __restrict__ tab,
                              bf16* __restrict__ out, float* __restrict__ lse, int hw, int H,
-                             int W, int nh, int slot, int dvh, int rel_stride, int vecq,
-                             int veckv) {
+                             int W, int nh, int slot, int dkh, int dvh, int rel_stride,
+                             int vecq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr bool WHOLE = DKC > 0;
+  if constexpr (WHOLE) dkh = DKC;
   const int xw = emb_rows(W), xh = emb_rows(H), nbt = bin_tiles(W, H);
   float* rel_s = reinterpret_cast<float*>(smem_raw);  // FWD_ROWS x rel_stride: RC rows
   // until the RC rows are made: the queries' tile and E (hi, lo); then the key tiles
   bf16* q_s = reinterpret_cast<bf16*>(rel_s + FWD_ROWS * rel_stride);  // FWD_ROWS x KS
   bf16* e_hi = q_s + FWD_ROWS * KS;                   // (xw + xh) x KS
   bf16* e_lo = e_hi + (xw + xh) * KS;                 // (xw + xh) x KS
-  bf16* kv_s = q_s;                                   // TN x KS: slot elements KV_FIRST..
-  int* kpos_s = reinterpret_cast<int*>(kv_s + TN * KS);  // TN
+  bf16* kv_s = q_s;                                   // TN x KS: key rows, or k rows
+  bf16* vt_s = kv_s + TN * KS;                        // TN x VS: v rows (kv_chunks == 0)
+  int* kpos_s = reinterpret_cast<int*>(vt_s + TN * VS);  // TN
 
   constexpr int NT = FWD_WARPS * 32;
   const int b = blockIdx.z, h = blockIdx.y;
@@ -107,13 +128,13 @@ hil_attention_fwd_mma_kernel(const bf16* __restrict__ P, const float* __restrict
   const size_t row = static_cast<size_t>(nh) * slot;  // elements per token
   const bf16* P_bh = P + static_cast<size_t>(b) * hw * row + static_cast<size_t>(h) * slot;
 
-  zero_tile(q_s, FWD_ROWS * KS, tid, NT);  // the columns past DKH and the rows past hw
+  zero_tile(q_s, FWD_ROWS * KS, tid, NT);  // the columns past dkh and the rows past hw
   for (int e = tid; e < FWD_ROWS * rel_stride; e += NT) rel_s[e] = 0.f;
   __syncthreads();
-  stage_rows(q_s, KS, P_bh + q0 * row, row, qn, DKH, vecq, tid, NT);
+  stage_rows(q_s, KS, P_bh + q0 * row, row, qn, dkh, vecq, tid, NT);
   if (relative) {
-    stage_emb(e_hi, e_lo, Rw, W, xw, tid, NT);
-    stage_emb(e_hi + xw * KS, e_lo + xw * KS, Rh, H, xh, tid, NT);
+    stage_emb(e_hi, e_lo, Rw, W, xw, dkh, tid, NT);
+    stage_emb(e_hi + xw * KS, e_lo + xw * KS, Rh, H, xh, dkh, tid, NT);
   }
   cp_async_wait();
   __syncthreads();
@@ -130,66 +151,72 @@ hil_attention_fwd_mma_kernel(const bf16* __restrict__ P, const float* __restrict
             W, lane);
   }
   __syncthreads();  // the queries' tile and E are consumed: their memory holds the key tiles
-  zero_tile(kv_s, TN * KS, tid, NT);  // the columns that are not staged stay zero
+  zero_tile(kv_s, TN * (KS + VS), tid, NT);  // the columns that are not staged stay zero
   for (int j0 = 0; j0 < hw; j0 += TN) {
     const int kn = min(TN, hw - j0);
     __syncthreads();  // the previous key tile is consumed
-    const bf16* src = P_bh + j0 * row + KV_FIRST;
-    if (veckv) {
-      cp_rows<16>(kv_s, KS * 2, src, row * 2, kn, KV_COLS / 8, tid, NT);
+    const bf16* src = P_bh + j0 * row;
+    if constexpr (WHOLE) {
+      cp_rows<16>(kv_s, KS * 2, src + KV_FIRST, row * 2, kn, KV_COLS / 8, tid, NT);
     } else {
-      const int cols = DKH + dvh;  // k and v, from slot element DKH
-      for (int e = tid; e < kn * cols; e += NT) {
-        const int r = e / cols, c = e - r * cols;
-        kv_s[r * KS + DKH - KV_FIRST + c] = src[r * row + DKH - KV_FIRST + c];
-      }
+      stage_rows(kv_s, KS, src + dkh, row, kn, dkh, vecq, tid, NT);
+      stage_dv(vt_s, src + 2 * dkh, row, dvh, kn, TN, tid, NT);
     }
     stage_kpos(kpos_s, tab, j0 / TN, nbt, tid, NT);
     cp_async_wait();
     __syncthreads();
-    fwd_step(st, kv_s + DKH - KV_FIRST, KS, kv_s + 2 * DKH - KV_FIRST, KS, kpos_s, rel_s,
-             rel_stride, W, kn, warp, lane);
+    if constexpr (WHOLE)
+      fwd_step(st, kv_s + DKC - KV_FIRST, KS, kv_s + 2 * DKC - KV_FIRST, KS, kpos_s, rel_s,
+               rel_stride, W, kn, warp, lane);
+    else
+      fwd_step(st, kv_s, KS, vt_s, VS, kpos_s, rel_s, rel_stride, W, kn, warp, lane);
   }
 
-  float o[4], l[2];
+  float o[NV][4], l[2];
   fwd_finish(st, o, l);
-  const int t = lane & 3;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    if (!row_ok[rr]) continue;
-    const int i = i0 + 8 * rr;
-    bf16* o_i = out + (static_cast<size_t>(b) * hw + i) * nh * dvh + static_cast<size_t>(h) * dvh;
-    if (2 * t < dvh) o_i[2 * t] = __float2bfloat16(o[2 * rr]);
-    if (2 * t + 1 < dvh) o_i[2 * t + 1] = __float2bfloat16(o[2 * rr + 1]);
-    if (t == 0) lse[(static_cast<size_t>(b) * nh + h) * hw + i] = l[rr];
-  }
+  fwd_store(o, l, out + static_cast<size_t>(b) * hw * nh * dvh + static_cast<size_t>(h) * dvh,
+            static_cast<size_t>(nh) * dvh, lse + (static_cast<size_t>(b) * nh + h) * hw, i0, hw,
+            dvh, lane);
 }
 
 inline size_t fwd_smem(int rel_stride, int W, int H) {
   const size_t queries =
       static_cast<size_t>(FWD_ROWS + 2 * (emb_rows(W) + emb_rows(H))) * KS * sizeof(bf16);
-  const size_t keys = static_cast<size_t>(TN) * KS * sizeof(bf16) + TN * sizeof(int);
+  const size_t keys = static_cast<size_t>(TN) * (KS + VS) * sizeof(bf16) + TN * sizeof(int);
   return static_cast<size_t>(FWD_ROWS) * rel_stride * sizeof(float) +
          (queries > keys ? queries : keys);
 }
 
-int launch(const void* P, const void* Rw, const void* Rh, const void* tab, void* out, void* lse,
-           int B, int hw, int H, int W, int nh, int slot, int dvh, void* stream) {
-  if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int DKC>
+int launch_dkc(const void* P, const void* Rw, const void* Rh, const void* tab, void* out,
+               void* lse, int B, int hw, int H, int W, int nh, int slot, int dkh, int dvh,
+               void* stream) {
   const int rel_stride = rel_stride_of(W, H);
   const size_t smem = fwd_smem(rel_stride, W, H);
-  auto kern = hil_attention_fwd_mma_kernel;
+  auto kern = hil_attention_fwd_mma_kernel<DKC>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int veckv = slot % 8 == 0 && slot >= KV_FIRST + KV_COLS &&
-                    reinterpret_cast<uintptr_t>(P) % 16 == 0;
   const dim3 grid((hw + FWD_ROWS - 1) / FWD_ROWS, nh, B);
   kern<<<grid, FWD_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(P), static_cast<const float*>(Rw), static_cast<const float*>(Rh),
       static_cast<const int*>(tab), static_cast<bf16*>(out), static_cast<float*>(lse), hw, H, W,
-      nh, slot, dvh, rel_stride, slots_aligned(P, slot), veckv);
+      nh, slot, dkh, dvh, rel_stride, slots_aligned(P, slot, dkh));
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* P, const void* Rw, const void* Rh, const void* tab, void* out, void* lse,
+           int B, int hw, int H, int W, int nh, int slot, int dkh, int dvh, void* stream) {
+  if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the zoo's whole key rows where the slot is a multiple of 8 lanes that
+  // holds them (the model's 48 does at dvh <= 8)
+  if constexpr (KW == 32) {
+    if (dkh == DK_ZOO && slot % 8 == 0 && slot >= KV_FIRST + KV_COLS &&
+        reinterpret_cast<uintptr_t>(P) % 16 == 0)
+      return launch_dkc<DK_ZOO>(P, Rw, Rh, tab, out, lse, B, hw, H, W, nh, slot, dkh, dvh,
+                                stream);
+  }
+  return launch_dkc<0>(P, Rw, Rh, tab, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
 }
 
 }  // namespace mma_fwd
@@ -208,17 +235,18 @@ constexpr int THREADS = TQ * SPLIT;  // 256
 constexpr int TK = 64;               // keys per shared-memory tile
 constexpr int KPT = TK / SPLIT;      // keys per thread per tile
 
-template <typename T>
+template <typename T, int DK>
 __global__ void __launch_bounds__(THREADS)
 hil_attention_fwd_kernel(const T* __restrict__ P, const float* __restrict__ Rw,
                          const float* __restrict__ Rh, T* __restrict__ out,
                          float* __restrict__ lse, int hw, int H, int W, int nh, int slot,
-                         int dvh, int rel_stride) {
+                         int dkh, int dvh, int rel_stride) {
   extern __shared__ float smem[];
+  dkh = DK == DK_ZOO ? DK_ZOO : dkh;  // the zoo's width as a constant, as it was tuned
   float* rel_s = smem;                       // TQ x rel_stride: [RC_w | RC_h] rows
-  float* q_s = rel_s + TQ * rel_stride;      // TQ x DKH
-  float* k_s = q_s + TQ * DKH;               // TK x DKH
-  float* v_s = k_s + TK * DKH;               // TK x DVMAX (zero beyond dvh)
+  float* q_s = rel_s + TQ * rel_stride;      // TQ x DK (zero beyond dkh)
+  float* k_s = q_s + TQ * DK;                // TK x DK (zero beyond dkh)
+  float* v_s = k_s + TK * DK;                // TK x DVMAX (zero beyond dvh)
   int* kcol = reinterpret_cast<int*>(v_s + TK * DVMAX);  // TK
   int* krow = kcol + TK;                                  // TK
 
@@ -233,16 +261,16 @@ hil_attention_fwd_kernel(const T* __restrict__ P, const float* __restrict__ Rw,
   const size_t row = static_cast<size_t>(nh) * slot;  // elements per token
   const T* P_bh = P + static_cast<size_t>(b) * hw * row + static_cast<size_t>(h) * slot;
 
-  for (int e = tid; e < TQ * DKH; e += THREADS) {
-    const int rr = e / DKH, d = e - rr * DKH;
+  for (int e = tid; e < TQ * DK; e += THREADS) {
+    const int rr = e / DK, d = e - rr * DK;
     const int ii = q0 + rr;
-    q_s[e] = ii < hw ? to_f32(P_bh[ii * row + d]) : 0.f;
+    q_s[e] = (ii < hw && d < dkh) ? to_f32(P_bh[ii * row + d]) : 0.f;
   }
   __syncthreads();
-  rel_tile(q_s, Rw, Rh, q0, TQ, hw, H, W, rel_s, rel_stride, tid, THREADS);
-  float q[DKH];
+  rel_tile<DK>(q_s, Rw, Rh, q0, TQ, hw, H, W, dkh, rel_s, rel_stride, tid, THREADS);
+  float q[DK];
 #pragma unroll
-  for (int d = 0; d < DKH; ++d) q[d] = q_s[r * DKH + d];
+  for (int d = 0; d < DK; ++d) q[d] = q_s[r * DK + d];
 
   float m = NEG_BIG, l = 0.f;
   float acc[DVMAX];
@@ -254,13 +282,13 @@ hil_attention_fwd_kernel(const T* __restrict__ P, const float* __restrict__ Rw,
   for (int j0 = 0; j0 < hw; j0 += TK) {
     const int kn = min(TK, hw - j0);
     __syncthreads();  // the previous tile is consumed (and rel_s is staged)
-    for (int e = tid; e < TK * (DKH + DVMAX); e += THREADS) {
-      const int jj = e / (DKH + DVMAX), c = e - jj * (DKH + DVMAX);
-      const T* kv = P_bh + (j0 + jj) * row + DKH;  // [k ; v] of key j0 + jj
-      if (c < DKH)
-        k_s[jj * DKH + c] = jj < kn ? to_f32(kv[c]) : 0.f;
+    for (int e = tid; e < TK * (DK + DVMAX); e += THREADS) {
+      const int jj = e / (DK + DVMAX), c = e - jj * (DK + DVMAX);
+      const T* kv = P_bh + (j0 + jj) * row + dkh;  // [k ; v] of key j0 + jj
+      if (c < DK)
+        k_s[jj * DK + c] = (jj < kn && c < dkh) ? to_f32(kv[c]) : 0.f;
       else
-        v_s[jj * DVMAX + c - DKH] = (jj < kn && c - DKH < dvh) ? to_f32(kv[c]) : 0.f;
+        v_s[jj * DVMAX + c - DK] = (jj < kn && c - DK < dvh) ? to_f32(kv[dkh + c - DK]) : 0.f;
     }
     if (tid < TK) {
       const int j = j0 + tid;
@@ -276,10 +304,10 @@ hil_attention_fwd_kernel(const T* __restrict__ P, const float* __restrict__ Rw,
       const int jj = sub + SPLIT * t;
       float x = NEG_BIG;
       if (jj < kn) {
-        const float* kj = k_s + jj * DKH;
+        const float* kj = k_s + jj * DK;
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < DKH; ++d) dot = fmaf(q[d], kj[d], dot);
+        for (int d = 0; d < DK; ++d) dot = fmaf(q[d], kj[d], dot);
         x = dot + rw[kcol[jj]] + rh[krow[jj]];
       }
       s[t] = x;
@@ -330,23 +358,33 @@ hil_attention_fwd_kernel(const T* __restrict__ P, const float* __restrict__ Rw,
   }
 }
 
-template <typename T>
-int launch(const void* P, const void* Rw, const void* Rh, void* out, void* lse, int B,
-           int hw, int H, int W, int nh, int slot, int dkh, int dvh, void* stream) {
-  if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, int DK>
+int launch_dk(const void* P, const void* Rw, const void* Rh, void* out, void* lse, int B,
+              int hw, int H, int W, int nh, int slot, int dkh, int dvh, void* stream) {
   const int rel_stride = (W + H) | 1;  // odd row stride spreads rows over banks
   const size_t smem =
-      static_cast<size_t>(TQ * rel_stride + TQ * DKH + TK * DKH + TK * DVMAX) * sizeof(float) +
+      static_cast<size_t>(TQ * rel_stride + TQ * DK + TK * DK + TK * DVMAX) * sizeof(float) +
       2 * TK * sizeof(int);
-  auto kern = hil_attention_fwd_kernel<T>;
+  auto kern = hil_attention_fwd_kernel<T, DK>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((hw + TQ - 1) / TQ, nh, B);
   kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(P), static_cast<const float*>(Rw), static_cast<const float*>(Rh),
-      static_cast<T*>(out), static_cast<float*>(lse), hw, H, W, nh, slot, dvh, rel_stride);
+      static_cast<T*>(out), static_cast<float*>(lse), hw, H, W, nh, slot, dkh, dvh, rel_stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* P, const void* Rw, const void* Rh, void* out, void* lse, int B,
+           int hw, int H, int W, int nh, int slot, int dkh, int dvh, void* stream) {
+  if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (amma::KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_dk<T, DK_ZOO>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
+  }
+  return launch_dk<T, amma::KW>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
 }
 
 }  // namespace
@@ -367,5 +405,5 @@ extern "C" int hil_attention_fwd_bf16(const void* P, const void* Rw, const void*
     return launch<__nv_bfloat16>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
   if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return mma_fwd::launch(P, Rw, Rh, tab, out, lse, B, hw, H, W, nh, slot, dvh, stream);
+  return mma_fwd::launch(P, Rw, Rh, tab, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
 }

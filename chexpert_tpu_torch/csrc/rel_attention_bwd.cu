@@ -18,7 +18,17 @@
 // (FlashAttention-2 style; deterministic, no atomics): pass dkdv owns a tile
 // of keys and walks every query, pass dq owns a tile of queries and walks
 // every key; both recompute S and p. The ragged tails are masked and padded
-// rows are never written; no padded copy exists. dvh 1..8 share one path.
+// rows are never written; no padded copy exists. Every dvh of the width class
+// shares one path.
+//
+// Head widths: this file is built once per width class (KW, VW) of
+// ops/fused_attention.py::width_class (-DATTN_KW, -DATTN_VW; see
+// attention_bwd_mma.cuh) and takes dkh <= KW, dvh <= VW. The tensor-core
+// passes are instantiated for ND = nd_tiles(dkh) n8 tiles of dk / dq; the
+// CUDA-core passes hold q, k, dq, dk DK wide in registers, zero past dkh (DK
+// = KW; DK = dkh = 20, a constant, for the model zoo's width, which keeps
+// its code). In the widest classes those register rows spill to local
+// memory: right, and slow (PERF.md records their times).
 //
 // Two sets of kernels, chosen by the operand dtype:
 //   bf16 (what autocast training hands over): the tensor-core passes of
@@ -71,15 +81,17 @@ using namespace amma;
 // TN at a time and writes its dqr rows [ds k ; dRW ; dRH] once. Its qr rows
 // are staged whole: q and the RC lanes (bf16) are read from the same tile.
 // vecq / veck: the qr rows / the k rows are 8-byte aligned (cp.async).
-template <int NBT>
+template <int NBT, int ND, int DKC>
 __global__ void __launch_bounds__(DQ_WARPS * 32)
 rel_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qr, const bf16* __restrict__ k,
                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                 const float* __restrict__ lse, const float* __restrict__ delta,
                                 const int* __restrict__ tab, bf16* __restrict__ dqr, int hw, int H,
-                                int W, int dvh, int LP, int vecq, int veck) {
+                                int W, int dkh, int dvh, int LP, int vecq, int veck) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int WH = W + H, L = DKH + WH, nbw = (W + 7) / 8, nbt = nbw + (H + 7) / 8;
+  if constexpr (DKC > 0) dkh = DKC;
+  constexpr int DQS = dq_stride<ND>();
+  const int WH = W + H, L = dkh + WH, nbw = (W + 7) / 8, nbt = nbw + (H + 7) / 8;
   float* ld_s = reinterpret_cast<float*>(smem_raw);   // DQ_ROWS x 2
   int* tab_s = reinterpret_cast<int*>(ld_s + DQ_ROWS * 2);  // one row of the key table
   bf16* qr_s = reinterpret_cast<bf16*>(tab_s + key_table_words(nbt));  // DQ_ROWS x LP
@@ -96,11 +108,11 @@ rel_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qr, const bf16* __restr
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int qn = min(DQ_ROWS, hw - q0);
   const size_t tok = static_cast<size_t>(b) * hw;  // first token row of this (batch, head)
-  const bf16* k_b = k + tok * DKH;
+  const bf16* k_b = k + tok * dkh;
   const bf16* v_b = v + tok * dvh;
 
   zero_tile(qr_s, DQ_ROWS * LP, tid, NT);  // the rows past hw and the columns past L
-  zero_tile(k_s, TN * KS, tid, NT);        // the columns past DKH stay zero
+  zero_tile(k_s, TN * KS, tid, NT);        // the columns past dkh stay zero
   __syncthreads();
   stage_rows(qr_s, LP, qr + (tok + q0) * L, L, qn, L, vecq, tid, NT);
   stage_dv(do_s, dout + (tok + q0) * dvh, dvh, dvh, qn, DQ_ROWS, tid, NT);
@@ -108,18 +120,18 @@ rel_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qr, const bf16* __restr
   cp_async_wait();
   __syncthreads();
 
-  DqWarp<NBT> st;
+  DqWarp<NBT, ND> st;
   dq_init(st, qr_s, LP, do_s, ld_s, warp, lane);
   for (int j0 = 0; j0 < hw; j0 += TN) {
     const int kn = min(TN, hw - j0);
     __syncthreads();  // the previous key tile is consumed
-    stage_rows(k_s, KS, k_b + static_cast<size_t>(j0) * DKH, DKH, kn, DKH, veck, tid, NT);
-    if (kn < TN) zero_rows(k_s, KS, kn, TN, DKH, tid, NT);
+    stage_rows(k_s, KS, k_b + static_cast<size_t>(j0) * dkh, dkh, kn, dkh, veck, tid, NT);
+    if (kn < TN) zero_rows(k_s, KS, kn, TN, dkh, tid, NT);
     stage_dv(v_s, v_b + static_cast<size_t>(j0) * dvh, dvh, dvh, kn, TN, tid, NT);
     stage_key_table(tab_s, tab, j0 / TN, nbt, tid, NT);
     cp_async_wait();
     __syncthreads();
-    dq_step(st, k_s, v_s, key_table_at(tab_s, nbt), qr_s + DKH, LP, W, nbt, kn, warp, lane);
+    dq_step(st, k_s, v_s, key_table_at(tab_s, nbt), qr_s + dkh, LP, W, nbt, kn, warp, lane);
   }
   __syncthreads();  // every warp is done with the tiles: their memory becomes the sums
   dq_dump(st, dq_s, warp, lane);
@@ -129,7 +141,7 @@ rel_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qr, const bf16* __restr
   bf16* dqr_q = dqr + (tok + q0) * L;
   for (int e = tid; e < qn * L; e += NT) {
     const int r = e / L, c = e - r * L;
-    const float x = c < DKH ? dq_s[r * DQS + c] : bin_s[r * WH + c - DKH];
+    const float x = c < dkh ? dq_s[r * DQS + c] : bin_s[r * WH + c - dkh];
     dqr_q[e] = __float2bfloat16(x);
   }
 }
@@ -137,13 +149,15 @@ rel_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qr, const bf16* __restr
 // Pass dkdv. A block owns DKDV_ROWS keys of one (batch, head), walks the
 // queries TN at a time (whole qr rows, as in pass dq) and writes its keys' dk
 // and dv once.
-__global__ void __launch_bounds__(DKDV_WARPS * 32, 2)
+template <int ND, int DKC>
+__global__ void __launch_bounds__(DKDV_WARPS * 32, DKDV_MIN_BLOCKS)
 rel_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ qr, const bf16* __restrict__ k,
                                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                   const float* __restrict__ lse, const float* __restrict__ delta,
                                   bf16* __restrict__ dk, bf16* __restrict__ dv, int hw, int H,
-                                  int W, int dvh, int LP, int vecq, int veck) {
+                                  int W, int dkh, int dvh, int LP, int vecq, int veck) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (DKC > 0) dkh = DKC;
   // two buffers of a query tile: ld (TN x 2 f32), qr (TN x LP), dout (TN x VS)
   const int tile_words = TN * 2 + (TN * (LP + VS)) / 2;
   float* tile_s = reinterpret_cast<float*>(smem_raw);
@@ -156,15 +170,15 @@ rel_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ qr, const bf16* __res
   const int key0 = blockIdx.x * DKDV_ROWS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int kn = min(DKDV_ROWS, hw - key0);
-  const int L = DKH + W + H;
+  const int L = dkh + W + H;
   const size_t tok = static_cast<size_t>(b) * hw;
   const bf16* qr_b = qr + tok * L;
   const bf16* do_b = dout + tok * dvh;
 
   for (int e = tid; e < 2 * tile_words; e += NT) tile_s[e] = 0.f;  // rows past hw, columns past L
-  zero_tile(k_s, DKDV_ROWS * KS, tid, NT);   // the columns past DKH and the rows past hw
+  zero_tile(k_s, DKDV_ROWS * KS, tid, NT);   // the columns past dkh and the rows past hw
   __syncthreads();
-  stage_rows(k_s, KS, k + (tok + key0) * DKH, DKH, kn, DKH, veck, tid, NT);
+  stage_rows(k_s, KS, k + (tok + key0) * dkh, dkh, kn, dkh, veck, tid, NT);
   stage_dv(v_s, v + (tok + key0) * dvh, dvh, dvh, kn, DKDV_ROWS, tid, NT);
 
   // the cp.async part of query tile i0 into buffer buf
@@ -185,7 +199,7 @@ rel_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ qr, const bf16* __res
   store_dv(dout_of(0), dv_regs, tid, NT);
   cp_async_wait();
   __syncthreads();
-  DkdvWarp st;
+  DkdvWarp<ND> st;
   dkdv_init(st, k_s, v_s, key0, hw, W, warp, lane);
 
   int buf = 0;
@@ -200,7 +214,7 @@ rel_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ qr, const bf16* __res
     }
     const float* ld_s = tile_s + buf * tile_words;
     const bf16* qr_s = reinterpret_cast<const bf16*>(ld_s + TN * 2);
-    dkdv_step(st, qr_s, LP, dout_of(buf), ld_s, qr_s + DKH, LP, W, min(TN, hw - i0), lane);
+    dkdv_step(st, qr_s, LP, dout_of(buf), ld_s, qr_s + dkh, LP, W, min(TN, hw - i0), lane);
     if (next < hw) store_dv(dout_of(buf ^ 1), dv_regs, tid, NT);
   }
 
@@ -209,34 +223,37 @@ rel_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ qr, const bf16* __res
   for (int i = 0; i < 2; ++i) {
     const int j = key0 + dkdv_key(warp, lane, i);
     if (j < hw) {
-      bf16* dk_j = dk + (tok + j) * DKH;
+      bf16* dk_j = dk + (tok + j) * dkh;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
         const int d = nd * 8 + 2 * t;
-        if (d < DKH) {
-          dk_j[d] = __float2bfloat16(st.dk[nd][2 * i]);
-          dk_j[d + 1] = __float2bfloat16(st.dk[nd][2 * i + 1]);
-        }
+        if (d < dkh) dk_j[d] = __float2bfloat16(st.dk[nd][2 * i]);
+        if (d + 1 < dkh) dk_j[d + 1] = __float2bfloat16(st.dk[nd][2 * i + 1]);
       }
       bf16* dv_j = dv + (tok + j) * dvh;
-      if (2 * t < dvh) dv_j[2 * t] = __float2bfloat16(st.dv[2 * i]);
-      if (2 * t + 1 < dvh) dv_j[2 * t + 1] = __float2bfloat16(st.dv[2 * i + 1]);
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv) {
+        const int c = nv * 8 + 2 * t;
+        if (c < dvh) dv_j[c] = __float2bfloat16(st.dv[nv][2 * i]);
+        if (c + 1 < dvh) dv_j[c + 1] = __float2bfloat16(st.dv[nv][2 * i + 1]);
+      }
     }
   }
 }
 
-template <int NBT>
+template <int NBT, int ND, int DKC>
 int launch_dq_nbt(const void* qr, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, const void* tab, void* dqr, int bn, int hw,
-                  int H, int W, int dvh, void* stream) {
-  const int L = DKH + W + H, LP = qr_stride_of(L);
+                  int H, int W, int dkh, int dvh, void* stream) {
+  const int L = dkh + W + H, LP = qr_stride_of(L);
   const size_t loop_bytes =
       static_cast<size_t>(DQ_ROWS * 2) * sizeof(float) +
       key_table_words(bin_tiles(W, H)) * sizeof(int) +
       static_cast<size_t>(DQ_ROWS * (LP + VS) + TN * (KS + VS)) * sizeof(bf16);
-  const size_t sums_bytes = static_cast<size_t>(DQ_ROWS * (W + H + DQS)) * sizeof(float);
+  const size_t sums_bytes =
+      static_cast<size_t>(DQ_ROWS * (W + H + dq_stride<ND>())) * sizeof(float);
   const size_t smem = loop_bytes > sums_bytes ? loop_bytes : sums_bytes;
-  auto kern = rel_attention_bwd_dq_mma_kernel<NBT>;
+  auto kern = rel_attention_bwd_dq_mma_kernel<NBT, ND, DKC>;
   const cudaError_t e = amma::allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((hw + DQ_ROWS - 1) / DQ_ROWS, bn);
@@ -244,33 +261,52 @@ int launch_dq_nbt(const void* qr, const void* k, const void* v, const void* dout
       static_cast<const bf16*>(qr), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(tab), static_cast<bf16*>(dqr),
-      hw, H, W, dvh, LP, L % 4 == 0 && aligned8(qr), aligned8(k));
+      hw, H, W, dkh, dvh, LP, L % 4 == 0 && aligned8(qr), dkh % 4 == 0 && aligned8(k));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int ND, int DKC>
+int launch_dq_nd(const void* qr, const void* k, const void* v, const void* dout, const void* lse,
+                 const void* delta, const void* tab, void* dqr, int bn, int hw, int H, int W,
+                 int dkh, int dvh, void* stream) {
+  const int nb = bin_tiles(W, H);
+  if (nb <= 4)
+    return launch_dq_nbt<4, ND, DKC>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dkh, dvh,
+                                     stream);
+  if (nb <= 10)
+    return launch_dq_nbt<10, ND, DKC>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dkh,
+                                      dvh, stream);
+  return launch_dq_nbt<MAX_BIN_TILES, ND, DKC>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H,
+                                               W, dkh, dvh, stream);
 }
 
 int launch_dq(const void* qr, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* tab, void* dqr, int bn, int hw, int H, int W,
-              int dvh, void* stream) {
+              int dkh, int dvh, void* stream) {
   if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = bin_tiles(W, H);
-  if (nb <= 4)
-    return launch_dq_nbt<4>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dvh, stream);
-  if (nb <= 10)
-    return launch_dq_nbt<10>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dvh, stream);
-  return launch_dq_nbt<MAX_BIN_TILES>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dvh,
-                                      stream);
+  if constexpr (KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_dq_nd<ND_SMALL, DK_ZOO>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W,
+                                            dkh, dvh, stream);
+  }
+  if (nd_tiles(dkh) == ND_SMALL)
+    return launch_dq_nd<ND_SMALL, 0>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dkh,
+                                     dvh, stream);
+  return launch_dq_nd<KW / 8, 0>(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dkh, dvh,
+                                 stream);
 }
 
-int launch_dkdv(const void* qr, const void* k, const void* v, const void* dout, const void* lse,
-                const void* delta, void* dk, void* dv, int bn, int hw, int H, int W, int dvh,
-                void* stream) {
-  const int L = DKH + W + H, LP = qr_stride_of(L);
+template <int ND, int DKC>
+int launch_dkdv_nd(const void* qr, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, int bn, int hw, int H,
+                   int W, int dkh, int dvh, void* stream) {
+  const int L = dkh + W + H, LP = qr_stride_of(L);
   const size_t smem =
       2 * (static_cast<size_t>(TN * 2) * sizeof(float) +
            static_cast<size_t>(TN * (LP + VS)) * sizeof(bf16)) +
       static_cast<size_t>(DKDV_ROWS * (KS + VS)) * sizeof(bf16);
-  auto kern = rel_attention_bwd_dkdv_mma_kernel;
+  auto kern = rel_attention_bwd_dkdv_mma_kernel<ND, DKC>;
   const cudaError_t e = amma::allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((hw + DKDV_ROWS - 1) / DKDV_ROWS, bn);
@@ -278,8 +314,23 @@ int launch_dkdv(const void* qr, const void* k, const void* v, const void* dout, 
       static_cast<const bf16*>(qr), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), hw, H,
-      W, dvh, LP, L % 4 == 0 && aligned8(qr), aligned8(k));
+      W, dkh, dvh, LP, L % 4 == 0 && aligned8(qr), dkh % 4 == 0 && aligned8(k));
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkdv(const void* qr, const void* k, const void* v, const void* dout, const void* lse,
+                const void* delta, void* dk, void* dv, int bn, int hw, int H, int W, int dkh,
+                int dvh, void* stream) {
+  if constexpr (KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_dkdv_nd<ND_SMALL, DK_ZOO>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W,
+                                              dkh, dvh, stream);
+  }
+  if (nd_tiles(dkh) == ND_SMALL)
+    return launch_dkdv_nd<ND_SMALL, 0>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh,
+                                       dvh, stream);
+  return launch_dkdv_nd<KW / 8, 0>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh,
+                                   stream);
 }
 
 }  // namespace mma_passes
@@ -291,8 +342,8 @@ int launch_dkdv(const void* qr, const void* k, const void* v, const void* dout, 
 
 namespace {
 
-constexpr int DKH = 20;      // the AAConv head width (min_dk_per_head)
-constexpr int DVMAX = 8;     // largest dvh (staged 8 wide, zero beyond dvh)
+constexpr int DVMAX = amma::VW;  // largest dvh (staged VW wide, zero beyond dvh)
+using amma::DK_ZOO;
 constexpr int T1 = 128;      // pass 1: keys per block, one thread each
 constexpr int TQ1 = 64;      // pass 1: queries per shared-memory tile
 constexpr int T2 = 64;       // pass 2: queries per block, one thread each
@@ -303,11 +354,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// q . k over DKH with four partial sums (a shorter dependency chain)
+// q . k over DK (zero past dkh) with four partial sums (a shorter dependency chain)
+template <int DK>
 __device__ __forceinline__ float dot_dk(const float* a, const float* b) {
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll
-  for (int d = 0; d < DKH; d += 4) {
+  for (int d = 0; d < DK; d += 4) {
     s0 = fmaf(a[d], b[d], s0);
     s1 = fmaf(a[d + 1], b[d + 1], s1);
     s2 = fmaf(a[d + 2], b[d + 2], s2);
@@ -323,17 +375,18 @@ __device__ __forceinline__ float dot_dv(const float* a, const float* b) {
   return s;
 }
 
-template <typename T>
+template <typename T, int DK>
 __global__ void __launch_bounds__(T1)
 rel_attention_bwd_dkdv_kernel(const T* __restrict__ qr, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ dout,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta, T* __restrict__ dk,
-                              T* __restrict__ dv, int hw, int H, int W, int dvh,
+                              T* __restrict__ dv, int hw, int H, int W, int dkh, int dvh,
                               int rel_stride) {
   extern __shared__ float smem[];
-  float* q_s = smem;                   // TQ1 x DKH
-  float* do_s = q_s + TQ1 * DKH;       // TQ1 x DVMAX (zero beyond dvh)
+  dkh = DK == DK_ZOO ? DK_ZOO : dkh;  // the zoo's width as a constant, as it was tuned
+  float* q_s = smem;                   // TQ1 x DK (zero beyond dkh)
+  float* do_s = q_s + TQ1 * DK;        // TQ1 x DVMAX (zero beyond dvh)
   float* ld_s = do_s + TQ1 * DVMAX;    // TQ1 x 2: (lse, delta)
   float* rel_s = ld_s + TQ1 * 2;       // TQ1 x rel_stride: [RW | RH] rows
 
@@ -342,7 +395,7 @@ rel_attention_bwd_dkdv_kernel(const T* __restrict__ qr, const T* __restrict__ k,
   const int j = blockIdx.x * T1 + tid;
   const bool key_ok = j < hw;
   const int WH = W + H;
-  const int L = DKH + WH;
+  const int L = dkh + WH;
   const int cj = key_ok ? j % W : 0;
   const int rj = key_ok ? W + j / W : W;  // offset of RH[., row(j)] in a rel row
 
@@ -351,10 +404,10 @@ rel_attention_bwd_dkdv_kernel(const T* __restrict__ qr, const T* __restrict__ k,
   const float* lse_b = lse + static_cast<size_t>(b) * hw;
   const float* delta_b = delta + static_cast<size_t>(b) * hw;
 
-  float kj[DKH], vj[DVMAX], dkj[DKH], dvj[DVMAX];
+  float kj[DK], vj[DVMAX], dkj[DK], dvj[DVMAX];
 #pragma unroll
-  for (int d = 0; d < DKH; ++d) {
-    kj[d] = key_ok ? to_f32(k[(static_cast<size_t>(b) * hw + j) * DKH + d]) : 0.f;
+  for (int d = 0; d < DK; ++d) {
+    kj[d] = (key_ok && d < dkh) ? to_f32(k[(static_cast<size_t>(b) * hw + j) * dkh + d]) : 0.f;
     dkj[d] = 0.f;
   }
 #pragma unroll
@@ -366,9 +419,9 @@ rel_attention_bwd_dkdv_kernel(const T* __restrict__ qr, const T* __restrict__ k,
   for (int i0 = 0; i0 < hw; i0 += TQ1) {
     const int qn = min(TQ1, hw - i0);
     __syncthreads();  // the previous query tile is consumed
-    for (int e = tid; e < TQ1 * DKH; e += T1) {
-      const int r = e / DKH, d = e - r * DKH;
-      q_s[e] = r < qn ? to_f32(qr_b[static_cast<size_t>(i0 + r) * L + d]) : 0.f;
+    for (int e = tid; e < TQ1 * DK; e += T1) {
+      const int r = e / DK, d = e - r * DK;
+      q_s[e] = (r < qn && d < dkh) ? to_f32(qr_b[static_cast<size_t>(i0 + r) * L + d]) : 0.f;
     }
     for (int e = tid; e < TQ1 * DVMAX; e += T1) {
       const int r = e / DVMAX, c = e - r * DVMAX;
@@ -381,29 +434,30 @@ rel_attention_bwd_dkdv_kernel(const T* __restrict__ qr, const T* __restrict__ k,
     for (int e = tid; e < TQ1 * WH; e += T1) {
       const int r = e / WH, c = e - r * WH;
       rel_s[r * rel_stride + c] =
-          r < qn ? to_f32(qr_b[static_cast<size_t>(i0 + r) * L + DKH + c]) : 0.f;
+          r < qn ? to_f32(qr_b[static_cast<size_t>(i0 + r) * L + dkh + c]) : 0.f;
     }
     __syncthreads();
     if (key_ok) {
 #pragma unroll 2
       for (int r = 0; r < qn; ++r) {
-        const float* qi = q_s + r * DKH;
+        const float* qi = q_s + r * DK;
         const float* doi = do_s + r * DVMAX;
         const float* rel = rel_s + r * rel_stride;
-        const float s = dot_dk(qi, kj) + rel[cj] + rel[rj];
+        const float s = dot_dk<DK>(qi, kj) + rel[cj] + rel[rj];
         const float p = expf(s - ld_s[2 * r]);
         const float ds = p * (dot_dv(doi, vj) - ld_s[2 * r + 1]);
 #pragma unroll
         for (int e = 0; e < DVMAX; ++e) dvj[e] = fmaf(p, doi[e], dvj[e]);
 #pragma unroll
-        for (int d = 0; d < DKH; ++d) dkj[d] = fmaf(ds, qi[d], dkj[d]);
+        for (int d = 0; d < DK; ++d) dkj[d] = fmaf(ds, qi[d], dkj[d]);
       }
     }
   }
   if (key_ok) {
-    T* dk_j = dk + (static_cast<size_t>(b) * hw + j) * DKH;
+    T* dk_j = dk + (static_cast<size_t>(b) * hw + j) * dkh;
 #pragma unroll
-    for (int d = 0; d < DKH; ++d) store(dk_j + d, dkj[d]);
+    for (int d = 0; d < DK; ++d)
+      if (d < dkh) store(dk_j + d, dkj[d]);
     T* dv_j = dv + (static_cast<size_t>(b) * hw + j) * dvh;
 #pragma unroll
     for (int e = 0; e < DVMAX; ++e)
@@ -411,18 +465,19 @@ rel_attention_bwd_dkdv_kernel(const T* __restrict__ qr, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int DK>
 __global__ void __launch_bounds__(T2)
 rel_attention_bwd_dq_kernel(const T* __restrict__ qr, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta, T* __restrict__ dqr,
-                            int hw, int H, int W, int dvh, int rel_stride) {
+                            int hw, int H, int W, int dkh, int dvh, int rel_stride) {
   extern __shared__ float smem[];
+  dkh = DK == DK_ZOO ? DK_ZOO : dkh;  // the zoo's width as a constant, as it was tuned
   float* rel_s = smem;                      // T2 x rel_stride: [RW | RH] rows
   float* bin_s = rel_s + T2 * rel_stride;   // T2 x rel_stride: [dRW | dRH] sums
-  float* k_s = bin_s + T2 * rel_stride;     // TK2 x DKH
-  float* v_s = k_s + TK2 * DKH;             // TK2 x DVMAX (zero beyond dvh)
+  float* k_s = bin_s + T2 * rel_stride;     // TK2 x DK (zero beyond dkh)
+  float* v_s = k_s + TK2 * DK;              // TK2 x DVMAX (zero beyond dvh)
 
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * T2;
@@ -430,23 +485,23 @@ rel_attention_bwd_dq_kernel(const T* __restrict__ qr, const T* __restrict__ k,
   const int i = q0 + tid;
   const bool row_ok = i < hw;
   const int WH = W + H;
-  const int L = DKH + WH;
+  const int L = dkh + WH;
 
   const T* qr_b = qr + static_cast<size_t>(b) * hw * L;
-  const T* k_b = k + static_cast<size_t>(b) * hw * DKH;
+  const T* k_b = k + static_cast<size_t>(b) * hw * dkh;
   const T* v_b = v + static_cast<size_t>(b) * hw * dvh;
   T* dqr_b = dqr + static_cast<size_t>(b) * hw * L;
 
   for (int e = tid; e < T2 * WH; e += T2) {
     const int r = e / WH, c = e - r * WH;
     const int ii = q0 + r;
-    rel_s[r * rel_stride + c] = ii < hw ? to_f32(qr_b[static_cast<size_t>(ii) * L + DKH + c]) : 0.f;
+    rel_s[r * rel_stride + c] = ii < hw ? to_f32(qr_b[static_cast<size_t>(ii) * L + dkh + c]) : 0.f;
     bin_s[r * rel_stride + c] = 0.f;
   }
-  float q[DKH], dq[DKH], doi[DVMAX];
+  float q[DK], dq[DK], doi[DVMAX];
 #pragma unroll
-  for (int d = 0; d < DKH; ++d) {
-    q[d] = row_ok ? to_f32(qr_b[static_cast<size_t>(i) * L + d]) : 0.f;
+  for (int d = 0; d < DK; ++d) {
+    q[d] = (row_ok && d < dkh) ? to_f32(qr_b[static_cast<size_t>(i) * L + d]) : 0.f;
     dq[d] = 0.f;
   }
 #pragma unroll
@@ -463,8 +518,16 @@ rel_attention_bwd_dq_kernel(const T* __restrict__ qr, const T* __restrict__ k,
   for (int j0 = 0; j0 < hw; j0 += TK2) {
     const int kn = min(TK2, hw - j0);
     __syncthreads();  // the previous key tile is consumed (and rel_s is staged)
-    for (int e = tid; e < TK2 * DKH; e += T2)
-      k_s[e] = e < kn * DKH ? to_f32(k_b[static_cast<size_t>(j0) * DKH + e]) : 0.f;
+    if constexpr (DK == DK_ZOO) {  // rows of exactly DK lanes: one run of kn * DK
+      for (int e = tid; e < TK2 * DK; e += T2)
+        k_s[e] = e < kn * DK ? to_f32(k_b[static_cast<size_t>(j0) * DK + e]) : 0.f;
+    } else {
+      for (int e = tid; e < TK2 * DK; e += T2) {
+        const int jj = e / DK, d = e - jj * DK;
+        k_s[e] = (jj < kn && d < dkh) ? to_f32(k_b[static_cast<size_t>(j0 + jj) * dkh + d])
+                                      : 0.f;
+      }
+    }
     for (int e = tid; e < TK2 * DVMAX; e += T2) {
       const int jj = e / DVMAX, c = e - jj * DVMAX;
       v_s[e] = (jj < kn && c < dvh) ? to_f32(v_b[static_cast<size_t>(j0 + jj) * dvh + c]) : 0.f;
@@ -479,12 +542,12 @@ rel_attention_bwd_dq_kernel(const T* __restrict__ qr, const T* __restrict__ k,
           cur_row = row;
           rh_val = rel[W + row];
         }
-        const float* kj = k_s + jj * DKH;
-        const float s = dot_dk(q, kj) + rel[c] + rh_val;
+        const float* kj = k_s + jj * DK;
+        const float s = dot_dk<DK>(q, kj) + rel[c] + rh_val;
         const float p = expf(s - lse_i);
         const float ds = p * (dot_dv(doi, v_s + jj * DVMAX) - delta_i);
 #pragma unroll
-        for (int d = 0; d < DKH; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
+        for (int d = 0; d < DK; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
         bin[c] += ds;
         rh_acc += ds;
         if (++c == W) {
@@ -498,19 +561,20 @@ rel_attention_bwd_dq_kernel(const T* __restrict__ qr, const T* __restrict__ k,
     if (cur_row >= 0) bin[W + cur_row] += rh_acc;
     T* dq_i = dqr_b + static_cast<size_t>(i) * L;
 #pragma unroll
-    for (int d = 0; d < DKH; ++d) store(dq_i + d, dq[d]);
+    for (int d = 0; d < DK; ++d)
+      if (d < dkh) store(dq_i + d, dq[d]);
   }
   __syncthreads();  // every row's bins are final
   for (int e = tid; e < T2 * WH; e += T2) {
     const int r = e / WH, c = e - r * WH;
     const int ii = q0 + r;
-    if (ii < hw) store(dqr_b + static_cast<size_t>(ii) * L + DKH + c, bin_s[r * rel_stride + c]);
+    if (ii < hw) store(dqr_b + static_cast<size_t>(ii) * L + dkh + c, bin_s[r * rel_stride + c]);
   }
 }
 
 bool bad_shape(int bn, int hw, int H, int W, int dkh, int dvh) {
-  return dkh != DKH || dvh < 1 || dvh > DVMAX || hw != H * W || hw < 1 || bn < 1 ||
-         bn > 65535;
+  return dkh < 1 || dkh > amma::KW || dvh < 1 || dvh > DVMAX || hw != H * W || hw < 1 ||
+         bn < 1 || bn > 65535;
 }
 
 template <typename K>
@@ -520,15 +584,14 @@ cudaError_t allow_smem(K kern, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T>
-int launch_dkdv(const void* qr, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dk, void* dv, int bn, int hw,
-                int H, int W, int dkh, int dvh, void* stream) {
-  if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, int DK>
+int launch_dkdv_dk(const void* qr, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, int bn, int hw,
+                   int H, int W, int dkh, int dvh, void* stream) {
   const int rel_stride = (W + H) | 1;  // odd row stride spreads rows over banks
   const size_t smem =
-      static_cast<size_t>(TQ1 * (DKH + DVMAX + 2) + TQ1 * rel_stride) * sizeof(float);
-  auto kern = rel_attention_bwd_dkdv_kernel<T>;
+      static_cast<size_t>(TQ1 * (DK + DVMAX + 2) + TQ1 * rel_stride) * sizeof(float);
+  auto kern = rel_attention_bwd_dkdv_kernel<T, DK>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((hw + T1 - 1) / T1, bn);
@@ -536,7 +599,39 @@ int launch_dkdv(const void* qr, const void* k, const void* v, const void* dout,
       static_cast<const T*>(qr), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), hw, H,
-      W, dvh, rel_stride);
+      W, dkh, dvh, rel_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dkdv(const void* qr, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, void* dk, void* dv, int bn, int hw,
+                int H, int W, int dkh, int dvh, void* stream) {
+  if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (amma::KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_dkdv_dk<T, DK_ZOO>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh,
+                                       dvh, stream);
+  }
+  return launch_dkdv_dk<T, amma::KW>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh,
+                                     stream);
+}
+
+template <typename T, int DK>
+int launch_dq_dk(const void* qr, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, void* dqr, int bn, int hw, int H, int W,
+                 int dkh, int dvh, void* stream) {
+  const int rel_stride = (W + H) | 1;
+  const size_t smem =
+      static_cast<size_t>(2 * T2 * rel_stride + TK2 * (DK + DVMAX)) * sizeof(float);
+  auto kern = rel_attention_bwd_dq_kernel<T, DK>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((hw + T2 - 1) / T2, bn);
+  kern<<<grid, T2, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(qr), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dqr), hw, H, W, dkh, dvh, rel_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -545,18 +640,13 @@ int launch_dq(const void* qr, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dqr, int bn, int hw, int H, int W,
               int dkh, int dvh, void* stream) {
   if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
-  const int rel_stride = (W + H) | 1;
-  const size_t smem =
-      static_cast<size_t>(2 * T2 * rel_stride + TK2 * (DKH + DVMAX)) * sizeof(float);
-  auto kern = rel_attention_bwd_dq_kernel<T>;
-  const cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((hw + T2 - 1) / T2, bn);
-  kern<<<grid, T2, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(qr), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dqr), hw, H, W, dvh, rel_stride);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (amma::KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_dq_dk<T, DK_ZOO>(qr, k, v, dout, lse, delta, dqr, bn, hw, H, W, dkh, dvh,
+                                     stream);
+  }
+  return launch_dq_dk<T, amma::KW>(qr, k, v, dout, lse, delta, dqr, bn, hw, H, W, dkh, dvh,
+                                   stream);
 }
 
 }  // namespace
@@ -579,7 +669,8 @@ extern "C" int rel_attention_bwd_dkdv_bf16(const void* qr, const void* k, const 
     return launch_dkdv<__nv_bfloat16>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh,
                                       stream);
   if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
-  return mma_passes::launch_dkdv(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dvh, stream);
+  return mma_passes::launch_dkdv(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh,
+                                 stream);
 }
 
 // tab: the key table of the map (ops/fused_attention.py::key_table), read by
@@ -600,5 +691,6 @@ extern "C" int rel_attention_bwd_dq_bf16(const void* qr, const void* k, const vo
     return launch_dq<__nv_bfloat16>(qr, k, v, dout, lse, delta, dqr, bn, hw, H, W, dkh, dvh,
                                     stream);
   if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
-  return mma_passes::launch_dq(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dvh, stream);
+  return mma_passes::launch_dq(qr, k, v, dout, lse, delta, tab, dqr, bn, hw, H, W, dkh, dvh,
+                               stream);
 }

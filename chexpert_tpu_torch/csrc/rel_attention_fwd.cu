@@ -15,9 +15,10 @@
 //     Its queries are staged as whole qr rows (200 / 120 / 80 bytes at
 //     40x40 / 20x20 / 10x10) by 8-byte cp.async where L is a multiple of 4, so
 //     q and the bf16 RW / RH lanes are read from the same tile, as B2's dq
-//     pass reads them; key tiles are k rows (8-byte cp.async) and v rows
-//     padded to 8 columns. A map past amma::mma_fits (past 64x64) takes the
-//     CUDA-core kernel below in bf16.
+//     pass reads them; key tiles are k rows (8-byte cp.async where dkh is a
+//     multiple of 4, else 2-byte loads) and v rows padded to VW columns. A map
+//     past amma::mma_fits (past 64x64) takes the CUDA-core kernel below in
+//     bf16.
 //   f32 (the card's own reference route, held to 1e-4): the CUDA-core kernel,
 //     all arithmetic f32.
 //
@@ -44,8 +45,14 @@
 // shared memory, with its own online-softmax state; the 4 partial states
 // merge by warp shuffles at the end. The ragged key tail is skipped by index
 // (no padding in device memory) and padded query rows are never written.
-// Nothing carries across blocks. dvh 1..8 shares one code path (the TPU's dv1
-// layout branch is a lane-layout trick with no GPU counterpart).
+// Nothing carries across blocks. Every dvh of the width class shares one code
+// path (the TPU's dv1 layout branch is a lane-layout trick with no GPU
+// counterpart); q and k are held DK wide, zero past dkh (DK = KW; DK = dkh =
+// 20, a constant, for the model zoo's width, which keeps its code).
+//
+// Head widths: this file is built once per width class (KW, VW) of
+// ops/fused_attention.py::width_class (-DATTN_KW, -DATTN_VW; see
+// attention_bwd_mma.cuh) and takes dkh <= KW, dvh <= VW.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,29 +73,31 @@ using namespace amma;
 // the RC lanes read from the same tile; it walks the keys TN at a time and
 // writes its out and lse rows. vecq / veck: the qr rows / the k rows are
 // 8-byte aligned (cp.async).
+template <int DKC>
 __global__ void __launch_bounds__(FWD_WARPS * 32)
 rel_attention_fwd_mma_kernel(const bf16* __restrict__ qr, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const int* __restrict__ tab,
                              bf16* __restrict__ out, float* __restrict__ lse, int hw, int H,
-                             int W, int dvh, int LP, int vecq, int veck) {
+                             int W, int dkh, int dvh, int LP, int vecq, int veck) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (DKC > 0) dkh = DKC;
   bf16* qr_s = reinterpret_cast<bf16*>(smem_raw);    // FWD_ROWS x LP
   bf16* k_s = qr_s + FWD_ROWS * LP;                   // TN x KS
   bf16* v_s = k_s + TN * KS;                          // TN x VS
   int* kpos_s = reinterpret_cast<int*>(v_s + TN * VS);  // TN
 
   constexpr int NT = FWD_WARPS * 32;
-  const int L = DKH + W + H, nbt = bin_tiles(W, H);
+  const int L = dkh + W + H, nbt = bin_tiles(W, H);
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * FWD_ROWS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int qn = min(FWD_ROWS, hw - q0);
   const size_t tok = static_cast<size_t>(b) * hw;  // first token row of this (batch, head)
-  const bf16* k_b = k + tok * DKH;
+  const bf16* k_b = k + tok * dkh;
   const bf16* v_b = v + tok * dvh;
 
   zero_tile(qr_s, FWD_ROWS * LP, tid, NT);  // the rows past hw and the columns past L
-  zero_tile(k_s, TN * KS, tid, NT);         // the columns past DKH stay zero
+  zero_tile(k_s, TN * KS, tid, NT);         // the columns past dkh stay zero
   __syncthreads();
   stage_rows(qr_s, LP, qr + (tok + q0) * L, L, qn, L, vecq, tid, NT);
   cp_async_wait();
@@ -99,45 +108,45 @@ rel_attention_fwd_mma_kernel(const bf16* __restrict__ qr, const bf16* __restrict
   for (int j0 = 0; j0 < hw; j0 += TN) {
     const int kn = min(TN, hw - j0);
     __syncthreads();  // the previous key tile is consumed
-    stage_rows(k_s, KS, k_b + static_cast<size_t>(j0) * DKH, DKH, kn, DKH, veck, tid, NT);
+    stage_rows(k_s, KS, k_b + static_cast<size_t>(j0) * dkh, dkh, kn, dkh, veck, tid, NT);
     stage_dv(v_s, v_b + static_cast<size_t>(j0) * dvh, dvh, dvh, kn, TN, tid, NT);
     stage_kpos(kpos_s, tab, j0 / TN, nbt, tid, NT);
     cp_async_wait();
     __syncthreads();
-    fwd_step(st, k_s, KS, v_s, VS, kpos_s, qr_s + DKH, LP, W, kn, warp, lane);
+    fwd_step(st, k_s, KS, v_s, VS, kpos_s, qr_s + dkh, LP, W, kn, warp, lane);
   }
 
-  float o[4], l[2];
+  float o[NV][4], l[2];
   fwd_finish(st, o, l);
-  const int t = lane & 3;
-  const int i0 = q0 + warp * 16 + (lane >> 2);
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int i = i0 + 8 * rr;
-    if (i >= hw) continue;
-    bf16* o_i = out + (tok + i) * dvh;
-    if (2 * t < dvh) o_i[2 * t] = __float2bfloat16(o[2 * rr]);
-    if (2 * t + 1 < dvh) o_i[2 * t + 1] = __float2bfloat16(o[2 * rr + 1]);
-    if (t == 0) lse[tok + i] = l[rr];
-  }
+  fwd_store(o, l, out + tok * dvh, dvh, lse + tok, q0 + warp * 16 + (lane >> 2), hw, dvh, lane);
 }
 
-int launch(const void* qr, const void* k, const void* v, const void* tab, void* out, void* lse,
-           int bn, int hw, int H, int W, int dvh, void* stream) {
-  if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int L = DKH + W + H, LP = qr_stride_of(L);
+template <int DKC>
+int launch_dkc(const void* qr, const void* k, const void* v, const void* tab, void* out,
+               void* lse, int bn, int hw, int H, int W, int dkh, int dvh, void* stream) {
+  const int L = dkh + W + H, LP = qr_stride_of(L);
   const size_t smem = static_cast<size_t>(FWD_ROWS * LP + TN * (KS + VS)) * sizeof(bf16) +
                       TN * sizeof(int);
-  auto kern = rel_attention_fwd_mma_kernel;
+  auto kern = rel_attention_fwd_mma_kernel<DKC>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((hw + FWD_ROWS - 1) / FWD_ROWS, bn);
   kern<<<grid, FWD_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qr), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(tab), static_cast<bf16*>(out), static_cast<float*>(lse), hw, H, W,
-      dvh, LP, L % 4 == 0 && aligned8(qr), aligned8(k));
+      dkh, dvh, LP, L % 4 == 0 && aligned8(qr), dkh % 4 == 0 && aligned8(k));
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* qr, const void* k, const void* v, const void* tab, void* out, void* lse,
+           int bn, int hw, int H, int W, int dkh, int dvh, void* stream) {
+  if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_dkc<DK_ZOO>(qr, k, v, tab, out, lse, bn, hw, H, W, dkh, dvh, stream);
+  }
+  return launch_dkc<0>(qr, k, v, tab, out, lse, bn, hw, H, W, dkh, dvh, stream);
 }
 
 }  // namespace mma_fwd
@@ -153,8 +162,8 @@ constexpr int SPLIT = 4;             // threads per query row
 constexpr int THREADS = TQ * SPLIT;  // 256
 constexpr int TK = 64;               // keys per shared-memory tile
 constexpr int KPT = TK / SPLIT;      // keys per thread per tile
-constexpr int DVMAX = 8;             // largest dvh (v columns staged as 8)
-constexpr int DKH = 20;              // the AAConv head width (min_dk_per_head)
+constexpr int DVMAX = amma::VW;      // largest dvh (v columns staged VW wide)
+using amma::DK_ZOO;
 constexpr float NEG_BIG = -1e30f;    // finite "minus infinity": exp(NEG_BIG - m) == 0
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -166,11 +175,12 @@ template <typename T, int DK>
 __global__ void __launch_bounds__(THREADS)
 rel_attention_fwd_kernel(const T* __restrict__ qr, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ out,
-                         float* __restrict__ lse, int hw, int H, int W, int dvh,
+                         float* __restrict__ lse, int hw, int H, int W, int dkh, int dvh,
                          int rel_stride) {
   extern __shared__ float smem[];
+  dkh = DK == DK_ZOO ? DK_ZOO : dkh;  // the zoo's width as a constant, as it was tuned
   float* rel_s = smem;                       // TQ x rel_stride: [RW | RH] rows
-  float* k_s = rel_s + TQ * rel_stride;      // TK x DK
+  float* k_s = rel_s + TQ * rel_stride;      // TK x DK (zero beyond dkh)
   float* v_s = k_s + TK * DK;                // TK x DVMAX (zero beyond dvh)
   int* kcol = reinterpret_cast<int*>(v_s + TK * DVMAX);  // TK
   int* krow = kcol + TK;                                  // TK
@@ -183,22 +193,22 @@ rel_attention_fwd_kernel(const T* __restrict__ qr, const T* __restrict__ k,
   const int i = q0 + r;
   const bool row_ok = i < hw;
   const int WH = W + H;
-  const int L = DK + WH;
+  const int L = dkh + WH;
 
   const T* qr_b = qr + static_cast<size_t>(b) * hw * L;
-  const T* k_b = k + static_cast<size_t>(b) * hw * DK;
+  const T* k_b = k + static_cast<size_t>(b) * hw * dkh;
   const T* v_b = v + static_cast<size_t>(b) * hw * dvh;
 
   for (int e = tid; e < TQ * WH; e += THREADS) {
     const int rr = e / WH, c = e - rr * WH;
     const int ii = q0 + rr;
     rel_s[rr * rel_stride + c] =
-        ii < hw ? to_f32(qr_b[static_cast<size_t>(ii) * L + DK + c]) : 0.f;
+        ii < hw ? to_f32(qr_b[static_cast<size_t>(ii) * L + dkh + c]) : 0.f;
   }
   float q[DK];
 #pragma unroll
   for (int d = 0; d < DK; ++d)
-    q[d] = row_ok ? to_f32(qr_b[static_cast<size_t>(i) * L + d]) : 0.f;
+    q[d] = (row_ok && d < dkh) ? to_f32(qr_b[static_cast<size_t>(i) * L + d]) : 0.f;
 
   float m = NEG_BIG, l = 0.f;
   float acc[DVMAX];
@@ -210,8 +220,16 @@ rel_attention_fwd_kernel(const T* __restrict__ qr, const T* __restrict__ k,
   for (int j0 = 0; j0 < hw; j0 += TK) {
     const int kn = min(TK, hw - j0);
     __syncthreads();  // the previous tile is consumed (and rel_s is staged)
-    for (int e = tid; e < TK * DK; e += THREADS)
-      k_s[e] = e < kn * DK ? to_f32(k_b[static_cast<size_t>(j0) * DK + e]) : 0.f;
+    if constexpr (DK == DK_ZOO) {  // rows of exactly DK lanes: one run of kn * DK
+      for (int e = tid; e < TK * DK; e += THREADS)
+        k_s[e] = e < kn * DK ? to_f32(k_b[static_cast<size_t>(j0) * DK + e]) : 0.f;
+    } else {
+      for (int e = tid; e < TK * DK; e += THREADS) {
+        const int jj = e / DK, d = e - jj * DK;
+        k_s[e] = (jj < kn && d < dkh) ? to_f32(k_b[static_cast<size_t>(j0 + jj) * dkh + d])
+                                      : 0.f;
+      }
+    }
     for (int e = tid; e < TK * DVMAX; e += THREADS) {
       const int jj = e / DVMAX, c = e - jj * DVMAX;
       v_s[e] = (jj < kn && c < dvh)
@@ -286,17 +304,17 @@ rel_attention_fwd_kernel(const T* __restrict__ qr, const T* __restrict__ k,
 }
 
 bool bad_shape(int bn, int hw, int H, int W, int dkh, int dvh) {
-  return dkh != DKH || dvh < 1 || dvh > DVMAX || hw != H * W || hw < 1 || bn < 1 || bn > 65535;
+  return dkh < 1 || dkh > amma::KW || dvh < 1 || dvh > DVMAX || hw != H * W || hw < 1 ||
+         bn < 1 || bn > 65535;
 }
 
-template <typename T>
-int launch(const void* qr, const void* k, const void* v, void* out, void* lse, int bn,
-           int hw, int H, int W, int dkh, int dvh, void* stream) {
-  if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, int DK>
+int launch_dk(const void* qr, const void* k, const void* v, void* out, void* lse, int bn,
+              int hw, int H, int W, int dkh, int dvh, void* stream) {
   const int rel_stride = (W + H) | 1;  // odd row stride spreads rows over banks
-  const size_t smem = static_cast<size_t>(TQ * rel_stride + TK * DKH + TK * DVMAX) *
+  const size_t smem = static_cast<size_t>(TQ * rel_stride + TK * DK + TK * DVMAX) *
                           sizeof(float) + 2 * TK * sizeof(int);
-  auto kern = rel_attention_fwd_kernel<T, DKH>;
+  auto kern = rel_attention_fwd_kernel<T, DK>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -305,8 +323,19 @@ int launch(const void* qr, const void* k, const void* v, void* out, void* lse, i
   const dim3 grid((hw + TQ - 1) / TQ, bn);
   kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(qr), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), hw, H, W, dvh, rel_stride);
+      static_cast<T*>(out), static_cast<float*>(lse), hw, H, W, dkh, dvh, rel_stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* qr, const void* k, const void* v, void* out, void* lse, int bn,
+           int hw, int H, int W, int dkh, int dvh, void* stream) {
+  if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (amma::KW == 32) {
+    if (dkh == DK_ZOO)
+      return launch_dk<T, DK_ZOO>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);
+  }
+  return launch_dk<T, amma::KW>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);
 }
 
 }  // namespace
@@ -326,5 +355,5 @@ extern "C" int rel_attention_fwd_bf16(const void* qr, const void* k, const void*
   if (!amma::mma_fits(W, H))
     return launch<__nv_bfloat16>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);
   if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);
-  return mma_fwd::launch(qr, k, v, tab, out, lse, bn, hw, H, W, dvh, stream);
+  return mma_fwd::launch(qr, k, v, tab, out, lse, bn, hw, H, W, dkh, dvh, stream);
 }

@@ -8,9 +8,12 @@ seconds) and loaded with ``ctypes``:
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The library name carries a hash of the sources and flags, so an edited
-source rebuilds and a stale library is never loaded. Nothing is built or
-loaded when this module is imported: CPU-only hosts (no nvcc, no card)
-import every module of the port.
+source rebuilds and a stale library is never loaded. A source may be built
+in several variants, each with its own ``-D`` defines and library (a
+target: the source's name and its defines), each at its first use; the ops
+name theirs (``ops.kernel_targets``). Nothing is built or loaded when this
+module is imported: CPU-only hosts (no nvcc, no card) import every module of
+the port.
 
 Wrappers launch through ``launch``, which passes device pointers and the
 stream as ``ctypes.c_void_p``; each C entry returns ``cudaGetLastError()``
@@ -29,7 +32,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Sequence, Tuple, Union
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -38,13 +41,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _launches: Dict[str, int] = {}
+
+# a library: a source name and the -D defines it is built with
+Target = Tuple[str, Tuple[str, ...]]
 
 
 def sources() -> list:
     """Names of the kernel sources (``csrc/<name>.cu``)."""
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def label(target: Target) -> str:
+    """``name`` or ``name[-DA=1 -DB=2]``: how builds and logs name a library."""
+    name, defines = target
+    return f"{name}[{' '.join(defines)}]" if defines else name
 
 
 def nvcc_path() -> str:
@@ -61,38 +73,54 @@ def nvcc_path() -> str:
                        "are built from csrc/ at first use")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _target(t: Union[str, Sequence]) -> Target:
+    return (t, ()) if isinstance(t, str) else (t[0], tuple(t[1]))
+
+
+def _lib_path(target: Target) -> Path:
+    name, defines = target
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     h.update((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    tag = "".join("." + d.removeprefix("-D").replace("=", "") for d in defines)
+    return BUILD_DIR / f"{name}{tag}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile the named sources (default: all) that have no current library,
-    one nvcc process per source, all started together. Returns the seconds
-    each build took (0.0 where the library was already current); raises
+def build(which: Iterable[Union[str, Target]]) -> Dict[str, float]:
+    """Compile the libraries named by ``which`` (source names or (name,
+    defines) targets) that have no current library, one nvcc process each,
+    all started together. Returns the seconds from the start to each build's
+    end by ``label`` (0.0 where the library was already current); raises
     RuntimeError with nvcc's output if a build fails."""
-    names = list(sources() if names is None else names)
+    todo = [_target(t) for t in which]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, took = {}, {}
     t0 = time.perf_counter()
-    for name in names:
-        out = _lib_path(name)
+    for target in todo:
+        out = _lib_path(target)
         if out.exists():
-            took[name] = 0.0
+            took[label(target)] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *target[1], "-o", str(tmp),
+               str(CSRC_DIR / f"{target[0]}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        done = {}
+
+        def wait(proc=proc, done=done):  # each build's own end, not the order it is read in
+            done["log"] = proc.communicate()[0]
+            done["s"] = time.perf_counter() - t0
+
+        thread = threading.Thread(target=wait)
+        thread.start()
+        procs[label(target)] = (proc, thread, done, tmp, out)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        took[name] = time.perf_counter() - t0
+    for name, (proc, thread, done, tmp, out) in procs.items():
+        thread.join()
+        took[name] = done["s"]
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{done['log']}")
             continue
         os.replace(tmp, out)
     if failed:
@@ -100,19 +128,22 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return took
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with ``defines``, built
+    first if needed."""
+    target = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(target)
         if lib is None:
             import torch
 
             if not torch.cuda.is_available():
-                raise RuntimeError(f"kernel {name!r} needs a CUDA device; none is available")
-            if not _lib_path(name).exists():
-                build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            _libs[name] = lib
+                raise RuntimeError(f"kernel {label(target)!r} needs a CUDA device; none is "
+                                   "available")
+            if not _lib_path(target).exists():
+                build([target])
+            lib = ctypes.CDLL(str(_lib_path(target)))
+            _libs[target] = lib
         return lib
 
 

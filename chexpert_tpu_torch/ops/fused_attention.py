@@ -18,6 +18,12 @@ bf16 runs the tensor-core kernels (``csrc/attention_fwd_mma.cuh``,
 ``csrc/attention_bwd_mma.cuh``), f32 the CUDA-core kernels, the card's
 reference route; a bf16 map past 64x64 also takes the CUDA-core kernels.
 
+Head widths: every attention source (``WIDTH_SOURCES``, both layouts) is
+built once per width class (KW, VW) of ``WIDTH_CLASSES`` (``-DATTN_KW``,
+``-DATTN_VW``), each class at its first use; ``width_class`` sends a head of
+dkh <= KW, dvh <= VW to the smallest class that holds it. Wider heads raise
+ValueError on a CUDA tensor: nothing falls back to the plain route there.
+
 ``RelAttention.apply`` is what a model calls: its forward is B1 and its
 backward B2, and it returns the packed cotangent d[q ; RW ; RH] whole, so the
 pack's own autograd carries dRW/dRH on to q and the relative embeddings (as
@@ -39,12 +45,49 @@ NAME = "rel_attention_fwd"
 BWD_SOURCE = "rel_attention_bwd"  # one source, two kernels (passes)
 BWD_DKDV = "rel_attention_bwd_dkdv"
 BWD_DQ = "rel_attention_bwd_dq"
-SUPPORTED_DKH = (20,)  # head widths the kernels are instantiated for
-MAX_DVH = 8
+# (KW, VW): the padded key / value head widths the attention libraries are
+# built for, smallest first (csrc/attention_bwd_mma.cuh ATTN_KW / ATTN_VW)
+WIDTH_CLASSES = ((32, 8), (32, 16), (64, 32), (128, 64))
+# the sources built once per width class
+WIDTH_SOURCES = ("rel_attention_fwd", "rel_attention_bwd", "hil_attention_fwd",
+                 "hil_attention_bwd")
 MMA_MAX_BIN_TILES = 16  # csrc/attention_bwd_mma.cuh MAX_BIN_TILES
 KEY_TILE = 64           # csrc/attention_bwd_mma.cuh TN: keys per row of the key table
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _BF16_ONE = 0x3F80      # 1.0 in bf16
+
+
+def width_class(dkh: int, dvh: int) -> Tuple[int, int]:
+    """The smallest width class (KW, VW) of WIDTH_CLASSES with dkh <= KW and
+    dvh <= VW: the library whose kernels take a head of these widths."""
+    for kw, vw in WIDTH_CLASSES:
+        if 1 <= dkh <= kw and 1 <= dvh <= vw:
+            return kw, vw
+    raise ValueError(f"no attention kernel takes dkh={dkh}, dvh={dvh}: the width classes "
+                     f"reach dkh {WIDTH_CLASSES[-1][0]} and dvh {WIDTH_CLASSES[-1][1]} "
+                     f"(largest class {WIDTH_CLASSES[-1]})")
+
+
+def width_defines(cls: Tuple[int, int]) -> Tuple[str, ...]:
+    """The nvcc defines of a width class's libraries."""
+    return (f"-DATTN_KW={cls[0]}", f"-DATTN_VW={cls[1]}")
+
+
+def width_targets() -> list:
+    """Every attention library: (source, defines) of each source of
+    WIDTH_SOURCES in each width class, for ``kernels.build``."""
+    return [(source, width_defines(c)) for source in WIDTH_SOURCES for c in WIDTH_CLASSES]
+
+
+def width_library(name: str, source: str, dkh: int, dvh: int):
+    """The loaded library of ``source`` for the width class of (dkh, dvh),
+    built at its first use; a head that no class holds raises ValueError
+    naming the kernel ``name``."""
+    try:
+        cls = width_class(dkh, dvh)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    return kernels.load(source, width_defines(cls))
 
 
 def key_positions(hw: int, W: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -190,12 +233,10 @@ def _check_bwd(qr, v, dout, lse, delta):
 
 
 def _kernel_entry(name: str, source: str, operands, f32_operands, dkh: int, dvh: int):
-    """Validate what the kernel takes and return its ctypes entry."""
+    """Validate what the kernel takes and return its ctypes entry, in the
+    library of the width class of (dkh, dvh)."""
     if operands[0].device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {operands[0].device}")
-    if dkh not in SUPPORTED_DKH or not 1 <= dvh <= MAX_DVH:
-        raise ValueError(f"{name}: kernel takes dkh in {SUPPORTED_DKH} and dvh in "
-                         f"1..{MAX_DVH}, got dkh={dkh} dvh={dvh}")
     dt = operands[0].dtype
     if dt not in _DTYPE_SUFFIX or any(t.dtype != dt for t in operands):
         raise ValueError(f"{name}: operands must share one dtype of "
@@ -206,7 +247,7 @@ def _kernel_entry(name: str, source: str, operands, f32_operands, dkh: int, dvh:
         raise ValueError(f"{name}: operands must be contiguous")
     if operands[0].shape[0] > 65535:
         raise ValueError(f"{name}: bn={operands[0].shape[0]} exceeds the grid's y limit")
-    return getattr(kernels.load(source), f"{name}_{_DTYPE_SUFFIX[dt]}")
+    return getattr(width_library(name, source, dkh, dvh), f"{name}_{_DTYPE_SUFFIX[dt]}")
 
 
 def rel_attention_fwd(qr: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

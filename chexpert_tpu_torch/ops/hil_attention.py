@@ -48,7 +48,12 @@ from typing import Optional, Tuple
 import torch
 
 from chexpert_tpu_torch import kernels
-from chexpert_tpu_torch.ops.fused_attention import key_positions, key_table, on_tensor_cores
+from chexpert_tpu_torch.ops.fused_attention import (
+    key_positions,
+    key_table,
+    on_tensor_cores,
+    width_library,
+)
 
 FWD = "hil_attention_fwd"
 BWD_SOURCE = "hil_attention_bwd"  # one source, three kernels (passes)
@@ -56,8 +61,6 @@ BWD_DKDV = "hil_attention_bwd_dkdv"
 BWD_DQ = "hil_attention_bwd_dq"
 BWD_DREL = "hil_attention_bwd_drel"
 BWD_PASSES = (BWD_DKDV, BWD_DQ, BWD_DREL)
-SUPPORTED_DKH = (20,)  # head widths the kernels are instantiated for
-MAX_DVH = 8
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -202,13 +205,11 @@ def hil_attention_bwd_plain(P0, Rw, Rh, out, lse, dout, H, W, dkh, dvh, slot):
 
 def _kernel_entry(name: str, source: str, operands, f32_operands, dkh: int, dvh: int,
                   W: int = 0, H: int = 0):
-    """Validate what the kernels take and return the ctypes entry."""
+    """Validate what the kernels take and return the ctypes entry, in the
+    library of the width class of (dkh, dvh) (``fused_attention.width_class``)."""
     P0 = operands[0]
     if P0.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {P0.device}")
-    if dkh not in SUPPORTED_DKH or not 1 <= dvh <= MAX_DVH:
-        raise ValueError(f"{name}: kernel takes dkh in {SUPPORTED_DKH} and dvh in "
-                         f"1..{MAX_DVH}, got dkh={dkh} dvh={dvh}")
     dt = P0.dtype
     if dt not in _DTYPE_SUFFIX or any(t.dtype != dt for t in operands):
         raise ValueError(f"{name}: P0 / out / dout must share one dtype of "
@@ -222,7 +223,7 @@ def _kernel_entry(name: str, source: str, operands, f32_operands, dkh: int, dvh:
         raise ValueError(f"{name}: all operands must be on one device")
     if P0.shape[0] > 65535 or W + H > 65535:
         raise ValueError(f"{name}: batch {P0.shape[0]} or W+H {W + H} exceeds the grid's limit")
-    return getattr(kernels.load(source), f"{name}_{_DTYPE_SUFFIX[dt]}")
+    return getattr(width_library(name, source, dkh, dvh), f"{name}_{_DTYPE_SUFFIX[dt]}")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -294,14 +295,16 @@ def hil_attention_bwd_dq(P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slot)
     return drc, rc
 
 
-def hil_attention_bwd_drel(P0, drc, H: int, W: int, dkh: int, slot: int):
+def hil_attention_bwd_drel(P0, drc, H: int, W: int, dkh: int, slot: int, dvh: int = 1):
     """Pass 3 of B6 on the card: (dRw, dRh) f32; the kernel writes one
-    partial per batch element, summed here in a fixed order."""
+    partial per batch element, summed here in a fixed order. ``dvh`` picks
+    the library (the width class of the other passes); the kernel reads q
+    and dRC alone."""
     B, hw, width = P0.shape
     nh = width // slot
     if drc.shape != (B, nh, hw, W + H):
         raise ValueError(f"dRC {tuple(drc.shape)} does not match P0 {tuple(P0.shape)}")
-    fn = _kernel_entry(BWD_DREL, BWD_SOURCE, (P0,), (drc,), dkh, 1, W, H)
+    fn = _kernel_entry(BWD_DREL, BWD_SOURCE, (P0,), (drc,), dkh, dvh, W, H)
     part = torch.empty((B, dkh * (W * W + H * H)), dtype=torch.float32, device=P0.device)
     kernels.launch(BWD_DREL, fn, [_ptr(t) for t in (P0, drc, part)],
                    [B, hw, H, W, nh, slot, dkh], P0.device)
@@ -324,7 +327,7 @@ def hil_attention_bwd(P0, Rw, Rh, out, lse, dout, H: int, W: int, dkh: int, dvh:
     hil_attention_bwd_dkdv(*args, rc=rc)
     if Rw is None:
         return dP, None, None
-    return (dP, *hil_attention_bwd_drel(P0, drc, H, W, dkh, slot))
+    return (dP, *hil_attention_bwd_drel(P0, drc, H, W, dkh, slot, dvh))
 
 
 class HilAttention(torch.autograd.Function):

@@ -2,6 +2,7 @@
 """Device time of the two attention backward kernels, pass by pass.
 
     python3 scripts/bench_attention_bwd_torch.py [--batch 16] [--dtype bf16] [--reps 10]
+        [--geometries HxWxDVH ...]
 
 Needs one CUDA card. At the three attention geometries of a 320x320 input
 (40x40 dvh 1, 20x20 dvh 3, 10x10 dvh 6; 8 heads, dkh 20) it runs B6
@@ -118,14 +119,19 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--geometries", nargs="+", metavar="HxWxDVH",
+                    help="maps to time instead of the three of a 320x320 input, e.g. "
+                         "16x16x4 8x8x8 (the CIFAR bench's WideResNet-28-10)")
     a = ap.parse_args()
+    geos = (GEOMETRIES if a.geometries is None
+            else [tuple(int(x) for x in g.split("x")) for g in a.geometries])
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         return 1
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[a.dtype]
     gen = torch.Generator().manual_seed(5)
     rows = []
-    for H, W, dvh in GEOMETRIES:
+    for H, W, dvh in geos:
         row = {"geometry": f"{H}x{W}", "dvh": dvh,
                "b6": bench_hil(H, W, dvh, a.batch, dtype, gen, a.reps),
                "b2": bench_rel(H, W, dvh, a.batch, dtype, gen, a.reps)}
@@ -144,10 +150,11 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"card": smi, "dtype": a.dtype, "batch": a.batch, "rows": rows,
-                      "aaresnet152_step": {"b6": per_step("b6", AARESNET152_LAYERS),
-                                           "b2": per_step("b2", AARESNET152_LAYERS)},
-                      "aadensenet121_step": {"b2": per_step("b2", AADENSENET121_LAYERS)}}))
+    sums = {} if a.geometries else {
+        "aaresnet152_step": {"b6": per_step("b6", AARESNET152_LAYERS),
+                             "b2": per_step("b2", AARESNET152_LAYERS)},
+        "aadensenet121_step": {"b2": per_step("b2", AADENSENET121_LAYERS)}}
+    print(json.dumps({"card": smi, "dtype": a.dtype, "batch": a.batch, "rows": rows, **sums}))
     return 0
 
 

@@ -2,6 +2,7 @@
 """Device time of the two attention forward kernels, B1 and B5, call by call.
 
     python3 scripts/bench_attention_fwd_torch.py [--batches 4 16] [--dtype bf16] [--reps 10]
+        [--geometries HxWxDVH ...]
 
 Needs one CUDA card. At the three attention geometries of a 320x320 input
 (40x40 dvh 1, 20x20 dvh 3, 10x10 dvh 6; 8 heads, dkh 20) and each batch it
@@ -127,7 +128,12 @@ def main() -> int:
     ap.add_argument("--batches", type=int, nargs="+", default=[4, 16])
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--geometries", nargs="+", metavar="HxWxDVH",
+                    help="maps to time instead of the three of a 320x320 input, e.g. "
+                         "16x16x4 8x8x8 (the CIFAR bench's WideResNet-28-10)")
     a = ap.parse_args()
+    geos = (GEOMETRIES if a.geometries is None
+            else [tuple(int(x) for x in g.split("x")) for g in a.geometries])
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         return 1
@@ -135,7 +141,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(7)
     rows = []
     for batch in a.batches:
-        for H, W, dvh in GEOMETRIES:
+        for H, W, dvh in geos:
             row = {"geometry": f"{H}x{W}", "dvh": dvh, "batch": batch,
                    "b5": bench_hil(H, W, dvh, batch, dtype, gen, a.reps),
                    "b1": bench_rel(H, W, dvh, batch, dtype, gen, a.reps)}
@@ -153,11 +159,12 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"card": smi, "dtype": a.dtype, "rows": rows,
-                      "aaresnet152_forward": {f"batch{b}": per_forward(b, AARESNET152_LAYERS)
-                                              for b in a.batches},
-                      "aadensenet121_forward": {f"batch{b}": per_forward(b, AADENSENET121_LAYERS)
-                                                for b in a.batches}}))
+    sums = {} if a.geometries else {
+        "aaresnet152_forward": {f"batch{b}": per_forward(b, AARESNET152_LAYERS)
+                                for b in a.batches},
+        "aadensenet121_forward": {f"batch{b}": per_forward(b, AADENSENET121_LAYERS)
+                                  for b in a.batches}}
+    print(json.dumps({"card": smi, "dtype": a.dtype, "rows": rows, **sums}))
     return 0
 
 

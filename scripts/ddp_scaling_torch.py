@@ -169,8 +169,9 @@ def main(argv=None) -> int:
         raise SystemExit("ddp_scaling_torch: no CUDA device is available")
     from chexpert_tpu_torch import kernels
     from chexpert_tpu_torch.data import make_synthetic_dataset
+    from chexpert_tpu_torch.ops import kernel_targets
 
-    kernels.build()  # once, here, before the ranks load the libraries
+    kernels.build(kernel_targets())  # once, here, before the ranks load the libraries
     cards = torch.cuda.device_count()
     worlds = [w for w in map(int, args.worlds.split(",")) if w <= cards]
     record = {"card": smi_line(), "cards": cards, "torch": torch.__version__,

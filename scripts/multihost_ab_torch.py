@@ -27,10 +27,11 @@ import chip_smoke as cs  # noqa: E402
 def main() -> int:
     from chexpert_tpu_torch import kernels
     from chexpert_tpu_torch.data import make_synthetic_dataset
+    from chexpert_tpu_torch.ops import kernel_targets
     from chexpert_tpu_torch.ops.fused_attention import BWD_DKDV, BWD_DQ, NAME
 
     smi = cs.smi_line()
-    kernels.build()
+    kernels.build(kernel_targets())
     per_step = {NAME: 3, BWD_DKDV: 3, BWD_DQ: 3}
     with tempfile.TemporaryDirectory(dir=ROOT) as d:
         make_synthetic_dataset(d, n_train=cs.B_TRAIN, n_valid=cs.B_TRAIN, image_size=cs.IMAGE)

@@ -94,12 +94,13 @@ def main() -> int:
     from chexpert_tpu_torch import kernels
     from chexpert_tpu_torch.models import AAConv2d, build_model, optimizer_spec
     from chexpert_tpu_torch.models.efficientnet import SCALING_PARAMS
+    from chexpert_tpu_torch.ops import kernel_targets
     from chexpert_tpu_torch.train import TrainState, make_optimizer, train_step
 
     effnet = args.model in SCALING_PARAMS
     size = SCALING_PARAMS[args.model][2] if effnet else 320
     lr = 3e-4 if effnet else 1e-4 if "resnet" in args.model else 0.01
-    kernels.build()
+    kernels.build(kernel_targets())
     model = build_model(args.model, image_size=size, attn_layout=args.attn_layout,
                         generator=torch.Generator().manual_seed(0)).to("cuda")
     aa = [m for m in model.modules() if isinstance(m, AAConv2d)]

@@ -173,6 +173,30 @@ def test_tensor_core_rounding_holds_the_card_gate(H, W, dvh):
         assert err > 0 or name == "dv"  # the rounding is really in the rehearsal
 
 
+@pytest.mark.parametrize("dkh,dvh", [(26, 12), (32, 16), (64, 32), (128, 64)])
+def test_tensor_core_rounding_holds_the_card_gate_at_wider_heads(dkh, dvh):
+    """The rehearsal at the heads of the wider width classes, whose kernels
+    pad dkh to KW and dvh to VW in shared memory only (zeros that change no
+    sum), within the same 1e-2 gate."""
+    from chexpert_tpu_torch.ops.fused_attention import attention_delta
+
+    H, W = 9, 9  # two key tiles, the second ragged
+    q, k, v, rel_w, rel_h, g = _inputs(12, 2, 2, H, W, dvh, dkh=dkh)
+    B, nh, hw, _ = q.shape
+    qr = pack_query(torch.from_numpy(q), torch.from_numpy(rel_w), torch.from_numpy(rel_h), H, W)
+    qr, tk, tv, dout = (t.reshape(B * nh, hw, -1).to(torch.bfloat16)
+                        for t in (qr, torch.from_numpy(k), torch.from_numpy(v),
+                                  torch.from_numpy(g)))
+    out, lse = rel_attention_fwd_plain(qr, tk, tv, H, W, dkh)
+    want = rel_attention_bwd_plain(qr, tk, tv, out, lse, dout, H, W, dkh)
+    got = _tensor_core_rehearsal(qr, tk, tv, dout, lse, attention_delta(out, dout), H, W, dkh)
+    for name, a, b in zip(("dqr", "dk", "dv"), got, want):
+        scale = max(1.0, b.float().abs().max().item())
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 1e-2 * scale, (name, err, scale)
+        assert err > 0 or name == "dv"
+
+
 @pytest.mark.parametrize("H,W", [(1, 1), (6, 5), (7, 9), (8, 8), (10, 10), (40, 40), (33, 17)])
 def test_key_table_is_the_one_hot_of_the_keys(H, W):
     """The table that the tensor-core dq pass reads, unpacked fragment by

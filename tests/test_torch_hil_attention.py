@@ -365,12 +365,24 @@ def test_tensor_core_rounding_holds_the_card_gate(H, W, dvh, relative):
     """The rehearsal against the f32 plain backward on the same bf16 inputs,
     within the 1e-2 (relative to max(1, largest entry)) that the card gate
     holds the kernels to, dRw / dRh through the plain pass 3."""
+    _rehearsal_holds_the_card_gate(H, W, 20, dvh, relative)
+
+
+@pytest.mark.parametrize("dkh,dvh", [(26, 12), (32, 16), (64, 32), (128, 64)])
+def test_tensor_core_rounding_holds_the_card_gate_at_wider_heads(dkh, dvh):
+    """The same at the heads of the wider width classes (the kernels pad dkh
+    to KW and dvh to VW with zeros in shared memory; E's hi + lo rows are KW
+    wide) on a map with a ragged second key tile."""
+    _rehearsal_holds_the_card_gate(9, 9, dkh, dvh, True)
+
+
+def _rehearsal_holds_the_card_gate(H, W, dkh, dvh, relative):
     from chexpert_tpu_torch.ops.hil_attention import (
         hil_attention_bwd_drel_plain,
         hil_attention_delta,
     )
 
-    dkh, nh, B = 20, 2, 2
+    nh, B = 2, 2
     slot = hil_slot(dkh, dvh)
     q5, k5, v5, rw, rh, g = _mk(B, nh, H, W, dkh, dvh, relative, seed=13)
     P0 = torch.from_numpy(_pack(q5, k5, v5, slot)).to(torch.bfloat16)

@@ -4,8 +4,10 @@ A host without nvcc cannot build ``chexpert_tpu_torch/csrc``; these tests
 read the sources instead: every C entry a wrapper looks up
 (``{kernel name}_{f32,bf16}``) is defined as ``extern "C"`` in the ``.cu``
 file the wrapper loads, every ``#include "x.cuh"`` names a file that exists,
-constants that a wrapper repeats agree with the source, and the attention
-entries take their pointers in the order the wrappers pass them."""
+constants that a wrapper repeats agree with the source (the head-width
+classes among them), the attention entries take their pointers in the order
+the wrappers pass them, and no pass adds through an atomic. ``width_class``
+is held to the head widths the bench's flags reach."""
 
 import re
 
@@ -13,7 +15,7 @@ import pytest
 import torch
 
 from chexpert_tpu_torch import kernels
-from chexpert_tpu_torch.ops import depthwise, fused_attention, hil_attention
+from chexpert_tpu_torch.ops import depthwise, fused_attention, hil_attention, kernel_targets
 
 # (kernel name, the source its wrapper loads)
 ENTRIES = [
@@ -63,8 +65,17 @@ def test_constants_repeated_in_python_agree_with_the_source():
     tiles = int(re.search(r"constexpr int MAX_BIN_TILES = (\d+);", core).group(1))
     assert tiles == fused_attention.MMA_MAX_BIN_TILES
     assert int(re.search(r"constexpr int TN = (\d+);", core).group(1)) == fused_attention.KEY_TILE
-    dkh = int(re.search(r"constexpr int DKH = (\d+);", core).group(1))
-    assert (dkh,) == hil_attention.SUPPORTED_DKH == fused_attention.SUPPORTED_DKH
+    # the width classes: the sources take their widths from the build, each
+    # class's (KW, VW) is one the core admits, and both wrappers use one rule
+    assert "constexpr int KW = ATTN_KW;" in core and "constexpr int VW = ATTN_VW;" in core
+    kws = {int(x) for x in re.findall(r"KW == (\d+)", re.search(
+        r"static_assert\((KW == \d+(?: \|\| )?)+", core).group(0))}
+    vws = {int(x) for x in re.findall(r"VW == (\d+)", re.search(
+        r"static_assert\((VW == \d+(?: \|\| )?)+", core).group(0))}
+    assert {kw for kw, _ in fused_attention.WIDTH_CLASSES} <= kws
+    assert {vw for _, vw in fused_attention.WIDTH_CLASSES} <= vws
+    assert hil_attention.width_library is fused_attention.width_library
+    assert not hasattr(hil_attention, "SUPPORTED_DKH") and not hasattr(fused_attention, "MAX_DVH")
     assert fused_attention.on_tensor_cores(torch.bfloat16, 64, 64)
     assert not fused_attention.on_tensor_cores(torch.bfloat16, 72, 64)
     assert not fused_attention.on_tensor_cores(torch.float32, 8, 8)
@@ -116,6 +127,94 @@ def test_forward_tiles_agree_with_the_key_table():
     assert torch.equal(tab[0, -fused_attention.KEY_TILE:][:35].long(), (j % 7) | ((j // 7) << 16))
     assert fused_attention.on_tensor_cores(torch.bfloat16, 120, 8)
     assert not fused_attention.on_tensor_cores(torch.bfloat16, 127, 2)
+
+
+def _includes(name: str) -> set:
+    """The headers a source includes, directly or through other headers."""
+    seen, todo = set(), [name]
+    while todo:
+        text = (kernels.CSRC_DIR / todo.pop()).read_text()
+        for header in re.findall(r'^#include "([^"]+)"', text, re.M):
+            if header not in seen:
+                seen.add(header)
+                todo.append(header)
+    return seen
+
+
+def test_width_classes_are_built_into_every_attention_source():
+    """The sources built once per width class are exactly those that include
+    the core that reads ATTN_KW / ATTN_VW; the build's targets name every
+    (source, class) once, with the defines the core reads, and the ops'
+    targets build every source; the classes grow in both widths."""
+    core = "attention_bwd_mma.cuh"
+    assert set(fused_attention.WIDTH_SOURCES) == {
+        s for s in kernels.sources() if core in _includes(f"{s}.cu")}
+    classes = fused_attention.WIDTH_CLASSES
+    assert list(classes) == sorted(classes) and classes[0] == (32, 8)
+    assert all(b[0] >= a[0] and b[1] >= a[1] for a, b in zip(classes, classes[1:]))
+    targets = fused_attention.width_targets()
+    assert len(targets) == len(set(targets)) == len(classes) * len(fused_attention.WIDTH_SOURCES)
+    for kw, vw in classes:
+        defines = fused_attention.width_defines((kw, vw))
+        assert defines == (f"-DATTN_KW={kw}", f"-DATTN_VW={vw}")
+        for source in fused_attention.WIDTH_SOURCES:
+            assert (source, defines) in targets
+    paths = {kernels._lib_path(t) for t in targets}
+    assert len(paths) == len(targets)  # each class its own library
+    # the ops' libraries build every source, the depthwise ones without defines
+    built = kernel_targets()
+    assert {name for name, _ in built} == set(kernels.sources())
+    assert set(targets) <= set(built) and len(built) == len(set(built))
+
+
+# (bench flags past --attn, dkh, dvh) of WideResNet-28-10's AA convs: the
+# heads that the JAX package's models/attn.py sizes as max(20, k C / nh) and
+# v C / nh, which the card once refused (ROADMAP C.17)
+BENCH_HEADS = [
+    ((), (20, 4)), ((), (20, 8)),
+    (("--attn_nh", "4"), (32, 16)),
+    (("--attn_nh", "2"), (64, 32)), (("--attn_nh", "2"), (32, 16)),
+    (("--attn_nh", "1"), (128, 64)), (("--attn_nh", "1"), (64, 32)),
+    (("--attn_k", "0.3"), (24, 8)), (("--attn_k", "0.33"), (26, 8)),
+    (("--attn_v", "0.2"), (20, 16)),
+]
+
+
+@pytest.mark.parametrize("flags,head", BENCH_HEADS, ids=lambda x: str(x))
+def test_width_class_holds_every_head_the_bench_flags_reach(flags, head):
+    """WideResNet-28-10 --attn with the flags has an AA conv of head widths
+    ``head``, and the smallest class holding it is width_class's answer."""
+    from chexpert_tpu_torch.cli import bench
+    from chexpert_tpu_torch.models import AAConv2d, AttnParams, WideResNet
+
+    args = bench.build_parser().parse_args(["wideresnet", "28", "10", "--attn", *flags])
+    attn = AttnParams(args.attn_k, args.attn_v, args.attn_nh, args.attn_relative,
+                      tuple(args.input_dims))
+    with torch.device("meta"):
+        model = WideResNet(28, 10, attn=attn)
+    heads = {(m.dk // m.nh, m.dv // m.nh) for m in model.modules() if isinstance(m, AAConv2d)}
+    assert head in heads
+    kw, vw = fused_attention.width_class(*head)
+    assert head[0] <= kw and head[1] <= vw
+    smaller = [c for c in fused_attention.WIDTH_CLASSES if c[0] * c[1] < kw * vw]
+    assert not any(head[0] <= c[0] and head[1] <= c[1] for c in smaller)
+
+
+@pytest.mark.parametrize("dkh,dvh", [(129, 8), (20, 65), (320, 160), (0, 8), (20, 0)])
+def test_width_class_refuses_heads_past_the_largest_class(dkh, dvh):
+    """``--attn_k 0.5 --attn_nh 1`` gives dkh 320: no class holds it, and the
+    error names both widths and the largest class."""
+    with pytest.raises(ValueError, match=rf"dkh={dkh}, dvh={dvh}.*\(128, 64\)"):
+        fused_attention.width_class(dkh, dvh)
+
+
+@pytest.mark.parametrize("source", sorted(
+    p.name for p in kernels.CSRC_DIR.glob("*attention*")))
+def test_attention_sources_use_no_atomics(source):
+    """B2's and B6's passes each own what they write (deterministic): no
+    attention source adds through an atomic, in any width class."""
+    text = (kernels.CSRC_DIR / source).read_text()
+    assert not re.search(r"\batomic\w*\s*\(|\bred\.global|\batom\.", text)
 
 
 @pytest.mark.parametrize("source", ["depthwise_common.cuh", "depthwise_fwd.cu", "depthwise_bwd.cu"])

@@ -19,7 +19,11 @@ backward's three passes) run at B1's geometries over the packed operand, at
 the model's slot stride, the tight one and 64, with and without relative
 logits. The bf16 forwards and backward passes run the tensor-core kernels up
 to 64x64 and the CUDA-core kernels past it; the forwards are held at more
-ragged maps on both routes (FWD_GEOMETRIES)."""
+ragged maps on both routes (FWD_GEOMETRIES). Every head-width class of
+``fused_attention.WIDTH_CLASSES`` is held at the widths the JAX package's
+models reach (WIDTHS: dkh 24, 26, 32, 20, 64, 128 with dvh up to 64, ragged
+dkh and dvh included) on both layouts and both routes, and widths past the
+largest class raise ValueError."""
 
 import os
 
@@ -48,6 +52,7 @@ from chexpert_tpu_torch.ops.fused_attention import (
     rel_attention_bwd_plain,
     rel_attention_fwd,
     rel_attention_fwd_plain,
+    width_class,
 )
 
 from chexpert_tpu_torch.ops.hil_attention import (
@@ -80,6 +85,17 @@ GEOMETRIES = [
     (1, 2, 5, 5, 1), (1, 2, 5, 5, 8), (2, 2, 7, 9, 8), (1, 2, 9, 7, 1), (1, 1, 3, 3, 8),
     (1, 3, 4, 16, 2), (1, 1, 72, 64, 2),
 ]
+
+# (dkh, dvh) of each width class: the bench's --attn_k 0.3 / 0.33, --attn_nh 4
+# and 2 and --attn_v 0.2 heads, a ragged dkh with a ragged dvh, and the widest
+WIDTHS = [(24, 8), (26, 12), (32, 16), (20, 16), (64, 32), (128, 64)]
+# (B, nh, H, W): a map under one key tile (HW 35, not a multiple of 16), two
+# key tiles with a ragged second (81), the bench's 16x16 and 8x8, the largest
+# map on the tensor cores (W + H 128: each pass's shared memory at its peak
+# for its class), and a map past the tensor-core rule (the CUDA-core kernels
+# in bf16)
+WIDTH_MAPS = [(1, 2, 5, 7), (2, 3, 9, 9), (1, 2, 16, 16), (2, 2, 8, 8), (1, 1, 64, 64),
+              (1, 1, 72, 64)]
 
 # the forwards' key tiles (64 keys) and query tiles (64 rows, 16 per warp):
 # a ragged second key tile, 65 keys, two whole tiles, the largest map on the
@@ -118,9 +134,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(B, nh, H, W, dvh, dtype, seed=0):
+def _inputs(B, nh, H, W, dvh, dtype, seed=0, dkh=20):
     g = torch.Generator().manual_seed(seed)
-    dkh, hw = 20, H * W
+    hw = H * W
     q = torch.randn(B, nh, hw, dkh, generator=g) * dkh ** -0.5
     k = torch.randn(B * nh, hw, dkh, generator=g)
     v = torch.randn(B * nh, hw, dvh, generator=g)
@@ -182,8 +198,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         rel_attention_fwd(qr.half(), k.half(), v.half(), 6, 5, 20)
     with pytest.raises(ValueError, match="contiguous"):
         rel_attention_fwd(qr.transpose(0, 1).contiguous().transpose(0, 1), k, v, 6, 5, 20)
-    with pytest.raises(ValueError, match="dvh"):
-        rel_attention_fwd(qr, k, torch.zeros(2, 30, 9, device="cuda"), 6, 5, 20)
+    with pytest.raises(ValueError, match="dvh=65"):  # past the largest width class
+        rel_attention_fwd(qr, k, torch.zeros(2, 30, 65, device="cuda"), 6, 5, 20)
 
 
 def _rel(got, want):
@@ -274,11 +290,11 @@ def test_depthwise_kernels_reject_what_they_do_not_take(cuda):
 
 # --- B5 / B6: heads-in-lanes attention ----------------------------------------
 
-def _hil_inputs(B, nh, H, W, dvh, dtype, slot, relative=True, seed=0):
+def _hil_inputs(B, nh, H, W, dvh, dtype, slot, relative=True, seed=0, dkh=20):
     """(P0, Rw, Rh): the packed operand with zero pad lanes and the f32 block
     operands of seeded relative embeddings (None without them)."""
     g = torch.Generator().manual_seed(seed)
-    dkh, hw = 20, H * W
+    hw = H * W
     q = torch.randn(B, hw, nh, dkh, generator=g) * dkh ** -0.5
     k = torch.randn(B, hw, nh, dkh, generator=g)
     v = torch.randn(B, hw, nh, dvh, generator=g)
@@ -386,9 +402,79 @@ def test_hil_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         hil_attention_fwd(P0.transpose(0, 1).contiguous().transpose(0, 1), Rw, Rh,
                           6, 5, 20, 3, 48)
-    wide = torch.zeros(1, 30, 2 * 32, device="cuda")  # dkh 8: not instantiated
-    with pytest.raises(ValueError, match="dkh"):
-        hil_attention_fwd(wide, None, None, 6, 5, 8, 3, 32)
+    wide = torch.zeros(1, 30, 2 * 264, device="cuda")  # dkh 129: past the largest class
+    with pytest.raises(ValueError, match="dkh=129"):
+        hil_attention_fwd(wide, None, None, 6, 5, 129, 3, 264)
+
+
+def _check_close(name, got, want, tol, scale_by_max):
+    assert got.shape == want.shape and torch.isfinite(got.float()).all(), name
+    scale = max(1.0, want.float().abs().max().item()) if scale_by_max else 1.0
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["bn", "hil"])
+@pytest.mark.parametrize("B,nh,H,W", WIDTH_MAPS)
+@pytest.mark.parametrize("dkh,dvh", WIDTHS)
+def test_kernels_match_plain_at_every_width_class(cuda, dkh, dvh, B, nh, H, W, layout, dtype):
+    """B1 / B5 and every backward pass of B2 / B6 at the width (dkh, dvh),
+    which the library of its class (width_class) runs, against the plain
+    versions: out and lse within TOL, the gradients within BWD_TOL."""
+    cls = width_class(dkh, dvh)
+    assert dkh <= cls[0] and dvh <= cls[1]
+    dout_gen = torch.Generator().manual_seed(1)
+    kernels.reset_launch_counts()
+    if layout == "bn":
+        qr, k, v = _inputs(B, nh, H, W, dvh, dtype, dkh=dkh)
+        out, lse = rel_attention_fwd(qr, k, v, H, W, dkh)
+        want = rel_attention_fwd_plain(qr, k, v, H, W, dkh)
+        dout = torch.randn(out.shape, generator=dout_gen).to("cuda", dtype)
+        got_b = rel_attention_bwd(qr, k, v, out, lse, dout, H, W, dkh)
+        want_b = rel_attention_bwd_plain(qr, k, v, out, lse, dout, H, W, dkh)
+        names, launched = ("dqr", "dk", "dv"), {NAME: 1, BWD_DKDV: 1, BWD_DQ: 1}
+    else:
+        slot = hil_slot(dkh, dvh)
+        P0, Rw, Rh = _hil_inputs(B, nh, H, W, dvh, dtype, slot, dkh=dkh)
+        geo = (H, W, dkh, dvh, slot)
+        out, lse = hil_attention_fwd(P0, Rw, Rh, *geo)
+        want = hil_attention_fwd_plain(P0, Rw, Rh, *geo)
+        dout = torch.randn(out.shape, generator=dout_gen).to("cuda", dtype)
+        got_b = hil_attention_bwd(P0, Rw, Rh, out, lse, dout, *geo)
+        want_b = hil_attention_bwd_plain(P0, Rw, Rh, out, lse, dout, *geo)
+        names, launched = ("dP", "dRw", "dRh"), {FWD: 1, **{p: 1 for p in BWD_PASSES}}
+        pads = got_b[0].view(B, H * W, nh, slot)[..., 2 * dkh + dvh:]
+        assert torch.count_nonzero(pads) == 0
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == launched
+    assert out.dtype == dtype
+    _check_close("out", out, want[0], TOL[dtype], False)
+    _check_close("lse", lse, want[1], TOL[dtype], False)
+    for name, g, w in zip(names, got_b, want_b):
+        _check_close(name, g, w, BWD_TOL[dtype], True)
+
+
+@pytest.mark.parametrize("dkh,dvh", [(129, 8), (20, 65), (0, 4), (20, 0)])
+def test_widths_past_the_classes_raise(cuda, dkh, dvh):
+    """A head no width class holds raises ValueError on the card, naming its
+    widths; nothing falls back to the plain route."""
+    with pytest.raises(ValueError):
+        width_class(dkh, dvh)
+    kernels.reset_launch_counts()
+    qr, k, v = _inputs(1, 2, 3, 4, max(dvh, 1), torch.float32, dkh=max(dkh, 1))
+    if dvh == 0:
+        v = v[..., :0]
+    if dkh == 0:
+        qr, k = qr[..., 1:].contiguous(), k[..., :0]
+    with pytest.raises(ValueError, match=f"dkh={dkh}, dvh={dvh}"):
+        rel_attention_fwd(qr, k, v, 3, 4, dkh)
+    slot = max(hil_slot(max(dkh, 1), max(dvh, 1)), 2 * dkh + dvh)
+    P0, _, _ = _hil_inputs(1, 2, 3, 4, max(dvh, 1), torch.float32, slot, relative=False,
+                           dkh=max(dkh, 1))
+    with pytest.raises(ValueError, match=f"dkh={dkh}, dvh={dvh}"):
+        hil_attention_fwd(P0, None, None, 3, 4, dkh, dvh, slot)
+    assert kernels.launch_counts() == {}
 
 
 def test_ensemble_chunked_equals_unchunked_on_the_card(cuda, tmp_path):
