@@ -35,9 +35,14 @@
 // blocks cover each other's staging, and a second buffer measured 2.5 %.
 //
 // The head widths come from the build: each width class (KW, VW) of
-// ops/fused_attention.py::width_class is its own library, compiled with
+// ops/fused_attention.py::width_plan is its own library, compiled with
 // -DATTN_KW=KW -DATTN_VW=VW, and takes every dkh <= KW and dvh <= VW, passed at
-// run time. Padding lives in shared memory only: dkh -> KW as a contraction
+// run time, in the kernels of the .cu files; a head past the largest class
+// runs in that class's library in chunks of KW / VW lanes (attention_wide.cuh,
+// which sums S and dp over the chunks into the same fragments and finishes a
+// tile with the pieces of the steps: fwd_logits / fwd_softmax, dq_ds /
+// dq_accumulate, dkdv_ds / dkdv_accumulate). Padding lives in shared memory
+// only: dkh -> KW as a contraction
 // (KW / 16 k16 steps) and -> 8 * ND as an output width (ND n8 tiles), dvh -> VW
 // as a width (VW / 8 n8 tiles) and -> 16 as a contraction where VW is 8 (the
 // upper half of the fragment is the constant 0), ragged token tails as zero
@@ -421,6 +426,70 @@ __device__ __forceinline__ void dq_init(DqWarp<NBT, ND>& st, const bf16* q_s, in
     for (int i = 0; i < 4; ++i) st.bins[nb][i] = 0.f;
 }
 
+// ds of the n8 tile of keys n0 .. n0 + 7 from its products s = q k^T and dp
+// = dout v^T (rows g, g + 8 x keys n0 + 2t, n0 + 2t + 1): the relative
+// logits, p = exp(S - lse), ds = p (dp - delta), packed as the A-fragment
+// words ds0 (row g) and ds1 (row g + 8). rel0 / rel1: the RC rows of rows g
+// and g + 8; paired: rc_paired of the RC tile.
+template <int NBT, int ND, typename RelT>
+__device__ __forceinline__ void dq_ds(const DqWarp<NBT, ND>& st, const float (&s)[4],
+                                      const float (&dp)[4], int n0, const KeyTable& kt,
+                                      const RelT* rel0, const RelT* rel1, bool paired, int W,
+                                      int kn, int t, uint32_t& ds0, uint32_t& ds1) {
+  const int2 kp = *reinterpret_cast<const int2*>(kt.kpos + n0 + 2 * t);
+  const int ca = kp.x & 0xffff, ra = kp.x >> 16;
+  const int cb = kp.y & 0xffff, rb = kp.y >> 16;
+  const bool va = n0 + 2 * t < kn, vb = n0 + 2 * t + 1 < kn;
+  float s0, s1, s2, s3;
+  if (paired) {  // W even: keys 2t and 2t+1 are neighbours in one image row
+    float c0a, c0b, c1a, c1b;
+    load_pair(rel0 + ca, c0a, c0b);
+    load_pair(rel1 + ca, c1a, c1b);
+    const float r0r = to_f(rel0[W + ra]), r1r = to_f(rel1[W + ra]);
+    s0 = s[0] + c0a + r0r;
+    s1 = s[1] + c0b + r0r;
+    s2 = s[2] + c1a + r1r;
+    s3 = s[3] + c1b + r1r;
+  } else {
+    s0 = s[0] + to_f(rel0[ca]) + to_f(rel0[W + ra]);
+    s1 = s[1] + to_f(rel0[cb]) + to_f(rel0[W + rb]);
+    s2 = s[2] + to_f(rel1[ca]) + to_f(rel1[W + ra]);
+    s3 = s[3] + to_f(rel1[cb]) + to_f(rel1[W + rb]);
+  }
+  const float p0 = va ? exp_shifted(s0, st.lse[0]) : 0.f;
+  const float p1 = vb ? exp_shifted(s1, st.lse[0]) : 0.f;
+  const float p2 = va ? exp_shifted(s2, st.lse[1]) : 0.f;
+  const float p3 = vb ? exp_shifted(s3, st.lse[1]) : 0.f;
+  ds0 = pack_bf16(p0 * (dp[0] - st.delta[0]), p1 * (dp[1] - st.delta[0]));
+  ds1 = pack_bf16(p2 * (dp[2] - st.delta[1]), p3 * (dp[3] - st.delta[1]));
+}
+
+// dq += ds k and the bins for the 16 keys of chunk kc of the tile, dsa their
+// ds as an A fragment (dq_ds of its two n8 tiles); k_s and kt as dq_step
+// takes them.
+template <int NBT, int ND>
+__device__ __forceinline__ void dq_accumulate(DqWarp<NBT, ND>& st, const uint32_t (&dsa)[4],
+                                              int kc, const bf16* k_s, const KeyTable& kt,
+                                              int nbt, int lane) {
+  // dq += ds k: k as [key][d] through ldmatrix.trans
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    uint32_t b0, b1;
+    ldsm_x2_trans(b0, b1, k_s + (kc * 16 + (lane & 15)) * KS + nd * 8);
+    mma16816(st.dq[nd], dsa[0], dsa[1], dsa[2], dsa[3], b0, b1);
+  }
+  // the bins: dRC += ds onehot, over the bin tiles these 16 keys touch
+  const unsigned touched = kt.touched[kc];
+  const uint2* oh = kt.frags + kc * nbt * 32 + lane;
+#pragma unroll
+  for (int nb = 0; nb < NBT; ++nb) {
+    if ((touched >> nb) & 1u) {  // uniform across the block
+      const uint2 b = oh[nb * 32];
+      mma16816(st.bins[nb], dsa[0], dsa[1], dsa[2], dsa[3], b.x, b.y);
+    }
+  }
+}
+
 // One key tile: k_s (TN x KS), v_s (TN x VS) and its table row kt, of which
 // kn keys exist; rel_s holds the RC rows of the block's queries; nbt bin
 // tiles (<= NBT).
@@ -442,50 +511,9 @@ __device__ __forceinline__ void dq_step(DqWarp<NBT, ND>& st, const bf16* k_s, co
         float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
         mma_k(s, st.qa, k_s + (n0 + g) * KS + 2 * t);
         mma_v(dp, st.doa, v_s + (n0 + g) * VS + 2 * t);
-        const int2 kp = *reinterpret_cast<const int2*>(kt.kpos + n0 + 2 * t);
-        const int ca = kp.x & 0xffff, ra = kp.x >> 16;
-        const int cb = kp.y & 0xffff, rb = kp.y >> 16;
-        const bool va = n0 + 2 * t < kn, vb = n0 + 2 * t + 1 < kn;
-        float s0, s1, s2, s3;
-        if (paired) {  // W even: keys 2t and 2t+1 are neighbours in one image row
-          float c0a, c0b, c1a, c1b;
-          load_pair(rel0 + ca, c0a, c0b);
-          load_pair(rel1 + ca, c1a, c1b);
-          const float r0r = to_f(rel0[W + ra]), r1r = to_f(rel1[W + ra]);
-          s0 = s[0] + c0a + r0r;
-          s1 = s[1] + c0b + r0r;
-          s2 = s[2] + c1a + r1r;
-          s3 = s[3] + c1b + r1r;
-        } else {
-          s0 = s[0] + to_f(rel0[ca]) + to_f(rel0[W + ra]);
-          s1 = s[1] + to_f(rel0[cb]) + to_f(rel0[W + rb]);
-          s2 = s[2] + to_f(rel1[ca]) + to_f(rel1[W + ra]);
-          s3 = s[3] + to_f(rel1[cb]) + to_f(rel1[W + rb]);
-        }
-        const float p0 = va ? exp_shifted(s0, st.lse[0]) : 0.f;
-        const float p1 = vb ? exp_shifted(s1, st.lse[0]) : 0.f;
-        const float p2 = va ? exp_shifted(s2, st.lse[1]) : 0.f;
-        const float p3 = vb ? exp_shifted(s3, st.lse[1]) : 0.f;
-        dsa[2 * half] = pack_bf16(p0 * (dp[0] - st.delta[0]), p1 * (dp[1] - st.delta[0]));
-        dsa[2 * half + 1] = pack_bf16(p2 * (dp[2] - st.delta[1]), p3 * (dp[3] - st.delta[1]));
+        dq_ds(st, s, dp, n0, kt, rel0, rel1, paired, W, kn, t, dsa[2 * half], dsa[2 * half + 1]);
       }
-      // dq += ds k: k as [key][d] through ldmatrix.trans
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b0, b1;
-        ldsm_x2_trans(b0, b1, k_s + (kc * 16 + (lane & 15)) * KS + nd * 8);
-        mma16816(st.dq[nd], dsa[0], dsa[1], dsa[2], dsa[3], b0, b1);
-      }
-      // the bins: dRC += ds onehot, over the bin tiles these 16 keys touch
-      const unsigned touched = kt.touched[kc];
-      const uint2* oh = kt.frags + kc * nbt * 32 + lane;
-#pragma unroll
-      for (int nb = 0; nb < NBT; ++nb) {
-        if ((touched >> nb) & 1u) {  // uniform across the block
-          const uint2 b = oh[nb * 32];
-          mma16816(st.bins[nb], dsa[0], dsa[1], dsa[2], dsa[3], b.x, b.y);
-        }
-      }
+      dq_accumulate(st, dsa, kc, k_s, kt, nbt, lane);
     }
   }
 }
@@ -582,6 +610,69 @@ __device__ __forceinline__ void dkdv_init(DkdvWarp<ND>& st, const bf16* k_s, con
     for (int i = 0; i < 4; ++i) st.dv[nv][i] = 0.f;
 }
 
+// p^T and ds^T of the n8 tile of queries n0 .. n0 + 7 from its products s =
+// k q^T and dp = v dout^T (the thread's keys x queries n0 + 2t, n0 + 2t + 1):
+// the relative logits, p = exp(S - lse), ds = p (dp - delta), packed as the
+// A-fragment words p0 / ds0 (the first key) and p1 / ds1 (the second). ld_s,
+// rel_s as dkdv_step takes them; paired: rc_paired of the RC tile.
+template <int ND, typename RelT>
+__device__ __forceinline__ void dkdv_ds(const DkdvWarp<ND>& st, const float (&s)[4],
+                                        const float (&dp)[4], int n0, const float* ld_s,
+                                        const RelT* rel_s, int rel_stride, bool paired, int W,
+                                        int t, uint32_t& p0w, uint32_t& p1w, uint32_t& ds0,
+                                        uint32_t& ds1) {
+  // (lse, delta) of queries n0+2t and n0+2t+1, and their RC rows
+  const float4 ld = *reinterpret_cast<const float4*>(ld_s + 2 * (n0 + 2 * t));
+  const RelT* ra = rel_s + (n0 + 2 * t) * rel_stride;
+  const RelT* rb = ra + rel_stride;
+  float s0, s1, s2, s3;
+  if (paired) {
+    float a0, a1, b0, b1;
+    load_pair(ra + st.c[0], a0, a1);
+    load_pair(rb + st.c[0], b0, b1);
+    const float ar = to_f(ra[W + st.r[0]]), br = to_f(rb[W + st.r[0]]);
+    s0 = s[0] + a0 + ar;
+    s1 = s[1] + b0 + br;
+    s2 = s[2] + a1 + ar;
+    s3 = s[3] + b1 + br;
+  } else {
+    s0 = s[0] + to_f(ra[st.c[0]]) + to_f(ra[W + st.r[0]]);
+    s1 = s[1] + to_f(rb[st.c[0]]) + to_f(rb[W + st.r[0]]);
+    s2 = s[2] + to_f(ra[st.c[1]]) + to_f(ra[W + st.r[1]]);
+    s3 = s[3] + to_f(rb[st.c[1]]) + to_f(rb[W + st.r[1]]);
+  }
+  const float la = ld.x * LOG2E, lb = ld.z * LOG2E;
+  const float p0 = st.ok[0] ? exp_shifted(s0, la) : 0.f;
+  const float p1 = st.ok[0] ? exp_shifted(s1, lb) : 0.f;
+  const float p2 = st.ok[1] ? exp_shifted(s2, la) : 0.f;
+  const float p3 = st.ok[1] ? exp_shifted(s3, lb) : 0.f;
+  p0w = pack_bf16(p0, p1);
+  p1w = pack_bf16(p2, p3);
+  ds0 = pack_bf16(p0 * (dp[0] - ld.y), p1 * (dp[1] - ld.w));
+  ds1 = pack_bf16(p2 * (dp[2] - ld.y), p3 * (dp[3] - ld.w));
+}
+
+// dv += p^T dout and dk += ds^T q for the 16 queries of chunk qc of the tile,
+// pa / dsa their p^T / ds^T as A fragments (dkdv_ds of its two n8 tiles);
+// q_s, do_s as dkdv_step takes them.
+template <int ND>
+__device__ __forceinline__ void dkdv_accumulate(DkdvWarp<ND>& st, const uint32_t (&pa)[4],
+                                                const uint32_t (&dsa)[4], int qc,
+                                                const bf16* q_s, int qs, const bf16* do_s,
+                                                int lane) {
+  uint32_t b0, b1;
+#pragma unroll
+  for (int nv = 0; nv < NV; ++nv) {
+    ldsm_x2_trans(b0, b1, do_s + (qc * 16 + (lane & 15)) * VS + nv * 8);
+    mma16816(st.dv[nv], pa[0], pa[1], pa[2], pa[3], b0, b1);
+  }
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    ldsm_x2_trans(b0, b1, q_s + (qc * 16 + (lane & 15)) * qs + nd * 8);
+    mma16816(st.dk[nd], dsa[0], dsa[1], dsa[2], dsa[3], b0, b1);
+  }
+}
+
 // One query tile: q_s (TN rows of stride qs, a multiple of 8; what lies in
 // columns dkh..KW-1 meets the zeros of k, so it only has to be finite), do_s
 // (TN x VS), ld_s (TN x 2: lse, delta), rel_s (TN x rel_stride: the queries'
@@ -606,47 +697,10 @@ __device__ __forceinline__ void dkdv_step(DkdvWarp<ND>& st, const bf16* q_s, int
         float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
         mma_k(s, st.ka, q_s + (n0 + g) * qs + 2 * t);
         mma_v(dp, st.va, do_s + (n0 + g) * VS + 2 * t);
-        // (lse, delta) of queries n0+2t and n0+2t+1, and their RC rows
-        const float4 ld = *reinterpret_cast<const float4*>(ld_s + 2 * (n0 + 2 * t));
-        const RelT* ra = rel_s + (n0 + 2 * t) * rel_stride;
-        const RelT* rb = ra + rel_stride;
-        float s0, s1, s2, s3;
-        if (paired) {
-          float a0, a1, b0, b1;
-          load_pair(ra + st.c[0], a0, a1);
-          load_pair(rb + st.c[0], b0, b1);
-          const float ar = to_f(ra[W + st.r[0]]), br = to_f(rb[W + st.r[0]]);
-          s0 = s[0] + a0 + ar;
-          s1 = s[1] + b0 + br;
-          s2 = s[2] + a1 + ar;
-          s3 = s[3] + b1 + br;
-        } else {
-          s0 = s[0] + to_f(ra[st.c[0]]) + to_f(ra[W + st.r[0]]);
-          s1 = s[1] + to_f(rb[st.c[0]]) + to_f(rb[W + st.r[0]]);
-          s2 = s[2] + to_f(ra[st.c[1]]) + to_f(ra[W + st.r[1]]);
-          s3 = s[3] + to_f(rb[st.c[1]]) + to_f(rb[W + st.r[1]]);
-        }
-        const float la = ld.x * LOG2E, lb = ld.z * LOG2E;
-        const float p0 = st.ok[0] ? exp_shifted(s0, la) : 0.f;
-        const float p1 = st.ok[0] ? exp_shifted(s1, lb) : 0.f;
-        const float p2 = st.ok[1] ? exp_shifted(s2, la) : 0.f;
-        const float p3 = st.ok[1] ? exp_shifted(s3, lb) : 0.f;
-        pa[2 * half] = pack_bf16(p0, p1);
-        pa[2 * half + 1] = pack_bf16(p2, p3);
-        dsa[2 * half] = pack_bf16(p0 * (dp[0] - ld.y), p1 * (dp[1] - ld.w));
-        dsa[2 * half + 1] = pack_bf16(p2 * (dp[2] - ld.y), p3 * (dp[3] - ld.w));
+        dkdv_ds(st, s, dp, n0, ld_s, rel_s, rel_stride, paired, W, t, pa[2 * half],
+                pa[2 * half + 1], dsa[2 * half], dsa[2 * half + 1]);
       }
-      uint32_t b0, b1;
-#pragma unroll
-      for (int nv = 0; nv < NV; ++nv) {
-        ldsm_x2_trans(b0, b1, do_s + (qc * 16 + (lane & 15)) * VS + nv * 8);
-        mma16816(st.dv[nv], pa[0], pa[1], pa[2], pa[3], b0, b1);
-      }
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        ldsm_x2_trans(b0, b1, q_s + (qc * 16 + (lane & 15)) * qs + nd * 8);
-        mma16816(st.dk[nd], dsa[0], dsa[1], dsa[2], dsa[3], b0, b1);
-      }
+      dkdv_accumulate(st, pa, dsa, qc, q_s, qs, do_s, lane);
     }
   }
 }

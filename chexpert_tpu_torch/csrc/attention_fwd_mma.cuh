@@ -65,53 +65,46 @@ __device__ __forceinline__ void fwd_init(FwdWarp& st, const bf16* q_s, int qs, i
     for (int i = 0; i < 4; ++i) st.o[nv][i] = 0.f;
 }
 
-// One key tile: k (TN rows of stride ks, dkh columns then columns up to KW
-// that only have to be finite), v (TN rows of stride vs, 16-byte aligned, VW
-// columns),
-// kpos (TN key positions, column | row << 16), of which kn keys exist; rel_s
-// holds the RC rows of the block's queries (rows and even lanes aligned to a
-// pair).
+// The relative logits and the mask of the ragged key tail for the n8 tile of
+// keys n0 .. n0 + 7: c holds its products q . k^T (rows g, g + 8 x keys n0 +
+// 2t, n0 + 2t + 1), s gets its logits (-inf past kn) and mx0 / mx1 take the
+// rows' maxima over this lane's keys. rel0 / rel1: the RC rows of rows g and
+// g + 8; paired: rc_paired of the RC tile.
 template <typename RelT>
-__device__ __forceinline__ void fwd_step(FwdWarp& st, const bf16* k_s, int ks, const bf16* v_s,
-                                         int vs, const int* kpos, const RelT* rel_s,
-                                         int rel_stride, int W, int kn, int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const RelT* rel0 = rel_s + (warp * 16 + g) * rel_stride;
-  const RelT* rel1 = rel0 + 8 * rel_stride;
-  const bool paired = rc_paired(rel_s, W);  // keys 2t and 2t+1 share an image row
-  float s[FWD_NT][4];
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < FWD_NT; ++nt) {
-    const int n0 = nt * 8;
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_k(c, st.qa, k_s + (n0 + g) * ks + 2 * t);
-    const int2 kp = *reinterpret_cast<const int2*>(kpos + n0 + 2 * t);
-    const int ca = kp.x & 0xffff, ra = kp.x >> 16;
-    const int cb = kp.y & 0xffff, rb = kp.y >> 16;
-    if (paired) {
-      float c0a, c0b, c1a, c1b;
-      load_pair(rel0 + ca, c0a, c0b);
-      load_pair(rel1 + ca, c1a, c1b);
-      const float r0r = to_f(rel0[W + ra]), r1r = to_f(rel1[W + ra]);
-      c[0] += c0a + r0r;
-      c[1] += c0b + r0r;
-      c[2] += c1a + r1r;
-      c[3] += c1b + r1r;
-    } else {
-      c[0] += to_f(rel0[ca]) + to_f(rel0[W + ra]);
-      c[1] += to_f(rel0[cb]) + to_f(rel0[W + rb]);
-      c[2] += to_f(rel1[ca]) + to_f(rel1[W + ra]);
-      c[3] += to_f(rel1[cb]) + to_f(rel1[W + rb]);
-    }
-    const bool va = n0 + 2 * t < kn, vb = n0 + 2 * t + 1 < kn;
-    s[nt][0] = va ? c[0] : -INFINITY;
-    s[nt][1] = vb ? c[1] : -INFINITY;
-    s[nt][2] = va ? c[2] : -INFINITY;
-    s[nt][3] = vb ? c[3] : -INFINITY;
-    mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-    mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+__device__ __forceinline__ void fwd_logits(float (&c)[4], float (&s)[4], float& mx0, float& mx1,
+                                           int n0, const int* kpos, const RelT* rel0,
+                                           const RelT* rel1, bool paired, int W, int kn, int t) {
+  const int2 kp = *reinterpret_cast<const int2*>(kpos + n0 + 2 * t);
+  const int ca = kp.x & 0xffff, ra = kp.x >> 16;
+  const int cb = kp.y & 0xffff, rb = kp.y >> 16;
+  if (paired) {
+    float c0a, c0b, c1a, c1b;
+    load_pair(rel0 + ca, c0a, c0b);
+    load_pair(rel1 + ca, c1a, c1b);
+    const float r0r = to_f(rel0[W + ra]), r1r = to_f(rel1[W + ra]);
+    c[0] += c0a + r0r;
+    c[1] += c0b + r0r;
+    c[2] += c1a + r1r;
+    c[3] += c1b + r1r;
+  } else {
+    c[0] += to_f(rel0[ca]) + to_f(rel0[W + ra]);
+    c[1] += to_f(rel0[cb]) + to_f(rel0[W + rb]);
+    c[2] += to_f(rel1[ca]) + to_f(rel1[W + ra]);
+    c[3] += to_f(rel1[cb]) + to_f(rel1[W + rb]);
   }
+  const bool va = n0 + 2 * t < kn, vb = n0 + 2 * t + 1 < kn;
+  s[0] = va ? c[0] : -INFINITY;
+  s[1] = vb ? c[1] : -INFINITY;
+  s[2] = va ? c[2] : -INFINITY;
+  s[3] = vb ? c[3] : -INFINITY;
+  mx0 = fmaxf(mx0, fmaxf(s[0], s[1]));
+  mx1 = fmaxf(mx1, fmaxf(s[2], s[3]));
+}
+
+// The online softmax and p v of a key tile from its logits s (fwd_logits of
+// every n8 tile) and this lane's row maxima mx0 / mx1; v as fwd_step takes it.
+__device__ __forceinline__ void fwd_softmax(FwdWarp& st, const float (&s)[FWD_NT][4], float mx0,
+                                            float mx1, const bf16* v_s, int vs, int lane) {
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {  // the quad of lanes 4g .. 4g+3 holds the row
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
@@ -156,6 +149,48 @@ __device__ __forceinline__ void fwd_step(FwdWarp& st, const bf16* k_s, int ks, c
   st.l[1] = l1;
 }
 
+// One key tile: k (TN rows of stride ks, dkh columns then columns up to KW
+// that only have to be finite), v (TN rows of stride vs, 16-byte aligned, VW
+// columns), kpos (TN key positions, column | row << 16), of which kn keys
+// exist; rel_s holds the RC rows of the block's queries (rows and even lanes
+// aligned to a pair).
+template <typename RelT>
+__device__ __forceinline__ void fwd_step(FwdWarp& st, const bf16* k_s, int ks, const bf16* v_s,
+                                         int vs, const int* kpos, const RelT* rel_s,
+                                         int rel_stride, int W, int kn, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const RelT* rel0 = rel_s + (warp * 16 + g) * rel_stride;
+  const RelT* rel1 = rel0 + 8 * rel_stride;
+  const bool paired = rc_paired(rel_s, W);  // keys 2t and 2t+1 share an image row
+  float s[FWD_NT][4];
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < FWD_NT; ++nt) {
+    const int n0 = nt * 8;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_k(c, st.qa, k_s + (n0 + g) * ks + 2 * t);
+    fwd_logits(c, s[nt], mx0, mx1, n0, kpos, rel0, rel1, paired, W, kn, t);
+  }
+  fwd_softmax(st, s, mx0, mx1, v_s, vs, lane);
+}
+
+// The same key tile where the products q . k^T are already in s (summed
+// over the chunks of a head wider than the class: attention_wide.cuh).
+template <typename RelT>
+__device__ __forceinline__ void fwd_update(FwdWarp& st, float (&s)[FWD_NT][4], const bf16* v_s,
+                                           int vs, const int* kpos, const RelT* rel_s,
+                                           int rel_stride, int W, int kn, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const RelT* rel0 = rel_s + (warp * 16 + g) * rel_stride;
+  const RelT* rel1 = rel0 + 8 * rel_stride;
+  const bool paired = rc_paired(rel_s, W);
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < FWD_NT; ++nt)
+    fwd_logits(s[nt], s[nt], mx0, mx1, nt * 8, kpos, rel0, rel1, paired, W, kn, t);
+  fwd_softmax(st, s, mx0, mx1, v_s, vs, lane);
+}
+
 // The warp's results: out[nv][i] (rows g, g+8 at dv columns 8 nv + 2t,
 // 8 nv + 2t + 1, as st.o) and lse[r] of rows g and g+8.
 __device__ __forceinline__ void fwd_finish(const FwdWarp& st, float (&out)[NV][4],
@@ -176,8 +211,8 @@ __device__ __forceinline__ void fwd_finish(const FwdWarp& st, float (&out)[NV][4
 }
 
 // The warp's out and lse rows: rows i0 and i0 + 8 (the warp's g and g + 8)
-// below hw, of out (row stride o_stride, dvh wide) and lse, both at the
-// (batch, head)'s first token.
+// below hw, of out (row stride o_stride, dvh wide) and lse (none where lse is
+// null), both at the (batch, head)'s first token.
 __device__ __forceinline__ void fwd_store(const float (&o)[NV][4], const float (&l)[2],
                                           bf16* out, size_t o_stride, float* lse, int i0,
                                           int hw, int dvh, int lane) {
@@ -193,7 +228,7 @@ __device__ __forceinline__ void fwd_store(const float (&o)[NV][4], const float (
       if (c < dvh) o_i[c] = __float2bfloat16(o[nv][2 * rr]);
       if (c + 1 < dvh) o_i[c + 1] = __float2bfloat16(o[nv][2 * rr + 1]);
     }
-    if (t == 0) lse[i] = l[rr];
+    if (t == 0 && lse != nullptr) lse[i] = l[rr];
   }
 }
 

@@ -81,12 +81,17 @@
 // 2), 67 KB for its two query-tile buffers; drel 56.
 //
 // Head widths: this file is built once per width class (KW, VW) of
-// ops/fused_attention.py::width_class (-DATTN_KW, -DATTN_VW; see
-// attention_bwd_mma.cuh) and takes dkh <= KW, dvh <= VW, as
-// rel_attention_bwd.cu does: the tensor-core passes are instantiated for
-// nd_tiles(dkh) n8 tiles of dq / dk, the CUDA-core passes and drel hold their
-// dkh-wide rows DK wide in registers.
+// ops/fused_attention.py::width_plan (-DATTN_KW, -DATTN_VW; see
+// attention_bwd_mma.cuh), whose dq / dkdv passes below take dkh <= KW, dvh <=
+// VW, as rel_attention_bwd.cu does: the tensor-core passes are instantiated
+// for nd_tiles(dkh) n8 tiles of dq / dk, the CUDA-core passes and drel hold
+// their dkh-wide rows DK wide in registers. The largest class's library also
+// takes any wider head, in the nk / nv chunks the entries receive:
+// attention_wide.cuh's dq and dkdv passes (both routes hand the RC rows on
+// through the rc scratch), and drel in nk chunks of DK lanes on the grid's z
+// axis.
 
+#include "attention_wide.cuh"
 #include "hil_attention_common.cuh"
 
 // ---------------------------------------------------------------------------
@@ -695,19 +700,23 @@ hil_attention_bwd_dq_kernel(const T* __restrict__ P, const float* __restrict__ R
 }
 
 // The (dkh, n) block of dRw (blockIdx.x < W: image column blockIdx.x, n = W)
-// or of dRh (above: image row blockIdx.x - W, n = H) for one batch element. A
-// thread owns one lane m of the block's dRC rows and a share of the heads, and
-// holds all dkh sums of that lane (DK wide, zero past dkh): each dRC entry is
-// read once, the q lanes of a token are the same address for every thread of
-// a head. The heads' partial sums meet in shared memory and are added in a
-// fixed order.
+// or of dRh (above: image row blockIdx.x - W, n = H) for one batch element,
+// its lanes d0 .. d0 + dc - 1 of dkh (d0 = blockIdx.z * DK: a head wider than
+// the class takes ceil(dkh / DK) chunks on the grid's z axis). A thread owns
+// one lane m of the block's dRC rows and a share of the heads, and holds the
+// chunk's dc sums of that lane (DK wide, zero past dc): each dRC entry is
+// read once per chunk, the q lanes of a token are the same address for every
+// thread of a head. The heads' partial sums meet in shared memory and are
+// added in a fixed order.
 template <typename T, int DK>
 __global__ void hil_attention_bwd_drel_kernel(const T* __restrict__ P,
                                               const float* __restrict__ drc,
                                               float* __restrict__ part, int hw, int H, int W,
                                               int nh, int slot, int dkh, int hsplit) {
-  extern __shared__ float red_s[];  // hsplit x dkh x n
+  extern __shared__ float red_s[];  // hsplit x dc x n
   dkh = DK == DK_ZOO ? DK_ZOO : dkh;  // the zoo's width as a constant, as it was tuned
+  const int d0 = DK == DK_ZOO ? 0 : static_cast<int>(blockIdx.z) * DK;
+  const int dc = min(DK, dkh - d0);
   const int b = blockIdx.y;
   const bool is_w = static_cast<int>(blockIdx.x) < W;
   const int n = is_w ? W : H;                      // width of the block's rows
@@ -724,7 +733,7 @@ __global__ void hil_attention_bwd_drel_kernel(const T* __restrict__ P,
   for (int d = 0; d < DK; ++d) acc[d] = 0.f;
   // the block has max(W, H) * hsplit threads: on the shorter axis some are spare
   for (int h = hy < hsplit ? hy : nh; h < nh; h += hsplit) {
-    const T* q = P + static_cast<size_t>(b) * hw * row + static_cast<size_t>(h) * slot;
+    const T* q = P + static_cast<size_t>(b) * hw * row + static_cast<size_t>(h) * slot + d0;
     const float* g = drc + (static_cast<size_t>(b) * nh + h) * hw * WH + lane;
 #pragma unroll 4
     for (int u = 0; u < ntok; ++u) {
@@ -733,21 +742,23 @@ __global__ void hil_attention_bwd_drel_kernel(const T* __restrict__ P,
       const T* qt = q + t * row;
 #pragma unroll
       for (int d = 0; d < DK; ++d)
-        if (d < dkh) acc[d] = fmaf(to_f32(qt[d]), gv, acc[d]);
+        if (d < dc) acc[d] = fmaf(to_f32(qt[d]), gv, acc[d]);
     }
   }
   if (hy < hsplit) {
 #pragma unroll
     for (int d = 0; d < DK; ++d)
-      if (d < dkh) red_s[(hy * dkh + d) * n + m] = acc[d];
+      if (d < dc) red_s[(hy * dc + d) * n + m] = acc[d];
   }
   __syncthreads();
   const size_t per_b = static_cast<size_t>(dkh) * (W * W + H * H);
-  const size_t off = is_w ? static_cast<size_t>(idx) * dkh * W
-                          : static_cast<size_t>(dkh) * W * W + static_cast<size_t>(idx) * dkh * H;
-  for (int e = threadIdx.x; e < dkh * n; e += blockDim.x) {  // e = d * n + m
+  const size_t off =
+      (is_w ? static_cast<size_t>(idx) * dkh * W
+            : static_cast<size_t>(dkh) * W * W + static_cast<size_t>(idx) * dkh * H) +
+      static_cast<size_t>(d0) * n;
+  for (int e = threadIdx.x; e < dc * n; e += blockDim.x) {  // e = d * n + m
     float sum = 0.f;
-    for (int y = 0; y < hsplit; ++y) sum += red_s[y * dkh * n + e];
+    for (int y = 0; y < hsplit; ++y) sum += red_s[y * dc * n + e];
     part[b * per_b + off + e] = sum;
   }
 }
@@ -823,15 +834,15 @@ int launch_dq(const void* P, const void* Rw, const void* Rh, const void* dout, c
 
 template <typename T, int DK>
 int launch_drel_dk(const void* P, const void* drc, void* part, int B, int hw, int H, int W,
-                   int nh, int slot, int dkh, void* stream) {
-  const int n = W > H ? W : H;
+                   int nh, int slot, int dkh, int nk, void* stream) {
+  const int n = W > H ? W : H, dc = dkh < DK ? dkh : DK;
   int hsplit = 1024 / n < nh ? 1024 / n : nh;  // heads that work side by side in a block
-  while (static_cast<size_t>(hsplit) * dkh * n * sizeof(float) > 48 * 1024 && hsplit > 1) --hsplit;
-  const size_t smem = static_cast<size_t>(hsplit) * dkh * n * sizeof(float);
+  while (static_cast<size_t>(hsplit) * dc * n * sizeof(float) > 48 * 1024 && hsplit > 1) --hsplit;
+  const size_t smem = static_cast<size_t>(hsplit) * dc * n * sizeof(float);
   auto kern = hil_attention_bwd_drel_kernel<T, DK>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(W + H, B);
+  const dim3 grid(W + H, B, nk);
   kern<<<grid, n * hsplit, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(P), static_cast<const float*>(drc), static_cast<float*>(part), hw,
       H, W, nh, slot, dkh, hsplit);
@@ -840,15 +851,78 @@ int launch_drel_dk(const void* P, const void* drc, void* part, int B, int hw, in
 
 template <typename T>
 int launch_drel(const void* P, const void* drc, void* part, int B, int hw, int H, int W,
-                int nh, int slot, int dkh, void* stream) {
-  if (bad_shape(B, hw, H, W, nh, slot, dkh, 1) || W + H > 65535)
+                int nh, int slot, int dkh, int nk, void* stream) {
+  const int route = attention_wide::route(dkh, 1, nk, 1);
+  if (route < 0 || bad_shape(B, hw, H, W, nh, slot, route > 0 ? 1 : dkh, 1) ||
+      slot < 2 * dkh + 1 || W + H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((W > H ? W : H) > 1024) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (amma::KW == 32) {
     if (dkh == DK_ZOO)
-      return launch_drel_dk<T, DK_ZOO>(P, drc, part, B, hw, H, W, nh, slot, dkh, stream);
+      return launch_drel_dk<T, DK_ZOO>(P, drc, part, B, hw, H, W, nh, slot, dkh, nk, stream);
   }
-  return launch_drel_dk<T, amma::KW>(P, drc, part, B, hw, H, W, nh, slot, dkh, stream);
+  return launch_drel_dk<T, amma::KW>(P, drc, part, B, hw, H, W, nh, slot, dkh, nk, stream);
+}
+
+// A head past the largest width class (attention_wide.cuh): the slots' rows,
+// grid (tiles x chunks, nh, B). The RC rows reach pass dkdv through the rc
+// scratch of pass dq on both routes.
+struct Slots {
+  long long n, row, orow, rcs;
+  int B, nh, slot, dkh, dvh;
+  attention_wide::Geo g;
+  Slots(int B_, int hw, int H, int W, int nh_, int slot_, int dkh_, int dvh_, int nk, int nv)
+      : n(hw), row(static_cast<long long>(nh_) * slot_), orow(static_cast<long long>(nh_) * dvh_),
+        rcs(W + H), B(B_), nh(nh_), slot(slot_), dkh(dkh_), dvh(dvh_),
+        g{hw, H, W, dkh_, dvh_, nk, nv} {}
+  bool bad() const {
+    return B < 1 || B > 65535 || nh < 1 || nh > 65535 || slot < 2 * dkh + dvh ||
+           g.hw != g.H * g.W || g.hw < 1;
+  }
+  template <typename T>  // the lanes of each slot from p on
+  attention_wide::Rows<T> lanes(T* p) const { return {p, n * row, slot, row}; }
+  template <typename T>  // (B, nh, hw, width) rows from p; a null p: none
+  attention_wide::Rows<T> heads(T* p, long long width) const {
+    if (p == nullptr) return {};
+    return {p, nh * n * width, n * width, width};
+  }
+};
+
+template <typename T>
+int dkdv_wide(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
+              const void* delta, void* dP, const void* rc, const Slots& sl, void* stream) {
+  if (sl.bad() || (Rw == nullptr) != (Rh == nullptr) || (Rw == nullptr) != (rc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* p = static_cast<const T*>(P);
+  T* d = static_cast<T*>(dP);
+  return attention_wide::dkdv<T, float>(
+      sl.lanes(p), sl.lanes(p + sl.dkh), sl.lanes(p + 2 * sl.dkh),
+      attention_wide::Rows<const T>{static_cast<const T*>(dout), sl.n * sl.orow, sl.dvh, sl.orow},
+      sl.heads(static_cast<const float*>(lse), 1), sl.heads(static_cast<const float*>(delta), 1),
+      sl.heads(static_cast<const float*>(rc), sl.rcs),
+      attention_wide::DkdvOut<T>{sl.lanes(d + sl.dkh), sl.lanes(d + 2 * sl.dkh),
+                       sl.lanes(d + 2 * sl.dkh + sl.dvh), sl.slot - 2 * sl.dkh - sl.dvh},
+      sl.g, sl.nh, sl.B, stream);
+}
+
+template <typename T>
+int dq_wide(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
+            const void* delta, const void* tab, void* dP, void* drc, void* rc, const Slots& sl,
+            void* stream) {
+  if (sl.bad() || (Rw == nullptr) != (Rh == nullptr) || (Rw == nullptr) != (drc == nullptr) ||
+      (Rw == nullptr) != (rc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* p = static_cast<const T*>(P);
+  return attention_wide::dq<T>(
+      sl.lanes(p), sl.lanes(p + sl.dkh), sl.lanes(p + 2 * sl.dkh),
+      attention_wide::Rows<const T>{static_cast<const T*>(dout), sl.n * sl.orow, sl.dvh, sl.orow},
+      sl.heads(static_cast<const float*>(lse), 1), sl.heads(static_cast<const float*>(delta), 1),
+      attention_wide::Rel<T>{{}, static_cast<const float*>(Rw), static_cast<const float*>(Rh)},
+      static_cast<const int*>(tab),
+      attention_wide::DqOut<T>{sl.lanes(static_cast<T*>(dP)), {},
+                               sl.heads(static_cast<float*>(drc), sl.rcs),
+                               sl.heads(static_cast<float*>(rc), sl.rcs)},
+      sl.g, sl.nh, sl.B, stream);
 }
 
 // The bf16 entries take the tensor-core passes wherever amma::mma_fits (every
@@ -856,11 +930,20 @@ int launch_drel(const void* P, const void* drc, void* part, int B, int hw, int H
 // RC scratch (B, nh, hw, W+H) f32 that the tensor-core dq leaves and the
 // tensor-core dkdv reads, tab the key table of the map
 // (ops/fused_attention.py::key_table) that the tensor-core dq reads; the
-// CUDA-core kernels ignore both.
+// class's CUDA-core kernels ignore both. nk, nv: the head's chunk counts
+// (ops/fused_attention.py::width_plan), 1 and 1 for a head its class holds; a
+// wider head takes attention_wide.cuh, whose passes use rc on both routes.
 
 int dkdv_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
               const void* delta, void* dP, const void* rc, int B, int hw, int H, int W, int nh,
-              int slot, int dkh, int dvh, void* stream) {
+              int slot, int dkh, int dvh, int nk, int nv, void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return dkdv_wide<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, dP, rc,
+                                      Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv), stream);
+  }
   if (!amma::mma_fits(W, H))
     return launch_dkdv<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, dP, B, hw, H, W, nh, slot,
                                       dkh, dvh, stream);
@@ -873,7 +956,14 @@ int dkdv_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, c
 
 int dq_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
             const void* delta, const void* tab, void* dP, void* drc, void* rc, int B, int hw,
-            int H, int W, int nh, int slot, int dkh, int dvh, void* stream) {
+            int H, int W, int nh, int slot, int dkh, int dvh, int nk, int nv, void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return dq_wide<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc,
+                                    Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv), stream);
+  }
   if (!amma::mma_fits(W, H))
     return launch_dq<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, dP, drc, B, hw, H, W, nh, slot,
                                     dkh, dvh, stream);
@@ -889,8 +979,15 @@ int dq_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, con
 extern "C" int hil_attention_bwd_dkdv_f32(const void* P, const void* Rw, const void* Rh,
                                           const void* dout, const void* lse, const void* delta,
                                           void* dP, const void* rc, int B, int hw, int H, int W,
-                                          int nh, int slot, int dkh, int dvh, void* stream) {
-  (void)rc;
+                                          int nh, int slot, int dkh, int dvh, int nk, int nv,
+                                          void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return dkdv_wide<float>(P, Rw, Rh, dout, lse, delta, dP, rc,
+                              Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv), stream);
+  }
   return launch_dkdv<float>(P, Rw, Rh, dout, lse, delta, dP, B, hw, H, W, nh, slot, dkh, dvh,
                             stream);
 }
@@ -898,17 +995,24 @@ extern "C" int hil_attention_bwd_dkdv_f32(const void* P, const void* Rw, const v
 extern "C" int hil_attention_bwd_dkdv_bf16(const void* P, const void* Rw, const void* Rh,
                                            const void* dout, const void* lse, const void* delta,
                                            void* dP, const void* rc, int B, int hw, int H, int W,
-                                           int nh, int slot, int dkh, int dvh, void* stream) {
-  return dkdv_bf16(P, Rw, Rh, dout, lse, delta, dP, rc, B, hw, H, W, nh, slot, dkh, dvh, stream);
+                                           int nh, int slot, int dkh, int dvh, int nk, int nv,
+                                           void* stream) {
+  return dkdv_bf16(P, Rw, Rh, dout, lse, delta, dP, rc, B, hw, H, W, nh, slot, dkh, dvh, nk, nv,
+                   stream);
 }
 
 extern "C" int hil_attention_bwd_dq_f32(const void* P, const void* Rw, const void* Rh,
                                         const void* dout, const void* lse, const void* delta,
                                         const void* tab, void* dP, void* drc, void* rc, int B,
                                         int hw, int H, int W, int nh, int slot, int dkh,
-                                        int dvh, void* stream) {
-  (void)tab;
-  (void)rc;
+                                        int dvh, int nk, int nv, void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return dq_wide<float>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc,
+                            Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv), stream);
+  }
   return launch_dq<float>(P, Rw, Rh, dout, lse, delta, dP, drc, B, hw, H, W, nh, slot, dkh, dvh,
                           stream);
 }
@@ -917,15 +1021,17 @@ extern "C" int hil_attention_bwd_dq_bf16(const void* P, const void* Rw, const vo
                                          const void* dout, const void* lse, const void* delta,
                                          const void* tab, void* dP, void* drc, void* rc, int B,
                                          int hw, int H, int W, int nh, int slot, int dkh,
-                                         int dvh, void* stream) {
+                                         int dvh, int nk, int nv, void* stream) {
   return dq_bf16(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W, nh, slot, dkh, dvh,
-                 stream);
+                 nk, nv, stream);
 }
 
+// nk: the chunk count of dkh (ops/fused_attention.py::width_plan), 1 for a
+// head its class holds.
 #define DREL_ENTRY(NAME, T)                                                                  \
   extern "C" int NAME(const void* P, const void* drc, void* part, int B, int hw, int H,      \
-                      int W, int nh, int slot, int dkh, void* stream) {                      \
-    return launch_drel<T>(P, drc, part, B, hw, H, W, nh, slot, dkh, stream);                 \
+                      int W, int nh, int slot, int dkh, int nk, void* stream) {              \
+    return launch_drel<T>(P, drc, part, B, hw, H, W, nh, slot, dkh, nk, stream);             \
   }
 
 DREL_ENTRY(hil_attention_bwd_drel_f32, float)

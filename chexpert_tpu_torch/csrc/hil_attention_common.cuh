@@ -17,9 +17,10 @@
 // cp.async only where dkh is a multiple of 4 (slots_aligned).
 //
 // Head widths: dkh <= KW and dvh <= VW of the width class this library is
-// built for (attention_bwd_mma.cuh). The CUDA-core kernels hold q and k DK
-// wide, zero past dkh (DK = KW; DK = dkh = 20, a constant, for the model
-// zoo's width, which keeps its code).
+// built for (attention_bwd_mma.cuh); wider heads take attention_wide.cuh in
+// the largest class's library. The CUDA-core kernels hold q and k DK wide,
+// zero past dkh (DK = KW; DK = dkh = 20, a constant, for the model zoo's
+// width, which keeps its code).
 
 #pragma once
 

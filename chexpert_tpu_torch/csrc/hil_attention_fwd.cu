@@ -65,10 +65,14 @@
 // rel_attention_fwd.cu's CUDA-core kernel).
 //
 // Head widths: this file is built once per width class (KW, VW) of
-// ops/fused_attention.py::width_class (-DATTN_KW, -DATTN_VW; see
-// attention_bwd_mma.cuh) and takes dkh <= KW, dvh <= VW.
+// ops/fused_attention.py::width_plan (-DATTN_KW, -DATTN_VW; see
+// attention_bwd_mma.cuh), whose kernels above take dkh <= KW, dvh <= VW. The
+// largest class's library also takes any wider head, in the nk / nv chunks
+// the entries receive: attention_wide.cuh's forward, whose RC rows are f32
+// sums over all of dkh (the code its dq pass runs) and whose S sums over the
+// chunks of dkh in the block, out split by chunks of dvh over the grid.
 
-#include "attention_fwd_mma.cuh"
+#include "attention_wide.cuh"
 #include "hil_attention_common.cuh"
 
 // ---------------------------------------------------------------------------
@@ -387,20 +391,58 @@ int launch(const void* P, const void* Rw, const void* Rh, void* out, void* lse, 
   return launch_dk<T, amma::KW>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
 }
 
+// A head past the largest width class (attention_wide.cuh): the slots' rows,
+// grid (tiles x chunks, nh, B).
+template <typename T>
+int launch_wide(const void* P, const void* Rw, const void* Rh, const void* tab, void* out,
+                void* lse, int B, int hw, int H, int W, int nh, int slot, int dkh, int dvh,
+                int nk, int nv, void* stream) {
+  using attention_wide::Rows;
+  if (B < 1 || B > 65535 || nh < 1 || nh > 65535 || slot < 2 * dkh + dvh || hw != H * W ||
+      hw < 1 || (Rw == nullptr) != (Rh == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = hw, row = static_cast<long long>(nh) * slot;
+  const long long orow = static_cast<long long>(nh) * dvh;
+  const T* p = static_cast<const T*>(P);
+  return attention_wide::fwd<T>(
+      Rows<const T>{p, n * row, slot, row}, Rows<const T>{p + dkh, n * row, slot, row},
+      Rows<const T>{p + 2 * dkh, n * row, slot, row},
+      attention_wide::Rel<T>{{}, static_cast<const float*>(Rw), static_cast<const float*>(Rh)},
+      static_cast<const int*>(tab), Rows<T>{static_cast<T*>(out), n * orow, dvh, orow},
+      Rows<float>{static_cast<float*>(lse), nh * n, n, 1},
+      attention_wide::Geo{hw, H, W, dkh, dvh, nk, nv}, nh, B, stream);
+}
+
 }  // namespace
 
 // tab: the key table of the map (ops/fused_attention.py::key_table), read by
-// the tensor-core kernel alone.
+// the tensor-core kernels alone. nk, nv: the head's chunk counts
+// (ops/fused_attention.py::width_plan), 1 and 1 for a head its class holds.
 extern "C" int hil_attention_fwd_f32(const void* P, const void* Rw, const void* Rh,
                                      const void* tab, void* out, void* lse, int B, int hw, int H,
-                                     int W, int nh, int slot, int dkh, int dvh, void* stream) {
-  (void)tab;
+                                     int W, int nh, int slot, int dkh, int dvh, int nk, int nv,
+                                     void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return launch_wide<float>(P, Rw, Rh, tab, out, lse, B, hw, H, W, nh, slot, dkh, dvh, nk,
+                                nv, stream);
+  }
   return launch<float>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
 }
 
 extern "C" int hil_attention_fwd_bf16(const void* P, const void* Rw, const void* Rh,
                                       const void* tab, void* out, void* lse, int B, int hw, int H,
-                                      int W, int nh, int slot, int dkh, int dvh, void* stream) {
+                                      int W, int nh, int slot, int dkh, int dvh, int nk, int nv,
+                                      void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return launch_wide<__nv_bfloat16>(P, Rw, Rh, tab, out, lse, B, hw, H, W, nh, slot, dkh, dvh,
+                                        nk, nv, stream);
+  }
   if (!amma::mma_fits(W, H))
     return launch<__nv_bfloat16>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
   if (bad_shape(B, hw, H, W, nh, slot, dkh, dvh) || (Rw == nullptr) != (Rh == nullptr))

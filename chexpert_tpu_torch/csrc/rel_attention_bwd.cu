@@ -22,13 +22,17 @@
 // shares one path.
 //
 // Head widths: this file is built once per width class (KW, VW) of
-// ops/fused_attention.py::width_class (-DATTN_KW, -DATTN_VW; see
-// attention_bwd_mma.cuh) and takes dkh <= KW, dvh <= VW. The tensor-core
-// passes are instantiated for ND = nd_tiles(dkh) n8 tiles of dk / dq; the
-// CUDA-core passes hold q, k, dq, dk DK wide in registers, zero past dkh (DK
-// = KW; DK = dkh = 20, a constant, for the model zoo's width, which keeps
-// its code). In the widest classes those register rows spill to local
-// memory: right, and slow (PERF.md records their times).
+// ops/fused_attention.py::width_plan (-DATTN_KW, -DATTN_VW; see
+// attention_bwd_mma.cuh), whose passes below take dkh <= KW, dvh <= VW. The
+// tensor-core passes are instantiated for ND = nd_tiles(dkh) n8 tiles of dk /
+// dq; the CUDA-core passes hold q, k, dq, dk DK wide in registers, zero past
+// dkh (DK = KW; DK = dkh = 20, a constant, for the model zoo's width, which
+// keeps its code). In the widest classes those register rows spill to local
+// memory: right, and slow (PERF.md records their times). The largest class's
+// library also takes any wider head, in the nk / nv chunks the entries
+// receive: attention_wide.cuh's passes sum S and dp over the chunks in the
+// block and split dk, dv and dq by chunks over the grid (the bins by chunk
+// 0).
 //
 // Two sets of kernels, chosen by the operand dtype:
 //   bf16 (what autocast training hands over): the tensor-core passes of
@@ -67,7 +71,7 @@
 // dkdv double-buffers its query tiles (0.605 -> 0.541 ms at 40x40) and gives
 // a thread two neighbouring keys, whose RC lanes come in one load (-> 0.537).
 
-#include "attention_bwd_mma.cuh"
+#include "attention_wide.cuh"
 
 // ---------------------------------------------------------------------------
 // The bf16 passes dq and dkdv on the tensor cores (attention_bwd_mma.cuh).
@@ -649,22 +653,82 @@ int launch_dq(const void* qr, const void* k, const void* v, const void* dout,
                                    stream);
 }
 
+// A head past the largest width class (attention_wide.cuh): head-major rows,
+// grid (tiles x chunks, bn).
+struct HeadMajor {
+  long long n, L;
+  int bn, dkh, dvh;
+  attention_wide::Geo g;
+  HeadMajor(int bn_, int hw, int H, int W, int dkh_, int dvh_, int nk, int nv)
+      : n(hw), L(dkh_ + W + H), bn(bn_), dkh(dkh_), dvh(dvh_), g{hw, H, W, dkh_, dvh_, nk, nv} {}
+  bool bad() const { return g.hw != g.H * g.W || g.hw < 1 || bn < 1 || bn > 65535; }
+  template <typename T>
+  attention_wide::Rows<T> rows(T* p, long long width) const { return {p, 0, n * width, width}; }
+};
+
+template <typename T>
+int dkdv_wide(const void* qr, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dk, void* dv, const HeadMajor& hm, void* stream) {
+  if (hm.bad()) return static_cast<int>(cudaErrorInvalidValue);
+  const T* q = static_cast<const T*>(qr);
+  return attention_wide::dkdv<T, T>(
+      hm.rows(q, hm.L), hm.rows(static_cast<const T*>(k), hm.dkh),
+      hm.rows(static_cast<const T*>(v), hm.dvh), hm.rows(static_cast<const T*>(dout), hm.dvh),
+      hm.rows(static_cast<const float*>(lse), 1), hm.rows(static_cast<const float*>(delta), 1),
+      hm.rows(q + hm.dkh, hm.L),
+      attention_wide::DkdvOut<T>{hm.rows(static_cast<T*>(dk), hm.dkh),
+                                 hm.rows(static_cast<T*>(dv), hm.dvh), {}, 0},
+      hm.g, hm.bn, 1, stream);
+}
+
+template <typename T>
+int dq_wide(const void* qr, const void* k, const void* v, const void* dout, const void* lse,
+            const void* delta, const void* tab, void* dqr, const HeadMajor& hm, void* stream) {
+  if (hm.bad()) return static_cast<int>(cudaErrorInvalidValue);
+  const T* q = static_cast<const T*>(qr);
+  T* d = static_cast<T*>(dqr);
+  return attention_wide::dq<T>(
+      hm.rows(q, hm.L), hm.rows(static_cast<const T*>(k), hm.dkh),
+      hm.rows(static_cast<const T*>(v), hm.dvh), hm.rows(static_cast<const T*>(dout), hm.dvh),
+      hm.rows(static_cast<const float*>(lse), 1), hm.rows(static_cast<const float*>(delta), 1),
+      attention_wide::Rel<T>{hm.rows(q + hm.dkh, hm.L), nullptr, nullptr},
+      static_cast<const int*>(tab),
+      attention_wide::DqOut<T>{hm.rows(d, hm.L), hm.rows(d + hm.dkh, hm.L), {}, {}}, hm.g, hm.bn,
+      1, stream);
+}
+
 }  // namespace
 
 // The bf16 entries take the tensor-core passes wherever amma::mma_fits (every
-// map up to 64x64); a larger map takes the CUDA-core kernels above.
+// map up to 64x64); a larger map takes the CUDA-core kernels above. nk, nv:
+// the head's chunk counts (ops/fused_attention.py::width_plan), 1 and 1 for a
+// head its class holds; a wider head takes attention_wide.cuh.
 
 extern "C" int rel_attention_bwd_dkdv_f32(const void* qr, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* delta,
                                           void* dk, void* dv, int bn, int hw, int H, int W,
-                                          int dkh, int dvh, void* stream) {
+                                          int dkh, int dvh, int nk, int nv, void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return dkdv_wide<float>(qr, k, v, dout, lse, delta, dk, dv,
+                              HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv), stream);
+  }
   return launch_dkdv<float>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh, stream);
 }
 
 extern "C" int rel_attention_bwd_dkdv_bf16(const void* qr, const void* k, const void* v,
                                            const void* dout, const void* lse, const void* delta,
                                            void* dk, void* dv, int bn, int hw, int H, int W,
-                                           int dkh, int dvh, void* stream) {
+                                           int dkh, int dvh, int nk, int nv, void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return dkdv_wide<__nv_bfloat16>(qr, k, v, dout, lse, delta, dk, dv,
+                                      HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv), stream);
+  }
   if (!amma::mma_fits(W, H))
     return launch_dkdv<__nv_bfloat16>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh,
                                       stream);
@@ -674,19 +738,32 @@ extern "C" int rel_attention_bwd_dkdv_bf16(const void* qr, const void* k, const 
 }
 
 // tab: the key table of the map (ops/fused_attention.py::key_table), read by
-// the tensor-core pass alone.
+// the tensor-core passes alone.
 extern "C" int rel_attention_bwd_dq_f32(const void* qr, const void* k, const void* v,
                                         const void* dout, const void* lse, const void* delta,
                                         const void* tab, void* dqr, int bn, int hw, int H,
-                                        int W, int dkh, int dvh, void* stream) {
-  (void)tab;
+                                        int W, int dkh, int dvh, int nk, int nv, void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return dq_wide<float>(qr, k, v, dout, lse, delta, tab, dqr,
+                            HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv), stream);
+  }
   return launch_dq<float>(qr, k, v, dout, lse, delta, dqr, bn, hw, H, W, dkh, dvh, stream);
 }
 
 extern "C" int rel_attention_bwd_dq_bf16(const void* qr, const void* k, const void* v,
                                          const void* dout, const void* lse, const void* delta,
                                          const void* tab, void* dqr, int bn, int hw, int H,
-                                         int W, int dkh, int dvh, void* stream) {
+                                         int W, int dkh, int dvh, int nk, int nv, void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return dq_wide<__nv_bfloat16>(qr, k, v, dout, lse, delta, tab, dqr,
+                                    HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv), stream);
+  }
   if (!amma::mma_fits(W, H))
     return launch_dq<__nv_bfloat16>(qr, k, v, dout, lse, delta, dqr, bn, hw, H, W, dkh, dvh,
                                     stream);

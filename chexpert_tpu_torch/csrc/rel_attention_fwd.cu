@@ -51,15 +51,19 @@
 // 20, a constant, for the model zoo's width, which keeps its code).
 //
 // Head widths: this file is built once per width class (KW, VW) of
-// ops/fused_attention.py::width_class (-DATTN_KW, -DATTN_VW; see
-// attention_bwd_mma.cuh) and takes dkh <= KW, dvh <= VW.
+// ops/fused_attention.py::width_plan (-DATTN_KW, -DATTN_VW; see
+// attention_bwd_mma.cuh), whose kernels above take dkh <= KW, dvh <= VW. The
+// largest class's library also takes any wider head, in nk = ceil(dkh / KW)
+// and nv = ceil(dvh / VW) chunks that the entries receive and check: the
+// chunked kernels of attention_wide.cuh, S summed over the chunks of dkh in
+// the block, out split by chunks of dvh over the grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "attention_fwd_mma.cuh"
+#include "attention_wide.cuh"
 
 // ---------------------------------------------------------------------------
 // The bf16 forward on the tensor cores (attention_fwd_mma.cuh).
@@ -338,20 +342,54 @@ int launch(const void* qr, const void* k, const void* v, void* out, void* lse, i
   return launch_dk<T, amma::KW>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);
 }
 
+// A head past the largest width class (attention_wide.cuh): head-major rows,
+// grid (tiles x chunks, bn).
+template <typename T>
+int launch_wide(const void* qr, const void* k, const void* v, const void* tab, void* out,
+                void* lse, int bn, int hw, int H, int W, int dkh, int dvh, int nk, int nv,
+                void* stream) {
+  using attention_wide::Rows;
+  if (hw != H * W || hw < 1 || bn < 1 || bn > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = hw, L = dkh + W + H;
+  const T* q = static_cast<const T*>(qr);
+  return attention_wide::fwd<T>(Rows<const T>{q, 0, n * L, L},
+                      Rows<const T>{static_cast<const T*>(k), 0, n * dkh, dkh},
+                      Rows<const T>{static_cast<const T*>(v), 0, n * dvh, dvh},
+                      attention_wide::Rel<T>{{q + dkh, 0, n * L, L}, nullptr, nullptr},
+                      static_cast<const int*>(tab), Rows<T>{static_cast<T*>(out), 0, n * dvh, dvh},
+                      Rows<float>{static_cast<float*>(lse), 0, n, 1},
+                      attention_wide::Geo{hw, H, W, dkh, dvh, nk, nv}, bn, 1, stream);
+}
+
 }  // namespace
 
 // tab: the key table of the map (ops/fused_attention.py::key_table), read by
-// the tensor-core kernel alone.
+// the tensor-core kernels alone. nk, nv: the head's chunk counts
+// (ops/fused_attention.py::width_plan), 1 and 1 for a head its class holds.
 extern "C" int rel_attention_fwd_f32(const void* qr, const void* k, const void* v,
                                      const void* tab, void* out, void* lse, int bn, int hw,
-                                     int H, int W, int dkh, int dvh, void* stream) {
-  (void)tab;
+                                     int H, int W, int dkh, int dvh, int nk, int nv,
+                                     void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return launch_wide<float>(qr, k, v, tab, out, lse, bn, hw, H, W, dkh, dvh, nk, nv, stream);
+  }
   return launch<float>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);
 }
 
 extern "C" int rel_attention_fwd_bf16(const void* qr, const void* k, const void* v,
                                       const void* tab, void* out, void* lse, int bn, int hw,
-                                      int H, int W, int dkh, int dvh, void* stream) {
+                                      int H, int W, int dkh, int dvh, int nk, int nv,
+                                      void* stream) {
+  const int route = attention_wide::route(dkh, dvh, nk, nv);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (attention_wide::BUILT) {
+    if (route > 0)
+      return launch_wide<__nv_bfloat16>(qr, k, v, tab, out, lse, bn, hw, H, W, dkh, dvh, nk, nv,
+                                        stream);
+  }
   if (!amma::mma_fits(W, H))
     return launch<__nv_bfloat16>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);
   if (bad_shape(bn, hw, H, W, dkh, dvh)) return static_cast<int>(cudaErrorInvalidValue);

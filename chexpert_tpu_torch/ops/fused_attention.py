@@ -20,9 +20,13 @@ reference route; a bf16 map past 64x64 also takes the CUDA-core kernels.
 
 Head widths: every attention source (``WIDTH_SOURCES``, both layouts) is
 built once per width class (KW, VW) of ``WIDTH_CLASSES`` (``-DATTN_KW``,
-``-DATTN_VW``), each class at its first use; ``width_class`` sends a head of
-dkh <= KW, dvh <= VW to the smallest class that holds it. Wider heads raise
-ValueError on a CUDA tensor: nothing falls back to the plain route there.
+``-DATTN_VW``), each class at its first use; ``width_plan`` sends a head of
+dkh <= KW, dvh <= VW to the smallest class that holds it, with one chunk of
+each head dimension. A head past the largest class, (128, 64), runs in that
+class's libraries with nk = ceil(dkh / 128) key chunks and nv = ceil(dvh /
+64) value chunks (``csrc/attention_wide.cuh``): the wrappers pass the chunk
+counts to every entry, so any dkh >= 1 and dvh >= 1 launches a kernel on a
+CUDA tensor; only a width below 1 raises ValueError.
 
 ``RelAttention.apply`` is what a model calls: its forward is B1 and its
 backward B2, and it returns the packed cotangent d[q ; RW ; RH] whole, so the
@@ -58,14 +62,25 @@ _BF16_ONE = 0x3F80      # 1.0 in bf16
 
 
 def width_class(dkh: int, dvh: int) -> Tuple[int, int]:
-    """The smallest width class (KW, VW) of WIDTH_CLASSES with dkh <= KW and
-    dvh <= VW: the library whose kernels take a head of these widths."""
-    for kw, vw in WIDTH_CLASSES:
-        if 1 <= dkh <= kw and 1 <= dvh <= vw:
-            return kw, vw
-    raise ValueError(f"no attention kernel takes dkh={dkh}, dvh={dvh}: the width classes "
-                     f"reach dkh {WIDTH_CLASSES[-1][0]} and dvh {WIDTH_CLASSES[-1][1]} "
-                     f"(largest class {WIDTH_CLASSES[-1]})")
+    """The width class (KW, VW) of WIDTH_CLASSES whose library takes a head
+    of these widths: the smallest with dkh <= KW and dvh <= VW, else the
+    largest, which takes wider heads in chunks (``width_plan``)."""
+    if dkh < 1 or dvh < 1:
+        raise ValueError(f"no attention kernel takes dkh={dkh}, dvh={dvh}: head widths "
+                         "start at 1")
+    return next(((kw, vw) for kw, vw in WIDTH_CLASSES if dkh <= kw and dvh <= vw),
+                WIDTH_CLASSES[-1])
+
+
+def width_plan(dkh: int, dvh: int) -> Tuple[Tuple[int, int], int, int]:
+    """(width class, nk, nv): the library of ``width_class`` and the chunks of
+    its widths that cover the head, nk = ceil(dkh / KW) and nv = ceil(dvh /
+    VW), which the wrappers pass to the entries. (1, 1) for a head the class
+    holds; more on either runs ``csrc/attention_wide.cuh``, chunk i of a
+    dimension covering its lanes [i * KW, min((i + 1) * KW, dkh)) (VW for
+    dvh)."""
+    kw, vw = cls = width_class(dkh, dvh)
+    return cls, -(-dkh // kw), -(-dvh // vw)
 
 
 def width_defines(cls: Tuple[int, int]) -> Tuple[str, ...]:
@@ -81,8 +96,8 @@ def width_targets() -> list:
 
 def width_library(name: str, source: str, dkh: int, dvh: int):
     """The loaded library of ``source`` for the width class of (dkh, dvh),
-    built at its first use; a head that no class holds raises ValueError
-    naming the kernel ``name``."""
+    built at its first use; a width below 1 raises ValueError naming the
+    kernel ``name``."""
     try:
         cls = width_class(dkh, dvh)
     except ValueError as e:
@@ -269,7 +284,7 @@ def rel_attention_fwd(qr: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tab = key_table(H, W, qr.device) if on_tensor_cores(qr.dtype, H, W) else None
     kernels.launch(NAME, fn, [None if t is None else t.data_ptr()
                               for t in (qr, k, v, tab, out, lse)],
-                   [bn, hw, H, W, dkh, dvh], qr.device)
+                   [bn, hw, H, W, dkh, dvh, *width_plan(dkh, dvh)[1:]], qr.device)
     return out, lse
 
 
@@ -284,7 +299,8 @@ def rel_attention_bwd_dkdv(qr, k, v, dout, lse, delta, H: int, W: int, dkh: int)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     kernels.launch(BWD_DKDV, fn,
                    [t.data_ptr() for t in (qr, k, v, dout, lse, delta, dk, dv)],
-                   [bn, hw, H, W, dkh, v.shape[-1]], qr.device)
+                   [bn, hw, H, W, dkh, v.shape[-1], *width_plan(dkh, v.shape[-1])[1:]],
+                   qr.device)
     return dk, dv
 
 
@@ -301,7 +317,8 @@ def rel_attention_bwd_dq(qr, k, v, dout, lse, delta, H: int, W: int, dkh: int):
     kernels.launch(BWD_DQ, fn,
                    [None if t is None else t.data_ptr()
                     for t in (qr, k, v, dout, lse, delta, tab, dqr)],
-                   [bn, hw, H, W, dkh, v.shape[-1]], qr.device)
+                   [bn, hw, H, W, dkh, v.shape[-1], *width_plan(dkh, v.shape[-1])[1:]],
+                   qr.device)
     return dqr
 
 

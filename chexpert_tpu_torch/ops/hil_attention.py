@@ -32,7 +32,10 @@ B5 and B6's dkdv and dq passes each have two kernels, chosen by
 whose forward and dq pass compute each query's relative logits by the same
 product; the dq pass leaves them in an f32 scratch that the dkdv pass reads,
 so dq runs first. f32, and bf16 maps past 64x64, run the CUDA-core kernels;
-f32 is the card's reference route.
+f32 is the card's reference route. A head past the largest width class runs
+the kernels of ``csrc/attention_wide.cuh`` in chunks of its widths
+(``fused_attention.width_plan``), whose dkdv pass reads the scratch on both
+routes.
 
 ``HilAttention.apply`` is what a model calls: forward B5, backward B6's
 three passes, returning (dP, dRw, dRh); building Rw / Rh from the embeddings
@@ -53,6 +56,7 @@ from chexpert_tpu_torch.ops.fused_attention import (
     key_table,
     on_tensor_cores,
     width_library,
+    width_plan,
 )
 
 FWD = "hil_attention_fwd"
@@ -247,7 +251,7 @@ def hil_attention_fwd(P0: torch.Tensor, Rw: Optional[torch.Tensor], Rh: Optional
     lse = torch.empty((B, nh, hw), dtype=torch.float32, device=P0.device)
     tab = key_table(H, W, P0.device) if on_tensor_cores(P0.dtype, H, W) else None
     kernels.launch(FWD, fn, [_ptr(t) for t in (P0, Rw, Rh, tab, out, lse)],
-                   [B, hw, H, W, nh, slot, dkh, dvh], P0.device)
+                   [B, hw, H, W, nh, slot, dkh, dvh, *width_plan(dkh, dvh)[1:]], P0.device)
     return out, lse
 
 
@@ -258,40 +262,49 @@ def _check_bwd(P0, nh: int, dvh: int, dout, lse, delta):
                          f"{tuple(delta.shape)} do not match P0 {tuple(P0.shape)}")
 
 
+def _reads_rc(dtype, H: int, W: int, dkh: int, dvh: int) -> bool:
+    """Whether pass 1 reads the queries' RC rows from the scratch of pass 2
+    (with relative logits): on the tensor-core route, and for every head past
+    the largest width class (``width_plan`` with more than one chunk)."""
+    return on_tensor_cores(dtype, H, W) or width_plan(dkh, dvh)[1:] != (1, 1)
+
+
 def hil_attention_bwd_dkdv(P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slot,
                            rc=None) -> None:
     """Pass 1 of B6 on the card: writes the k, v and pad lanes of ``dP``. The
-    tensor-core kernel (``on_tensor_cores``) reads the queries' RC rows
-    from ``rc``, the scratch that pass 2 returns, so pass 2 runs first."""
+    tensor-core kernel (``on_tensor_cores``), and every kernel of a head past
+    the largest width class, reads the queries' RC rows from ``rc``, the
+    scratch that pass 2 returns, so pass 2 runs first."""
     nh = _geometry(P0, Rw, Rh, H, W, dkh, dvh, slot)
     _check_bwd(P0, nh, dvh, dout, lse, delta)
-    if Rw is None or not on_tensor_cores(P0.dtype, H, W):
+    if Rw is None or not _reads_rc(P0.dtype, H, W, dkh, dvh):
         rc = None
     elif rc is None or rc.shape != (P0.shape[0], nh, H * W, W + H):
         raise ValueError(f"{BWD_DKDV}: needs the RC scratch (B, nh, HW, W+H) of "
                          f"{BWD_DQ}, got {None if rc is None else tuple(rc.shape)}")
     fn = _kernel_entry(BWD_DKDV, BWD_SOURCE, (P0, dout, dP), (Rw, Rh, lse, delta, rc), dkh, dvh)
     kernels.launch(BWD_DKDV, fn, [_ptr(t) for t in (P0, Rw, Rh, dout, lse, delta, dP, rc)],
-                   [P0.shape[0], H * W, H, W, nh, slot, dkh, dvh], P0.device)
+                   [P0.shape[0], H * W, H, W, nh, slot, dkh, dvh, *width_plan(dkh, dvh)[1:]],
+                   P0.device)
 
 
 def hil_attention_bwd_dq(P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slot):
     """Pass 2 of B6 on the card: writes the q lanes of ``dP``; returns
     (dRC, RC), both (B, nh, HW, W+H) f32: the dRC rows that pass 3 reads (None
-    without Rw) and the RC rows that the tensor-core pass 1 reads (None
-    without Rw or where the CUDA-core kernels run)."""
+    without Rw) and the RC rows that pass 1 reads (None without Rw, or where
+    the width class's CUDA-core kernels run)."""
     nh = _geometry(P0, Rw, Rh, H, W, dkh, dvh, slot)
     _check_bwd(P0, nh, dvh, dout, lse, delta)
     fn = _kernel_entry(BWD_DQ, BWD_SOURCE, (P0, dout, dP), (Rw, Rh, lse, delta), dkh, dvh)
     shape = (P0.shape[0], nh, H * W, W + H)
     drc = None if Rw is None else torch.empty(shape, dtype=torch.float32, device=P0.device)
-    mma = on_tensor_cores(P0.dtype, H, W)
     rc = (torch.empty(shape, dtype=torch.float32, device=P0.device)
-          if Rw is not None and mma else None)
-    tab = key_table(H, W, P0.device) if mma else None
+          if Rw is not None and _reads_rc(P0.dtype, H, W, dkh, dvh) else None)
+    tab = key_table(H, W, P0.device) if on_tensor_cores(P0.dtype, H, W) else None
     kernels.launch(BWD_DQ, fn,
                    [_ptr(t) for t in (P0, Rw, Rh, dout, lse, delta, tab, dP, drc, rc)],
-                   [P0.shape[0], H * W, H, W, nh, slot, dkh, dvh], P0.device)
+                   [P0.shape[0], H * W, H, W, nh, slot, dkh, dvh, *width_plan(dkh, dvh)[1:]],
+                   P0.device)
     return drc, rc
 
 
@@ -307,7 +320,7 @@ def hil_attention_bwd_drel(P0, drc, H: int, W: int, dkh: int, slot: int, dvh: in
     fn = _kernel_entry(BWD_DREL, BWD_SOURCE, (P0,), (drc,), dkh, dvh, W, H)
     part = torch.empty((B, dkh * (W * W + H * H)), dtype=torch.float32, device=P0.device)
     kernels.launch(BWD_DREL, fn, [_ptr(t) for t in (P0, drc, part)],
-                   [B, hw, H, W, nh, slot, dkh], P0.device)
+                   [B, hw, H, W, nh, slot, dkh, width_plan(dkh, dvh)[1]], P0.device)
     dR = part.sum(0)
     return dR[:dkh * W * W].view(W * dkh, W), dR[dkh * W * W:].view(H * dkh, H)
 

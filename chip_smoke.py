@@ -166,9 +166,12 @@ Run from the root of a checkout. Phases, each failing the run on error:
    bf16 device times beside bound, plain version and library call; then
    the four attention kernels and every pass at each head-width class
    (WIDTH_GEOS: (dkh, dvh) = (24, 8), (26, 8), (32, 16), (20, 16), (64, 32)
-   at 16x16 and 8x8, (128, 64) at 8x8; batch 256 x 2 heads), f32 and bf16
-   against the plain versions at the same bounds, both dtypes timed beside
-   the bound at the real widths, the plain version and the library call; then
+   at 16x16 and 8x8, (128, 64) at 8x8) and past the largest class, in
+   chunks of the head dimensions ((160, 64) at 16x16, (320, 128) and the
+   ragged (150, 75) at 8x8, (512, 256) at 1x1), batch 256 x 2 heads, f32 and
+   bf16 against the plain versions at the same bounds, both dtypes timed
+   beside the bound at the real widths, the plain version and the library
+   call; then
    each AA conv and stride-1 depthwise conv of those models alone, f32,
    kernel route against plain route on its captured input and upstream
    gradient within GRAD_TOL (bench_layer_phase); then the runs through
@@ -178,10 +181,13 @@ Run from the root of a checkout. Phases, each failing the run on error:
    B1 or B5 per eval forward; none on the capture), resnet 50 --attn,
    densenet 12 100 --attn and efficientnet b0 for 4 steps (13, 2 and 12
    layers' launches per step, counted from the models), wideresnet 28 10
-   --attn --attn_nh 2 (heads (32, 16) at 16x16 and (64, 32) at 8x8) as the
-   first under bn and hil, and --attn_k 0.33 (dkh 26) for 2 steps under bn,
-   each with its per-layer f32 gate; ms/step, device ms per step and busy
-   share (profiler), img/s, peak memory.
+   --attn --attn_nh 2 (heads (32, 16) at 16x16 and (64, 32) at 8x8) and
+   --attn_k 0.5 --attn_v 0.2 --attn_nh 1 (heads (160, 64) and (320, 128),
+   past the largest class) as the first under bn and hil, --attn_k 0.33
+   (dkh 26) and --attn_k 1.0 --attn_v 0.5 --attn_nh 1 (heads (320, 160) and
+   (640, 320)) for 2 steps under bn, each with its per-layer f32 gate;
+   ms/step, device ms per step and busy share (profiler), img/s, peak
+   memory.
 20. the fast input path on phase 5's model and fixture: cli.chexpert.main
    with --packed_cache, with --packed_cache --data_aug --device_aug (the
    crop in the train step) and with --packed_cache --profile over 8 steps
@@ -2135,14 +2141,23 @@ BENCH_SHORT_EPOCHS = 2                      # --synthetic: 512 train images, 2 s
 BENCH_WRN_NH2 = (*BENCH_WRN, "--attn_nh", "2")
 BENCH_WRN_RAGGED = (*BENCH_WRN, "--attn_k", "0.33")
 BENCH_RAGGED_STEPS = 2
+# heads past the largest width class (ROADMAP C.18), which the kernels take
+# in chunks of the head dimensions: (160, 64) at 16x16 and (320, 128) at
+# 8x8, trained as BENCH_WRN is; (320, 160) and (640, 320) for
+# BENCH_RAGGED_STEPS steps under bn
+BENCH_WRN_WIDE = (*BENCH_WRN, "--attn_k", "0.5", "--attn_v", "0.2", "--attn_nh", "1")
+BENCH_WRN_WIDER = (*BENCH_WRN, "--attn_k", "1.0", "--attn_v", "0.5", "--attn_nh", "1")
 # the kernels at every head-width class, batch 256 x 2 heads (the --attn_nh 2
 # bench's B*nh): (H, W, dvh, dkh), the --attn_k 0.3 / 0.33, --attn_nh 4 and
 # --attn_v 0.2 heads at 16x16 and 8x8, --attn_nh 2's at both, --attn_nh 1's
-# widest at 8x8
+# widest at 8x8; then heads past the largest class: BENCH_WRN_WIDE's at
+# their maps, densenet 12 100's ragged (150, 75) and resnet 50's (512, 256)
+# under --attn_k 1.0 --attn_v 0.5 --attn_nh 1
 WIDTH_NH = 2
 WIDTH_GEOS = tuple((n, n, dvh, dkh)
                    for dkh, dvh in ((24, 8), (26, 8), (32, 16), (20, 16), (64, 32))
                    for n in (16, 8)) + ((8, 8, 64, 128),)
+WIDE_GEOS = ((16, 16, 64, 160), (8, 8, 128, 320), (8, 8, 75, 150), (1, 1, 256, 512))
 
 
 def bench_model(argv):
@@ -2208,7 +2223,7 @@ def bench_attention_rows(geos, nh=NH, time_f32=False):
         rel_attention_bwd_plain,
         rel_attention_fwd,
         rel_attention_fwd_plain,
-        width_class,
+        width_plan,
     )
     from chexpert_tpu_torch.ops.hil_attention import (
         hil_attention_bwd,
@@ -2228,8 +2243,9 @@ def bench_attention_rows(geos, nh=NH, time_f32=False):
         hw, bn = H * W, batch * nh
         for dtype in (torch.float32, torch.bfloat16):
             timed = dtype == torch.bfloat16 or time_f32
+            cls, nk, nv = width_plan(dkh, dvh)
             row = {"geometry": f"{H}x{W}", "H": H, "W": W, "dvh": dvh, "dkh": dkh, "bn": bn,
-                   "width_class": width_class(dkh, dvh),
+                   "width_class": cls, "chunks": (nk, nv),
                    "dtype": str(dtype).replace("torch.", ""),
                    "tensor_cores": on_tensor_cores(dtype, H, W)}
             # head-major: B1, B2
@@ -2345,7 +2361,8 @@ def bench_attention_rows(geos, nh=NH, time_f32=False):
                          f"{row['b6']['dkdv']['ms']:.4f} drel {row['b6']['drel']['ms']:.4f} "
                          f"(bound of the whole {row['b6']['whole']['bound_ms']:.5f})")
             print(f"kernel bench attention {H}x{W} dkh={dkh} dvh={dvh} bn={bn} {row['dtype']} "
-                  f"(class {row['width_class']}, tensor cores {row['tensor_cores']}): B1 err "
+                  f"(class {row['width_class']}, chunks {row['chunks']}, tensor cores "
+                  f"{row['tensor_cores']}): B1 err "
                   f"{ {n: float(f'{e:.3g}') for n, e in b1_err.items()} } B5 err "
                   f"{ {n: float(f'{e:.3g}') for n, e in b5_err.items()} } (tol {TOL[dtype]}); "
                   f"B2 rel err { {n: float(f'{e:.3g}') for n, e in b2_err.items()} } B6 rel err "
@@ -2675,7 +2692,8 @@ def bench_phase(smi: str) -> dict:
     from chexpert_tpu_torch.ops.hil_attention import FWD as HIL_FWD
 
     geos = {}
-    for argv in (BENCH_WRN, *BENCH_SHORT, BENCH_WRN_NH2, BENCH_WRN_RAGGED):
+    for argv in (BENCH_WRN, *BENCH_SHORT, BENCH_WRN_NH2, BENCH_WRN_RAGGED, BENCH_WRN_WIDE,
+                 BENCH_WRN_WIDER):
         _, aa, dw = bench_model(argv)
         geos[" ".join(argv)] = {"aa": aa, "dw": dw}
     # the rows at NH heads: the default models' geometries (the wider heads'
@@ -2686,11 +2704,13 @@ def bench_phase(smi: str) -> dict:
     print(f"bench geometries at {BENCH_IMAGE}x{BENCH_IMAGE}, batch {BENCH_BATCH}: {geos}",
           flush=True)
     for argv, want in ((BENCH_WRN_NH2, {(16, 16, 16, 32), (8, 8, 32, 64)}),
-                       (BENCH_WRN_RAGGED, {(16, 16, 4, 20), (8, 8, 8, 26)})):
+                       (BENCH_WRN_RAGGED, {(16, 16, 4, 20), (8, 8, 8, 26)}),
+                       (BENCH_WRN_WIDE, {(16, 16, 64, 160), (8, 8, 128, 320)}),
+                       (BENCH_WRN_WIDER, {(16, 16, 160, 320), (8, 8, 320, 640)})):
         if set(geos[" ".join(argv)]["aa"]) != want:
             raise AssertionError(f"{argv}: AA convs {geos[' '.join(argv)]['aa']} are not {want}")
     attn_rows = bench_attention_rows(attn_geos)
-    width_rows = bench_attention_rows(WIDTH_GEOS, nh=WIDTH_NH, time_f32=True)
+    width_rows = bench_attention_rows(WIDTH_GEOS + WIDE_GEOS, nh=WIDTH_NH, time_f32=True)
     dw_rows = bench_depthwise_rows(dw_geos)
 
     def launches(argv, layout):
@@ -2704,18 +2724,19 @@ def bench_phase(smi: str) -> dict:
                 {NAME: 1, BWD_DKDV: 1, BWD_DQ: 1})
 
     cases = ([(BENCH_WRN, "bn"), (BENCH_WRN, "hil")] + [(a, "bn") for a in BENCH_SHORT]
-             + [(BENCH_WRN_NH2, "bn"), (BENCH_WRN_NH2, "hil"), (BENCH_WRN_RAGGED, "bn")])
+             + [(BENCH_WRN_NH2, "bn"), (BENCH_WRN_NH2, "hil"), (BENCH_WRN_RAGGED, "bn"),
+                (BENCH_WRN_WIDE, "bn"), (BENCH_WRN_WIDE, "hil"), (BENCH_WRN_WIDER, "bn")])
     layers = {f"{' '.join(a)} {lay}": bench_layer_phase(a, lay, launches(a, lay)[2])
               for a, lay in cases}
     runs = {}
     for argv, layout in cases:
         per_step, per_eval, _ = launches(argv, layout)
-        if argv == BENCH_WRN_RAGGED:
+        if argv in (BENCH_WRN_RAGGED, BENCH_WRN_WIDER):
             runs[f"{' '.join(argv)} {layout}"] = bench_run(
                 argv, layout, smi, per_step, per_eval, BENCH_RAGGED_STEPS,
                 extra=("--mini_data", "--n_epochs", str(BENCH_RAGGED_STEPS),
                        "--lr_warmup_epochs", "0"), profile_steps=(1, 2))
-        elif argv in (BENCH_WRN, BENCH_WRN_NH2):
+        elif argv in (BENCH_WRN, BENCH_WRN_NH2, BENCH_WRN_WIDE):
             runs[f"{' '.join(argv)} {layout}"] = bench_run(
                 argv, layout, smi, per_step, per_eval, BENCH_WRN_STEPS,
                 extra=("--mini_data", "--n_epochs", str(BENCH_WRN_STEPS), "--lr_warmup_epochs",
@@ -3237,7 +3258,8 @@ def main() -> int:
             lib = t.get("library_ms") if library is None else r[library[0]][library[1]]
             err = r[part].get("abs_err") or r[part].get("rel_err")
             calls.append({"geometry": r["geometry"], "dkh": r["dkh"], "dvh": r["dvh"],
-                          "bn": r["bn"], "width_class": r["width_class"], "dtype": r["dtype"],
+                          "bn": r["bn"], "width_class": r["width_class"], "chunks": r["chunks"],
+                          "dtype": r["dtype"],
                           "tensor_cores": r["tensor_cores"], "ms": t["ms"],
                           "plain_ms": t.get("plain_ms", plain and r[plain[0]][plain[1]]),
                           "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -215,7 +215,7 @@ def _bn_count(model, name, x):
     return seen["n"]
 
 
-@pytest.mark.parametrize("dkh,dvh", [(20, 4), *WIDTHS, (128, 64)])
+@pytest.mark.parametrize("dkh,dvh", [(20, 4), *WIDTHS, (128, 64), (160, 64), (150, 75)])
 def test_backward_bounds_count_each_operand_once(monkeypatch, dkh, dvh):
     """B2 and B6's bounds (chip_smoke.py ``b2_bounds`` / ``b6_bounds``) at the
     real head widths: the whole backward moves its operands (B2: qr, k, v,

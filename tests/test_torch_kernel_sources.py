@@ -7,7 +7,7 @@ file the wrapper loads, every ``#include "x.cuh"`` names a file that exists,
 constants that a wrapper repeats agree with the source (the head-width
 classes among them), the attention entries take their pointers in the order
 the wrappers pass them, and no pass adds through an atomic. ``width_class``
-is held to the head widths the bench's flags reach."""
+and ``width_plan`` are held to the head widths the bench's flags reach."""
 
 import re
 
@@ -89,13 +89,14 @@ def _params(text: str, entry: str) -> list:
 
 @pytest.mark.parametrize("suffix", ["f32", "bf16"])
 @pytest.mark.parametrize("name,params", [
-    (fused_attention.NAME, "qr k v tab out lse bn hw H W dkh dvh stream"),
-    (hil_attention.FWD, "P Rw Rh tab out lse B hw H W nh slot dkh dvh stream"),
+    (fused_attention.NAME, "qr k v tab out lse bn hw H W dkh dvh nk nv stream"),
+    (hil_attention.FWD, "P Rw Rh tab out lse B hw H W nh slot dkh dvh nk nv stream"),
 ])
 def test_forward_entries_take_the_key_table(name, params, suffix):
     """Both forwards take the key table's pointer after their operands, as
     ``rel_attention_fwd`` / ``hil_attention_fwd`` pass it (None off the
-    tensor-core route)."""
+    tensor-core route), and the head's chunk counts of ``width_plan`` after
+    its widths."""
     text = (kernels.CSRC_DIR / f"{name}.cu").read_text()
     assert _params(text, f"{name}_{suffix}") == params.split()
 
@@ -200,12 +201,21 @@ def test_width_class_holds_every_head_the_bench_flags_reach(flags, head):
     assert not any(head[0] <= c[0] and head[1] <= c[1] for c in smaller)
 
 
-@pytest.mark.parametrize("dkh,dvh", [(129, 8), (20, 65), (320, 160), (0, 8), (20, 0)])
-def test_width_class_refuses_heads_past_the_largest_class(dkh, dvh):
-    """``--attn_k 0.5 --attn_nh 1`` gives dkh 320: no class holds it, and the
-    error names both widths and the largest class."""
-    with pytest.raises(ValueError, match=rf"dkh={dkh}, dvh={dvh}.*\(128, 64\)"):
+@pytest.mark.parametrize("dkh,dvh,nk,nv", [(129, 8, 2, 1), (20, 65, 1, 2), (320, 160, 3, 3)])
+def test_width_plan_holds_heads_past_the_largest_class(dkh, dvh, nk, nv):
+    """``--attn_k 0.5 --attn_nh 1`` gives dkh 320: the largest class's library
+    takes it, in ceil(dkh / 128) key chunks and ceil(dvh / 64) value chunks."""
+    assert fused_attention.width_class(dkh, dvh) == fused_attention.WIDTH_CLASSES[-1] == (128, 64)
+    assert fused_attention.width_plan(dkh, dvh) == ((128, 64), nk, nv)
+
+
+@pytest.mark.parametrize("dkh,dvh", [(0, 8), (20, 0)])
+def test_width_class_refuses_widths_below_one(dkh, dvh):
+    """No head has a width below 1: the error names both widths."""
+    with pytest.raises(ValueError, match=rf"dkh={dkh}, dvh={dvh}"):
         fused_attention.width_class(dkh, dvh)
+    with pytest.raises(ValueError, match=rf"dkh={dkh}, dvh={dvh}"):
+        fused_attention.width_plan(dkh, dvh)
 
 
 @pytest.mark.parametrize("source", sorted(

@@ -22,8 +22,10 @@ to 64x64 and the CUDA-core kernels past it; the forwards are held at more
 ragged maps on both routes (FWD_GEOMETRIES). Every head-width class of
 ``fused_attention.WIDTH_CLASSES`` is held at the widths the JAX package's
 models reach (WIDTHS: dkh 24, 26, 32, 20, 64, 128 with dvh up to 64, ragged
-dkh and dvh included) on both layouts and both routes, and widths past the
-largest class raise ValueError."""
+dkh and dvh included) on both layouts and both routes, heads past the
+largest class (WIDE_CASES: the chunked kernels of ``csrc/attention_wide.cuh``,
+dkh up to 512 and dvh up to 256, ragged widths included) likewise, and widths
+below 1 raise ValueError."""
 
 import os
 
@@ -46,6 +48,7 @@ from chexpert_tpu_torch.ops.fused_attention import (
     BWD_DKDV,
     BWD_DQ,
     NAME,
+    WIDTH_CLASSES,
     RelAttention,
     on_tensor_cores,
     rel_attention_bwd,
@@ -53,6 +56,7 @@ from chexpert_tpu_torch.ops.fused_attention import (
     rel_attention_fwd,
     rel_attention_fwd_plain,
     width_class,
+    width_plan,
 )
 
 from chexpert_tpu_torch.ops.hil_attention import (
@@ -198,8 +202,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         rel_attention_fwd(qr.half(), k.half(), v.half(), 6, 5, 20)
     with pytest.raises(ValueError, match="contiguous"):
         rel_attention_fwd(qr.transpose(0, 1).contiguous().transpose(0, 1), k, v, 6, 5, 20)
-    with pytest.raises(ValueError, match="dvh=65"):  # past the largest width class
-        rel_attention_fwd(qr, k, torch.zeros(2, 30, 65, device="cuda"), 6, 5, 20)
+    with pytest.raises(ValueError, match="dvh=0"):  # no head width below 1
+        rel_attention_fwd(qr, k, torch.zeros(2, 30, 0, device="cuda"), 6, 5, 20)
 
 
 def _rel(got, want):
@@ -402,9 +406,9 @@ def test_hil_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         hil_attention_fwd(P0.transpose(0, 1).contiguous().transpose(0, 1), Rw, Rh,
                           6, 5, 20, 3, 48)
-    wide = torch.zeros(1, 30, 2 * 264, device="cuda")  # dkh 129: past the largest class
-    with pytest.raises(ValueError, match="dkh=129"):
-        hil_attention_fwd(wide, None, None, 6, 5, 129, 3, 264)
+    empty = torch.zeros(1, 30, 2 * 264, device="cuda")  # dkh 0: no head width below 1
+    with pytest.raises(ValueError, match="dkh=0"):
+        hil_attention_fwd(empty, None, None, 6, 5, 0, 3, 264)
 
 
 def _check_close(name, got, want, tol, scale_by_max):
@@ -414,16 +418,10 @@ def _check_close(name, got, want, tol, scale_by_max):
     assert err <= tol * scale, (name, err, scale)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("layout", ["bn", "hil"])
-@pytest.mark.parametrize("B,nh,H,W", WIDTH_MAPS)
-@pytest.mark.parametrize("dkh,dvh", WIDTHS)
-def test_kernels_match_plain_at_every_width_class(cuda, dkh, dvh, B, nh, H, W, layout, dtype):
-    """B1 / B5 and every backward pass of B2 / B6 at the width (dkh, dvh),
-    which the library of its class (width_class) runs, against the plain
-    versions: out and lse within TOL, the gradients within BWD_TOL."""
-    cls = width_class(dkh, dvh)
-    assert dkh <= cls[0] and dvh <= cls[1]
+def _match_plain(dkh, dvh, B, nh, H, W, layout, dtype):
+    """B1 / B5 and every backward pass of B2 / B6 at the head (dkh, dvh) and
+    map against the plain versions: out and lse within TOL, the gradients
+    within BWD_TOL, one launch of each kernel, the pad lanes of dP zero."""
     dout_gen = torch.Generator().manual_seed(1)
     kernels.reset_launch_counts()
     if layout == "bn":
@@ -455,10 +453,48 @@ def test_kernels_match_plain_at_every_width_class(cuda, dkh, dvh, B, nh, H, W, l
         _check_close(name, g, w, BWD_TOL[dtype], True)
 
 
-@pytest.mark.parametrize("dkh,dvh", [(129, 8), (20, 65), (0, 4), (20, 0)])
-def test_widths_past_the_classes_raise(cuda, dkh, dvh):
-    """A head no width class holds raises ValueError on the card, naming its
-    widths; nothing falls back to the plain route."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["bn", "hil"])
+@pytest.mark.parametrize("B,nh,H,W", WIDTH_MAPS)
+@pytest.mark.parametrize("dkh,dvh", WIDTHS)
+def test_kernels_match_plain_at_every_width_class(cuda, dkh, dvh, B, nh, H, W, layout, dtype):
+    """B1 / B5 and every backward pass of B2 / B6 at the width (dkh, dvh),
+    which the library of its class (width_class) runs, against the plain
+    versions: out and lse within TOL, the gradients within BWD_TOL."""
+    cls = width_class(dkh, dvh)
+    assert dkh <= cls[0] and dvh <= cls[1]
+    _match_plain(dkh, dvh, B, nh, H, W, layout, dtype)
+
+
+# heads past the largest width class, ((dkh, dvh), (B, nh, H, W)): the bench's
+# --attn_k 0.5 --attn_v 0.2 --attn_nh 1 heads at their maps, the densenet
+# bench's ragged (150, 75), resnet's (512, 256) at 1x1, one chunk past the
+# class in each width alone, (256, 128) at 64x64 (the largest map on the
+# tensor cores: each wide pass's shared memory at its peak) and a map past the
+# tensor-core rule (the CUDA-core kernels in bf16)
+WIDE_CASES = [((160, 64), (1, 2, 16, 16)), ((320, 128), (2, 1, 8, 8)),
+              ((150, 75), (1, 2, 8, 8)), ((512, 256), (2, 2, 1, 1)),
+              ((129, 8), (1, 2, 5, 7)), ((20, 65), (2, 1, 9, 9)),
+              ((256, 128), (1, 1, 64, 64)), ((160, 64), (1, 1, 72, 72))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["bn", "hil"])
+@pytest.mark.parametrize("head,geo", WIDE_CASES, ids=lambda x: "x".join(map(str, x)))
+def test_wide_heads_match_plain(cuda, head, geo, layout, dtype):
+    """A head past the largest width class runs in its library in chunks
+    (width_plan: nk or nv above 1) and matches the plain versions as the
+    classes do, on both layouts and both routes."""
+    dkh, dvh = head
+    cls, nk, nv = width_plan(dkh, dvh)
+    assert cls == WIDTH_CLASSES[-1] and (nk, nv) != (1, 1)
+    _match_plain(dkh, dvh, *geo, layout, dtype)
+
+
+@pytest.mark.parametrize("dkh,dvh", [(0, 4), (20, 0)])
+def test_widths_below_one_raise(cuda, dkh, dvh):
+    """A head width below 1 raises ValueError on the card, naming its widths;
+    nothing falls back to the plain route."""
     with pytest.raises(ValueError):
         width_class(dkh, dvh)
     kernels.reset_launch_counts()
