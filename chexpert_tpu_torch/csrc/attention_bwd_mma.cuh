@@ -38,11 +38,10 @@
 // ops/fused_attention.py::width_plan is its own library, compiled with
 // -DATTN_KW=KW -DATTN_VW=VW, and takes every dkh <= KW and dvh <= VW, passed at
 // run time, in the kernels of the .cu files; a head past the largest class
-// runs in that class's library in chunks of KW / VW lanes (attention_wide.cuh,
-// which sums S and dp over the chunks into the same fragments and finishes a
-// tile with the pieces of the steps: fwd_logits / fwd_softmax, dq_ds /
-// dq_accumulate, dkdv_ds / dkdv_accumulate). Padding lives in shared memory
-// only: dkh -> KW as a contraction
+// runs in that class's library (attention_wide.cuh: the forward in chunks of
+// KW / VW lanes, finishing a tile with fwd_logits / fwd_softmax; the backward
+// passes with their own tiles over the whole head). Padding lives in shared
+// memory only: dkh -> KW as a contraction
 // (KW / 16 k16 steps) and -> 8 * ND as an output width (ND n8 tiles), dvh -> VW
 // as a width (VW / 8 n8 tiles) and -> 16 as a contraction where VW is 8 (the
 // upper half of the fragment is the constant 0), ragged token tails as zero
@@ -540,11 +539,12 @@ __device__ __forceinline__ void dq_dump(const DqWarp<NBT, ND>& st, float* dq_s, 
   }
 }
 
-// The warp's bins into shared memory: bin_s (rows x bin_stride, [dRC_w (W) |
-// dRC_h (H)]).
-template <int NBT, int ND>
-__device__ __forceinline__ void bins_dump(const DqWarp<NBT, ND>& st, float* bin_s, int bin_stride,
-                                          int W, int H, int nbw, int warp, int lane) {
+// A warp's bins (NBT 8-wide tiles: ceil(W/8) of image columns, then rows)
+// into shared memory: bin_s (rows x bin_stride, [dRC_w (W) | dRC_h (H)]).
+template <int NBT>
+__device__ __forceinline__ void bins_store(const float (&bins)[NBT][4], float* bin_s,
+                                           int bin_stride, int W, int H, int nbw, int warp,
+                                           int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;
 #pragma unroll
@@ -555,14 +555,20 @@ __device__ __forceinline__ void bins_dump(const DqWarp<NBT, ND>& st, float* bin_
     float* b0 = bin_s + r0 * bin_stride + (is_col ? 0 : W);
     float* b1 = b0 + 8 * bin_stride;
     if (idx < lim) {
-      b0[idx] = st.bins[nb][0];
-      b1[idx] = st.bins[nb][2];
+      b0[idx] = bins[nb][0];
+      b1[idx] = bins[nb][2];
     }
     if (idx + 1 < lim) {
-      b0[idx + 1] = st.bins[nb][1];
-      b1[idx + 1] = st.bins[nb][3];
+      b0[idx + 1] = bins[nb][1];
+      b1[idx + 1] = bins[nb][3];
     }
   }
+}
+
+template <int NBT, int ND>
+__device__ __forceinline__ void bins_dump(const DqWarp<NBT, ND>& st, float* bin_s, int bin_stride,
+                                          int W, int H, int nbw, int warp, int lane) {
+  bins_store(st.bins, bin_s, bin_stride, W, H, nbw, warp, lane);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,49 +1,48 @@
 // Heads wider than the largest width class: the four attention kernels of
 // both layouts (B1 / B2 head-major, B5 / B6 heads-in-lanes) for any dkh and
-// dvh, with the head dimensions looped over in chunks, for sm_90a.
+// dvh, for sm_90a.
 //
 // A width class (KW, VW) of ops/fused_attention.py::width_plan takes a head
 // of dkh <= KW, dvh <= VW in its own kernels. A head past the largest class,
 // (128, 64), runs in that class's libraries on the kernels of this header,
 // with nk = ceil(dkh / KW) key chunks and nv = ceil(dvh / VW) value chunks
-// passed at run time (the entries check them against dkh and dvh). Two kinds
-// of loop:
-//   - A contraction over a head dimension loops inside the block. S = q k^T
-//     sums over the nk chunks of dkh and dp = dout v^T over the nv chunks of
-//     dvh, into the same accumulator fragments (tensor cores) or registers
-//     (CUDA cores) as the class's kernels: chunk by chunk, both operands are
-//     staged through the class's tiles (KW or VW columns, zero past the
-//     head's width) and multiplied. The relative logits are added once, after
-//     the last chunk.
-//   - An output width splits over chunks on the grid's x axis, next to the
-//     token tiles: each block recomputes S and p for its own output columns.
-//     The forwards split out (dvh); pass dq splits dq (dkh), and its chunk 0
-//     alone writes the bins (dRW / dRH lanes, or the dRC scratch) and the RC
-//     scratch; pass dkdv splits dk and dv (chunk c writes dk chunk c where c <
-//     nk and dv chunk c where c < nv) and its chunk 0 writes the zero pad
-//     lanes of a slot. lse is written by the forward's chunk 0.
+// passed at run time (the entries check them against dkh and dvh).
+//
+// The forward (fwd_mma_kernel, fwd_core_kernel) and the CUDA-core backward
+// passes loop over the head dimensions in chunks: a contraction (S = q k^T
+// over dkh, dp = dout v^T over dvh) sums the chunks in the block, staged
+// through the class's tiles (KW or VW columns, or CW = 32 on the CUDA cores)
+// by 2-byte loads with zero fill; an output width splits over chunks on the
+// grid's x axis, next to the token tiles, and each block recomputes S and p
+// for its own output columns. The forward's chunk 0 writes lse; the CUDA-core
+// pass dq's chunk 0 writes the bins and the RC scratch, pass dkdv's the pad
+// lanes of a slot.
+//
+// The bf16 backward passes on the tensor cores (maps up to amma::mma_fits)
+// do not: a block computes S, dp, p and ds once per tile pair over the whole
+// head width and feeds every output column of its group from them, with
+// each operand row staged once per tile pair by cp.async into two buffers
+// (see "The backward passes on the tensor cores" below).
 // One launch per call, and every block owns what it writes: no atomics.
 //
 // The relative logits: head-major, the RW / RH lanes of each query's qr row;
 // heads-in-lanes, RC[t, m] = sum_d q[t, d] Rw[(col(t), d), m] (and rows with
 // Rh) summed over all of dkh in f32 on the CUDA cores, by the one function
-// (rc_rows) that the forward and pass dq both call, so the backward's p =
+// (rc_at) that the forward and pass dq both call, so the backward's p =
 // exp(S - lse) sees the forward's S. Pass dq leaves those rows in the rc
 // scratch, which pass dkdv reads on both routes (it is the only way pass
 // dkdv sees RC here). The relative part of dq, sum_m dRC[t, m] Rw[(col(t),
 // d), m], is summed on the CUDA cores from the block's bins.
 //
-// Two routes, as in the classes: bf16 maps up to amma::mma_fits run the
-// tensor-core kernels below (the class's tiles: TN x KS and TN x VS, S and
-// dp in mma.sync fragments; fwd_update, dq_ds / dq_accumulate and dkdv_ds /
-// dkdv_accumulate of attention_fwd_mma.cuh / attention_bwd_mma.cuh do the
-// rest of a tile, as in the class's kernels), f32 and larger maps the CUDA-core kernels, which
-// stage CW = 32 columns at a time and split their outputs by CW, not by the
-// class's widths: their rows of dk, dv, dq and out stay CW registers wide
-// and do not spill. Every tile is staged by 2-byte loads with zero fill,
-// which takes ragged widths, odd slot offsets and unaligned rows alike.
-// Simple and right: each chunk is restaged once per tile of the other side,
-// and every output chunk recomputes S (PERF.md has their times).
+// Routes, as in the classes: bf16 maps up to amma::mma_fits run the
+// tensor-core kernels (the forward on the class's tiles with fwd_update of
+// attention_fwd_mma.cuh; the backward passes below), f32 and larger maps the
+// CUDA-core kernels, which stage CW = 32 columns at a time and split their
+// outputs by CW: their rows of dk, dv, dq and out stay CW registers wide.
+// A bf16 head whose rows do not fit the tensor-core passes' shared memory
+// (dkh + dvh past about 1150) takes the CUDA-core passes too: the host plans
+// each tensor-core pass (ops/fused_attention.py::wide_bwd_plan) and passes
+// the plan in, which tc_plan checks (WidePlan).
 
 #pragma once
 
@@ -133,6 +132,27 @@ __device__ __forceinline__ void stage(D* dst, int ds, const Rows<const T>& src, 
   }
 }
 
+// Lane c of the RC row of token t (< hw) of grid cell (z, y): the qr lane
+// (head-major), or sum_d q[t, d] Rw[(col(t), d), c] (Rh past W) in f32,
+// d in order (heads-in-lanes), or zero without relative logits.
+template <typename T>
+__device__ __forceinline__ float rc_at(const Rel<T>& rel, const Rows<const T>& q, int z, int y,
+                                       int t, int c, const Geo& g) {
+  float s = 0.f;
+  if (rel.lanes.p != nullptr) {
+    s = to_f(rel.lanes.row(z, y, t)[c]);
+  } else if (rel.Rw != nullptr) {
+    const T* qt = q.row(z, y, t);
+    const bool is_w = c < g.W;
+    const float* base = is_w ? rel.Rw + static_cast<size_t>(t % g.W) * g.dkh * g.W + c
+                             : rel.Rh + static_cast<size_t>(t / g.W) * g.dkh * g.H + c - g.W;
+    const int stride = is_w ? g.W : g.H;
+    for (int d = 0; d < g.dkh; ++d)
+      s = fmaf(to_f(qt[d]), __ldg(base + static_cast<size_t>(d) * stride), s);
+  }
+  return s;
+}
+
 // The RC rows of tokens q0 .. q0 + rows - 1 into rel_s (f32, row stride
 // rel_stride, W + H lanes): zero past hw and without relative logits.
 template <typename T>
@@ -142,19 +162,7 @@ __device__ __forceinline__ void rc_rows(float* rel_s, int rel_stride, const Rel<
   const int WH = g.W + g.H;
   for (int e = tid; e < rows * WH; e += nthreads) {
     const int r = e / WH, c = e - r * WH, t = q0 + r;
-    float s = 0.f;
-    if (t < g.hw && rel.lanes.p != nullptr) {
-      s = to_f(rel.lanes.row(z, y, t)[c]);
-    } else if (t < g.hw && rel.Rw != nullptr) {
-      const T* qt = q.row(z, y, t);
-      const bool is_w = c < g.W;
-      const float* base = is_w ? rel.Rw + static_cast<size_t>(t % g.W) * g.dkh * g.W + c
-                               : rel.Rh + static_cast<size_t>(t / g.W) * g.dkh * g.H + c - g.W;
-      const int stride = is_w ? g.W : g.H;
-      for (int d = 0; d < g.dkh; ++d)
-        s = fmaf(to_f(qt[d]), __ldg(base + static_cast<size_t>(d) * stride), s);
-    }
-    rel_s[r * rel_stride + c] = s;
+    rel_s[r * rel_stride + c] = t < g.hw ? rc_at(rel, q, z, y, t, c, g) : 0.f;
   }
 }
 
@@ -249,221 +257,677 @@ fwd_mma_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rel<T> rel,
             q0 + warp * 16 + gl, g.hw, nvc, lane);
 }
 
-// Pass dq: a block owns DQ_ROWS queries of one (batch, head) and dq chunk
-// blockIdx.x % nk; per key tile, S over the chunks of dkh (q, k through a_s,
-// b_s), dp over the chunks of dvh (dout, v through the same tiles), then its
-// own k chunk in b_s for dq += ds k and the bins.
-template <int NBT>
-__global__ void __launch_bounds__(DQ_WARPS * 32)
-dq_mma_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rows<const bf16> dout,
-              Rows<const float> lse, Rows<const float> delta, Rel<bf16> rel,
-              const int* __restrict__ tab, DqOut<bf16> dst, Geo g, int rel_stride) {
-  constexpr int ND = KW / 8, DQS = dq_stride<ND>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nbw = (g.W + 7) / 8, nbt = bin_tiles(g.W, g.H);
-  float* rel_s = reinterpret_cast<float*>(smem_raw);          // DQ_ROWS x rel_stride: RC, bins
-  float* ld_s = rel_s + DQ_ROWS * rel_stride;                 // DQ_ROWS x 2
-  int* tab_s = reinterpret_cast<int*>(ld_s + DQ_ROWS * 2);    // one row of the key table
-  bf16* a_s = reinterpret_cast<bf16*>(tab_s + key_table_words(nbt));  // DQ_ROWS x KS
-  bf16* b_s = a_s + DQ_ROWS * KS;                                      // TN x KS
-  float* dq_s = reinterpret_cast<float*>(b_s + TN * KS);               // DQ_ROWS x DQS
+// The backward passes on the tensor cores (bf16, maps up to amma::mma_fits).
+//
+// A warp group of BW_WARPS warps owns BW_ROWS tokens of its own side
+// (queries in pass dq, keys in pass dkdv; a warp 16 rows) and a column group
+// of the output's n8 tiles (every tile of dq, or of [dk | dv], where one
+// group holds them), and walks the other side's tokens TK at a time (32, or
+// 16 where that lets two blocks share an SM). Per (own tile, other tile):
+//   - S (and S^T) and dp over the whole head width, once: the own rows' A
+//     fragments and the other rows' B words read from shared memory, k16
+//     step by step over dkh padded to 16 (dvh likewise);
+//   - p and ds as bf16 A fragments in registers, once, reused by every
+//     output tile of the group: dq += ds k (and the bins dRC += ds onehot,
+//     from the key table); dk += ds^T q, dv += p^T dout.
+// The own rows (all of dkh and dvh) are staged once per block; the other
+// rows, whole, once per tile pair, into two buffers: the next tile's
+// cp.async copies run under this tile's products. Copies are 16 bytes where
+// every row of the operand starts on 16 bytes (8, 4 where it does not: odd
+// slot offsets, ragged widths); rows that allow none (dvh 75: 150-byte
+// rows) and the columns past the last whole copy (dkh 150) take 2-byte
+// loads, several in flight a thread, and rows past the last token are zero.
+// Registers bound a column group: a warp holds NTO n8 tiles of its 16 rows
+// in f32 (dq with more than 4 bin tiles: NTO_BINS, beside its bins). A head
+// with more tiles takes ceil(tiles / NTO) groups, BW_WG of them a block as
+// warp groups that share the block's staged rows, RC rows and E; each warp
+// group computes S, dp, p and ds for its own columns (recomputed per group):
+// (320, 128) takes 2 groups in each pass (one block), (512, 256) 2 and 3,
+// (640, 320) 3 and 4.
+// Tiny maps: where hw <= BW_ROWS / 2 a tile packs pack = BW_ROWS / hw
+// (batch, head) pairs (1x1: 64, 2x2: 16, 4x4: 4), virtual token v being
+// token v % hw of pair v / hw (tok_table), and S is masked to each pair's
+// own keys, so a block does the work of pack heads and not of one row in 64.
+// mma.sync.m16n8k16, as the classes: a 64-row wgmma tile would hold a
+// warpgroup's accumulators for the whole group (four times a warp's) and
+// leave no registers for S and dp.
+// Pass dq's relative part, sum_m dRC[t, m] Rw[(col(t), d), m], is a product
+// on the tensor cores from the bins (the class kernels' skew): E = rel_w^T
+// read back out of Rw a k16 step at a time; the RC rows stay rc_at's f32
+// sums, four rows in flight a thread.
+// Shared memory: (BW_ROWS + 2 TK) rows of dkh + dvh (padded to 16, + 8 a
+// row), the RC rows and (lse, delta): at most 203 KB at (512, 256) and 194
+// KB at (640, 320) (TK 16); a head whose rows do not fit even at TK 16
+// takes the CUDA-core kernels below. The plan (pack, column groups, warp
+// groups, TK, shared memory) is chosen on the host, once, by
+// ops/fused_attention.py::wide_bwd_plan; tc_plan fills in what follows from
+// it and refuses a plan the kernels cannot run.
 
-  constexpr int NT = DQ_WARPS * 32;
-  const int chunk = blockIdx.x % g.nk, q0 = blockIdx.x / g.nk * DQ_ROWS;
-  const int y = blockIdx.y, z = blockIdx.z;
+constexpr int BW_WARPS = 4;
+constexpr int BW_ROWS = BW_WARPS * 16;  // own tokens of a block
+constexpr int BW_NT = BW_WARPS * 32;  // a warp group: the threads of one column group
+constexpr int BW_WG = 2;                // warp groups (column groups) a block holds at most
+
+__device__ __forceinline__ int block_threads() { return static_cast<int>(blockDim.x); }
+constexpr int NTO = 32;       // n8 output tiles a warp holds: dkdv, and dq with <= 4 bin tiles
+constexpr int NTO_BINS = 16;  // dq with 5 .. 16 bin tiles (its bins take the rest)
+constexpr int BW_SMEM_MAX = 232448;  // dynamic shared memory of one block on the H100
+
+// Where virtual token v of a block lives: pack == 1, token v of pair p0;
+// pack > 1, token v % hw of pair p0 + v / hw (np pairs in all, pair p at
+// grid cell (p / Y, p % Y)), read from tab: 4 words per token, (v / hw, z,
+// y, token), filled once per block (tok_table).
+struct VTok {
+  int p0, hw, pack, np, Y;
+  const int* tab;  // packed: the block's token table in shared memory
+  __device__ __forceinline__ int n() const {  // the block's tokens on either side
+    return pack > 1 ? min(pack, np - p0) * hw : hw;
+  }
+  template <typename T>
+  __device__ __forceinline__ T* row(const Rows<T>& r, int v) const {
+    if (pack > 1) return r.row(tab[4 * v + 1], tab[4 * v + 2], tab[4 * v + 3]);
+    return r.row(p0 / Y, p0 - p0 / Y * Y, v);
+  }
+  __device__ __forceinline__ int tok(int v) const { return pack > 1 ? tab[4 * v + 3] : v; }
+};
+
+// The token table of a block's BW_ROWS tokens into tab_s (word 0 is the
+// pair's offset in the block, 0 unpacked), and vt pointed at it.
+__device__ __forceinline__ void tok_table(int* tab_s, VTok& vt, int tid) {
+  for (int r = tid; r < BW_ROWS; r += block_threads()) {
+    const int po = vt.pack > 1 ? r / vt.hw : 0, p = vt.p0 + po;
+    tab_s[4 * r] = po;
+    tab_s[4 * r + 1] = p / vt.Y;
+    tab_s[4 * r + 2] = p % vt.Y;
+    tab_s[4 * r + 3] = vt.pack > 1 ? r % vt.hw : r;
+  }
+  vt.tab = tab_s;
+}
+
+// What a launch of the passes below knows of its head (tc_plan).
+struct TcPlan {
+  int Y, np, pack, ntile, ngroup, ntg, tk;  // grid: pair groups x own tiles x column groups
+  int wg, gblocks;  // column groups a block (warp groups), blocks over the column groups
+  int kp, vp, ks, vs, rs;                    // dkh, dvh padded to 16; tile row strides
+  int nbt, words;                            // bin tiles; key-table words per row
+  int vq, vk, vv, vdo, vrel;                 // copy bytes of each operand's rows
+};
+
+// Columns [0, ncols) of virtual tokens v0 .. v0 + nrows - 1 of src into dst
+// (row stride ds): copies of vec bytes by cp.async (complete after
+// cp_async_wait), the columns past the last whole copy by plain loads (all
+// of them where vec is the element size), zeros for tokens past vt.n(). The
+// threads form a grid of rows x (copies a row, rounded up to a power of
+// two), so a copy costs no division; a row's start is the pair's first row
+// plus v rows, but for packed tokens.
+template <typename T>
+__device__ __forceinline__ void stage_v(T* dst, int ds, const Rows<const T>& src, const VTok& vt,
+                                        int v0, int nrows, int ncols, int vec, int tid) {
+  const int per = vec / static_cast<int>(sizeof(T));
+  const int nfull = vec >= 4 ? ncols / per : 0;
+  const int cpr = nfull + (ncols - nfull * per);
+  const int nv = vt.n();
+  const T* base = vt.pack > 1 ? nullptr : vt.row(src, 0);
+  auto src_of = [&](int v) { return base != nullptr ? base + v * src.sr : vt.row(src, v); };
+  auto copy = [&](int r, int c) {
+    const int v = v0 + r;
+    const bool whole = c < nfull;
+    const int c0 = whole ? c * per : nfull * per + (c - nfull);
+    T* d = dst + r * ds + c0;
+    if (v >= nv) {
+      for (int i = 0; i < (whole ? per : 1); ++i) put(d + i, 0.f);
+      return;
+    }
+    const T* s = src_of(v) + c0;
+    if (!whole)
+      *d = *s;
+    else if (vec == 16)
+      cp_async<16>(d, s);
+    else if (vec == 8)
+      cp_async<8>(d, s);
+    else
+      cp_async<4>(d, s);
+  };
+  if (nfull == 0) {  // rows of plain loads: every thread by turns, eight loads in flight
+    const int total = nrows * ncols;
+    for (int e0 = tid; e0 < total; e0 += 8 * block_threads()) {
+      T x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int e = e0 + k * block_threads(), r = e / ncols, v = v0 + r;
+        x[k] = e < total && v < nv ? src_of(v)[e - r * ncols] : T(0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int e = e0 + k * block_threads(), r = e / ncols;
+        if (e < total) dst[r * ds + e - r * ncols] = x[k];
+      }
+    }
+    return;
+  }
+  const int lg = cpr > 1 ? 32 - __clz(cpr - 1) : 0;
+  if ((1 << lg) > block_threads()) {
+    for (int e = tid; e < nrows * cpr; e += block_threads()) copy(e / cpr, e - e / cpr * cpr);
+    return;
+  }
+  const int c = tid & ((1 << lg) - 1), step = block_threads() >> lg;
+  if (c >= cpr) return;
+  if (c < nfull) {
+    for (int r = tid >> lg; r < nrows; r += step) copy(r, c);
+    return;
+  }
+  // the column past the last whole copy: four rows' loads in flight
+  const int col = nfull * per + (c - nfull);
+  for (int r0 = tid >> lg; r0 < nrows; r0 += 4 * step) {
+    T x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = r0 + k * step, v = v0 + r;
+      x[k] = r < nrows && v < nv ? src_of(v)[col] : T(0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (r0 + k * step < nrows) dst[(r0 + k * step) * ds + col] = x[k];
+  }
+}
+
+// (lse, delta) of virtual tokens v0 .. v0 + nrows - 1 by 4-byte cp.async;
+// (LSE_PAD, 0) past vt.n(), so that their p is 0.
+__device__ __forceinline__ void stage_ld_v(float* ld_s, const Rows<const float>& lse,
+                                           const Rows<const float>& delta, const VTok& vt,
+                                           int v0, int nrows, int tid) {
+  const int nv = vt.n();
+  for (int r = tid; r < nrows; r += block_threads()) {
+    if (v0 + r < nv) {
+      cp_async<4>(ld_s + 2 * r, vt.row(lse, v0 + r));
+      cp_async<4>(ld_s + 2 * r + 1, vt.row(delta, v0 + r));
+    } else {
+      ld_s[2 * r] = LSE_PAD;
+      ld_s[2 * r + 1] = 0.f;
+    }
+  }
+}
+
+// acc[nt] += rows ra, ra + 8 of a_s (row stride as) times rows 8 nt .. 8 nt
+// + 7 of b_s (row stride bs) transposed, over kp columns (a multiple of 16),
+// for the ntk (<= 4) n8 tiles of a tile of other tokens.
+__device__ __forceinline__ void rows_product(float (&acc)[4][4], const bf16* a_s, int as, int ra,
+                                             const bf16* b_s, int bs, int kp, int ntk, int g,
+                                             int t) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < kp; k0 += 16) {
+    const bf16* a = a_s + ra * as + k0 + 2 * t;
+    const uint32_t a0 = lds32(a), a1 = lds32(a + 8 * as), a2 = lds32(a + 8),
+                   a3 = lds32(a + 8 * as + 8);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      if (nt < ntk) {
+        const bf16* b = b_s + (nt * 8 + g) * bs + k0 + 2 * t;
+        mma16816(acc[nt], a0, a1, a2, a3, lds32(b), lds32(b + 8));
+      }
+    }
+  }
+}
+
+// Lanes d (even) and d + 1 of a bf16 row, those below w: one 4-byte store
+// where the row is 4-byte aligned.
+__device__ __forceinline__ void store_pair(bf16* row, int d, int w, bool pairs, float x0,
+                                           float x1) {
+  if (pairs && d + 1 < w) {
+    *reinterpret_cast<__nv_bfloat162*>(row + d) = __floats2bfloat162_rn(x0, x1);
+  } else {
+    if (d < w) row[d] = __float2bfloat16(x0);
+    if (d + 1 < w) row[d + 1] = __float2bfloat16(x1);
+  }
+}
+
+// Zero n bytes (a multiple of 16) of shared memory from p (16-byte aligned).
+__device__ __forceinline__ void zero_smem(void* p, size_t n, int tid) {
+  uint4* d = static_cast<uint4*>(p);
+  for (size_t e = tid; e < n / 16; e += block_threads()) d[e] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The block's place: pair group, own tile and its first column group (it
+// holds pl.wg of them, one a warp group of BW_WARPS warps); its VTok.
+struct TcBlock {
+  VTok vt;
+  int own0, group0;  // first own virtual token; first column group
+};
+
+__device__ __forceinline__ TcBlock tc_block(const TcPlan& pl, int hw) {
+  int b = blockIdx.x;
+  TcBlock tb;
+  tb.group0 = b % pl.gblocks * pl.wg;
+  b /= pl.gblocks;
+  const int tile = b % pl.ntile, pg = b / pl.ntile;
+  tb.vt = VTok{pl.pack > 1 ? pg * pl.pack : pg, hw, pl.pack, pl.np, pl.Y, nullptr};
+  tb.own0 = tile * BW_ROWS;
+  return tb;
+}
+
+// A warp's column group: its first n8 tile and how many of the tiles tiles
+// it holds (0: a warp group past the last column group, which stages and
+// waits with the block and computes nothing).
+struct TcCols {
+  int group, t0, ntg;
+};
+
+__device__ __forceinline__ TcCols tc_cols(const TcPlan& pl, const TcBlock& tb, int warp,
+                                          int tiles) {
+  TcCols tc;
+  tc.group = tb.group0 + warp / BW_WARPS;
+  tc.t0 = tc.group * pl.ntg;
+  tc.ntg = tc.group < pl.ngroup ? min(pl.ntg, tiles - tc.t0) : 0;
+  return tc;
+}
+
+// Pass dq: own tokens are queries. Per key tile: S = q k^T and dp = dout
+// v^T, the relative logits from the queries' RC rows (rc_at, the forward's
+// arithmetic) at each key's image column and row (key table), p, ds; then dq
+// += ds k over the group's tiles of dkh and the bins += ds onehot. After the
+// walk the bins give dq's relative part (heads-in-lanes) and are written
+// with the RC rows by group 0: the dRW / dRH lanes of dqr (head-major) or the
+// dRC and rc scratch rows (heads-in-lanes).
+template <int NBT, int NTG>
+__global__ void __launch_bounds__(BW_WG * BW_NT, 1)
+dq_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rows<const bf16> dout,
+             Rows<const float> lse, Rows<const float> delta, Rel<bf16> rel,
+             const int* __restrict__ tab, DqOut<bf16> dst, Geo g, TcPlan pl) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ks = pl.ks, vs = pl.vs, rs = pl.rs, tk = pl.tk;
+  bf16* qo_s = reinterpret_cast<bf16*>(smem_raw);  // BW_ROWS x ks: the queries
+  bf16* do_s = qo_s + BW_ROWS * ks;                // BW_ROWS x vs: their dout
+  bf16* kb_s = do_s + BW_ROWS * vs;                // 2 x (tk x ks): key tiles
+  bf16* vb_s = kb_s + 2 * tk * ks;                 // 2 x (tk x vs): value tiles
+  float* rel_s = reinterpret_cast<float*>(vb_s + 2 * tk * vs);  // BW_ROWS x rs: RC, then bins
+  float* ld_s = rel_s + BW_ROWS * rs;              // BW_ROWS x 2
+  int* tok_s = reinterpret_cast<int*>(ld_s + BW_ROWS * 2);  // BW_ROWS x 4: tok_table
+
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gl = lane >> 2, t = lane & 3;
-  const int qn = min(DQ_ROWS, g.hw - q0), r0 = warp * 16 + gl;
-  stage_ld(ld_s, lse.row(z, y, q0), delta.row(z, y, q0), qn, DQ_ROWS, tid, NT);
-  rc_rows(rel_s, rel_stride, rel, q, z, y, q0, DQ_ROWS, g, tid, NT);
+  const TcBlock tb = tc_block(pl, g.hw);
+  VTok vt = tb.vt;
+  const int n = vt.n(), q0 = tb.own0, WH = g.W + g.H;
+  const bool packed = pl.pack > 1;
+  const bool relative = rel.lanes.p != nullptr || rel.Rw != nullptr;
+  const TcCols tc = tc_cols(pl, tb, warp, (g.dkh + 7) / 8);
+  const int ntg = tc.ntg;
+  // the bins: head-major group 0 writes them; heads-in-lanes every group
+  // needs them for dq's relative part (a block's warp group 0 stores them)
+  const bool bins_block = relative && (tb.group0 == 0 || rel.Rw != nullptr);
+  const bool bins_on = relative && ntg > 0 && (tc.group == 0 || rel.Rw != nullptr);
+
+  zero_smem(smem_raw, static_cast<size_t>(BW_ROWS + 2 * tk) * (ks + vs) * sizeof(bf16), tid);
+  tok_table(tok_s, vt, tid);
+  __syncthreads();
+  stage_v(qo_s, ks, q, vt, q0, BW_ROWS, g.dkh, pl.vq, tid);
+  stage_v(do_s, vs, dout, vt, q0, BW_ROWS, g.dvh, pl.vdo, tid);
+  stage_ld_v(ld_s, lse, delta, vt, q0, BW_ROWS, tid);
+  stage_v(kb_s, ks, k, vt, 0, tk, g.dkh, pl.vk, tid);
+  stage_v(vb_s, vs, v, vt, 0, tk, g.dvh, pl.vv, tid);
+  // the RC rows, under the copies
+  for (int e0 = tid; e0 < BW_ROWS * WH; e0 += 4 * block_threads()) {
+    float x[4];  // four rows' sums in flight
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * block_threads(), r = e / WH, c = e - r * WH, vq = q0 + r;
+      x[k] = 0.f;
+      if (e < BW_ROWS * WH && vq < n) {
+        const int* tv = tok_s + 4 * (packed ? vq : 0);
+        x[k] = rc_at(rel, q, tv[1], tv[2], vt.tok(vq), c, g);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * block_threads(), r = e / WH;
+      if (e < BW_ROWS * WH) rel_s[r * rs + (e - r * WH)] = x[k];
+    }
+  }
   cp_async_wait();
   __syncthreads();
-  if (chunk == 0)  // the RC rows for pass dkdv
-    dq_rows_out(DqOut<bf16>{{}, {}, {}, dst.rc}, nullptr, rel_s, rel_stride, z, y, q0, qn, g,
-                tid, NT);
+  if (tb.group0 == 0 && dst.rc.p != nullptr)  // the RC rows for pass dkdv
+    for (int e = tid; e < BW_ROWS * WH; e += block_threads()) {
+      const int r = e / WH, c = e - r * WH;
+      if (q0 + r < n) vt.row(dst.rc, q0 + r)[c] = rel_s[r * rs + c];
+    }
 
-  const float* rel0 = rel_s + r0 * rel_stride;
-  const float* rel1 = rel0 + 8 * rel_stride;
-  const bool paired = rc_paired(rel_s, g.W);
-  DqWarp<NBT, ND> st;
-  st.lse[0] = ld_s[2 * r0] * LOG2E;
-  st.delta[0] = ld_s[2 * r0 + 1];
-  st.lse[1] = ld_s[2 * (r0 + 8)] * LOG2E;
-  st.delta[1] = ld_s[2 * (r0 + 8) + 1];
+  const int ra = warp % BW_WARPS * 16 + gl;
+  float lse2[2], dl[2];
+  int pr[2];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
+  for (int i = 0; i < 2; ++i) {
+    lse2[i] = ld_s[2 * (ra + 8 * i)] * LOG2E;
+    dl[i] = ld_s[2 * (ra + 8 * i) + 1];
+    pr[i] = tok_s[4 * (ra + 8 * i)];
+  }
+  const float* rel0 = rel_s + ra * rs;
+  const float* rel1 = rel0 + 8 * rs;
+  float acc[NTG][4], bins[NBT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) st.dq[nd][i] = 0.f;
+  for (int u = 0; u < NTG; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[u][i] = 0.f;
 #pragma unroll
   for (int nb = 0; nb < NBT; ++nb)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) st.bins[nb][i] = 0.f;
+    for (int i = 0; i < 4; ++i) bins[nb][i] = 0.f;
 
-  for (int j0 = 0; j0 < g.hw; j0 += TN) {
-    const int kn = min(TN, g.hw - j0);
-    float s[TN / 8][4] = {}, dp[TN / 8][4] = {};
-    for (int c = 0; c < g.nk; ++c) {
-      __syncthreads();  // the previous tiles are consumed
-      stage<KW>(a_s, KS, q, z, y, q0, qn, DQ_ROWS, c * KW, g.dkh - c * KW, tid, NT);
-      stage<KW>(b_s, KS, k, z, y, j0, kn, TN, c * KW, g.dkh - c * KW, tid, NT);
-      __syncthreads();
-      load_a_frags(st.qa, a_s, KS, r0, r0 + 8, t);
-#pragma unroll
-      for (int nt = 0; nt < TN / 8; ++nt) mma_k(s[nt], st.qa, b_s + (nt * 8 + gl) * KS + 2 * t);
+  const int ntiles = (n + tk - 1) / tk, ntk = tk / 8;
+  for (int it = 0; it < ntiles; ++it) {
+    const int j0 = it * tk, buf = it & 1;
+    if (it + 1 < ntiles) {  // the next key tile into the other buffer, under this tile's work
+      stage_v(kb_s + (buf ^ 1) * tk * ks, ks, k, vt, j0 + tk, tk, g.dkh, pl.vk, tid);
+      stage_v(vb_s + (buf ^ 1) * tk * vs, vs, v, vt, j0 + tk, tk, g.dvh, pl.vv, tid);
     }
-    for (int c = 0; c < g.nv; ++c) {
-      __syncthreads();
-      stage<VW>(a_s, VS, dout, z, y, q0, qn, DQ_ROWS, c * VW, g.dvh - c * VW, tid, NT);
-      stage<VW>(b_s, VS, v, z, y, j0, kn, TN, c * VW, g.dvh - c * VW, tid, NT);
-      __syncthreads();
-      load_v_frags(st.doa, a_s, r0, r0 + 8, t);
-#pragma unroll
-      for (int nt = 0; nt < TN / 8; ++nt) mma_v(dp[nt], st.doa, b_s + (nt * 8 + gl) * VS + 2 * t);
+    const bf16* k_s = kb_s + buf * tk * ks;
+    const bf16* v_s = vb_s + buf * tk * vs;
+    float s[4][4] = {}, dp[4][4] = {};
+    if (ntg > 0) {
+      rows_product(s, qo_s, ks, ra, k_s, ks, pl.kp, ntk, gl, t);
+      rows_product(dp, do_s, vs, ra, v_s, vs, pl.vp, ntk, gl, t);
     }
-    __syncthreads();
-    stage<KW>(b_s, KS, k, z, y, j0, kn, TN, chunk * KW, g.dkh - chunk * KW, tid, NT);
-    stage_key_table(tab_s, tab, j0 / TN, nbt, tid, NT);
-    cp_async_wait();
-    __syncthreads();
-    const KeyTable kt = key_table_at(tab_s, nbt);
 #pragma unroll
-    for (int kc = 0; kc < TN / 16; ++kc) {
-      if (kc * 16 < kn) {  // uniform across the block
+    for (int kc = 0; kc < 2; ++kc) {
+      if (kc * 16 < tk && ntg > 0) {  // uniform across the warp
+        const int jc = j0 + kc * 16;  // the chunk's first key; its table row and chunk
+        const int* trow = tab + static_cast<size_t>(jc / TN) * pl.words;
+        const int c4 = (jc % TN) / 16;
         uint32_t dsa[4];
 #pragma unroll
-        for (int half = 0; half < 2; ++half)
-          dq_ds(st, s[2 * kc + half], dp[2 * kc + half], kc * 16 + half * 8, kt, rel0, rel1,
-                paired, g.W, kn, t, dsa[2 * half], dsa[2 * half + 1]);
-        dq_accumulate(st, dsa, kc, b_s, kt, nbt, lane);
+        for (int half = 0; half < 2; ++half) {
+          const int nt = 2 * kc + half, jv = jc + half * 8 + 2 * t;
+          const int2 kp = __ldg(reinterpret_cast<const int2*>(
+              trow + (TN / 16) * pl.nbt * 64 + TN / 16 + (jv % TN)));
+          const int ca = kp.x & 0xffff, rwa = kp.x >> 16, cb = kp.y & 0xffff, rwb = kp.y >> 16;
+          bool m[4] = {jv < n, jv + 1 < n, jv < n, jv + 1 < n};
+          if (packed) {  // each query sees its own pair's keys
+            const int pa = jv < n ? tok_s[4 * jv] : -1, pb = jv + 1 < n ? tok_s[4 * jv + 4] : -1;
+            m[0] = m[0] && pa == pr[0];
+            m[1] = m[1] && pb == pr[0];
+            m[2] = m[2] && pa == pr[1];
+            m[3] = m[3] && pb == pr[1];
+          }
+          const float s0 = s[nt][0] + (rel0[ca] + rel0[g.W + rwa]);
+          const float s1 = s[nt][1] + (rel0[cb] + rel0[g.W + rwb]);
+          const float s2 = s[nt][2] + (rel1[ca] + rel1[g.W + rwa]);
+          const float s3 = s[nt][3] + (rel1[cb] + rel1[g.W + rwb]);
+          const float p0 = m[0] ? exp_shifted(s0, lse2[0]) : 0.f;
+          const float p1 = m[1] ? exp_shifted(s1, lse2[0]) : 0.f;
+          const float p2 = m[2] ? exp_shifted(s2, lse2[1]) : 0.f;
+          const float p3 = m[3] ? exp_shifted(s3, lse2[1]) : 0.f;
+          dsa[2 * half] = pack_bf16(p0 * (dp[nt][0] - dl[0]), p1 * (dp[nt][1] - dl[0]));
+          dsa[2 * half + 1] = pack_bf16(p2 * (dp[nt][2] - dl[1]), p3 * (dp[nt][3] - dl[1]));
+        }
+        const bf16* k_row = k_s + (kc * 16 + (lane & 15)) * ks + tc.t0 * 8;
+#pragma unroll
+        for (int u = 0; u < NTG; ++u) {  // dq += ds k over the group's tiles
+          if (u < ntg) {
+            uint32_t b0, b1;
+            ldsm_x2_trans(b0, b1, k_row + u * 8);
+            mma16816(acc[u], dsa[0], dsa[1], dsa[2], dsa[3], b0, b1);
+          }
+        }
+        if (bins_on) {  // the bins: dRC += ds onehot, over the bin tiles these keys touch
+          const unsigned touched =
+              static_cast<unsigned>(__ldg(trow + (TN / 16) * pl.nbt * 64 + c4));
+          const uint2* oh = reinterpret_cast<const uint2*>(trow) + c4 * pl.nbt * 32 + lane;
+#pragma unroll
+          for (int nb = 0; nb < NBT; ++nb) {
+            if ((touched >> nb) & 1u) {
+              const uint2 b = __ldg(oh + nb * 32);
+              mma16816(bins[nb], dsa[0], dsa[1], dsa[2], dsa[3], b.x, b.y);
+            }
+          }
+        }
+      }
+    }
+    cp_async_wait();
+    __syncthreads();  // the next tile has landed; this one is consumed
+  }
+
+  if (bins_block) {  // every warp has read its last RC row: rel_s becomes the bins
+    if (warp < BW_WARPS) bins_store(bins, rel_s, rs, g.W, g.H, (g.W + 7) / 8, warp, lane);
+    __syncthreads();
+  }
+  if (rel.Rw != nullptr) {
+    // dq's relative part on the tensor cores: sum_m dRC_w[t, m] Rw[(col(t), d), m]
+    // = sum_x G[t, x] E_w[x, d], E_w[x, d] = rel_w[d, x] read back out of Rw,
+    // G the bins skewed by the query's column (rows likewise), G split into
+    // hi + lo bf16 (as the class kernels' dq_rel_axis); E a k16 step at a time
+    // in e_s (the queries' tile is consumed)
+    bf16* e_s = qo_s;  // 16 x ks: E's rows x0 .. x0 + 15 over the block's columns
+    const int bt0 = tb.group0 * pl.ntg;  // the block's first n8 tile
+    const int d0 = bt0 * 8;
+    const int ncol = (min((g.dkh + 7) / 8, (tb.group0 + pl.wg) * pl.ntg) - bt0) * 8;
+    int pos[2][2];     // [axis][row g, g + 8]: the query's image column and row
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int vq = q0 + ra + 8 * rr, tq = vq < n ? vt.tok(vq) : 0;
+      pos[0][rr] = tq % g.W;
+      pos[1][rr] = tq / g.W;
+    }
+#pragma unroll
+    for (int axis = 0; axis < 2; ++axis) {
+      const int nn = axis == 0 ? g.W : g.H, off = axis == 0 ? 0 : g.W;
+      const float* R = axis == 0 ? rel.Rw : rel.Rh;
+      for (int x0 = 0; x0 < 2 * nn - 1; x0 += 16) {
+        __syncthreads();  // the previous step of E is consumed
+        // E[x, d] = R[(c, d), m] for any m - c = x - nn + 1: c = 0 past x = nn - 2,
+        // else c = nn - 1, so that neighbouring x read neighbouring m
+        for (int e0 = tid; e0 < 16 * ncol; e0 += 4 * block_threads()) {
+          float val[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int e = e0 + k * block_threads(), dd = e >> 4, x = x0 + (e & 15), d = d0 + dd;
+            val[k] = 0.f;
+            if (e < 16 * ncol && x < 2 * nn - 1 && d < g.dkh)
+              val[k] = __ldg(R + (static_cast<size_t>(x >= nn - 1 ? 0 : nn - 1) * g.dkh + d) * nn +
+                             (x >= nn - 1 ? x - (nn - 1) : x));
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int e = e0 + k * block_threads();
+            if (e < 16 * ncol) e_s[(e & 15) * ks + (e >> 4)] = __float2bfloat16(val[k]);
+          }
+        }
+        __syncthreads();
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int rr = i & 1;  // a0, a2: row g; a1, a3: row g + 8
+          const int m = x0 + 2 * t + (i >> 1) * 8 - (nn - 1) + pos[axis][rr];
+          const float* bin = rel_s + (ra + 8 * rr) * rs + off;
+          const float v0 = (m >= 0 && m < nn) ? bin[m] : 0.f;
+          const float v1 = (m + 1 >= 0 && m + 1 < nn) ? bin[m + 1] : 0.f;
+          const bf16 h0 = __float2bfloat16(v0), h1 = __float2bfloat16(v1);
+          ahi[i] = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
+          alo[i] = pack_bf16(v0 - __bfloat162float(h0), v1 - __bfloat162float(h1));
+        }
+#pragma unroll
+        for (int u = 0; u < NTG; ++u) {
+          if (u < ntg) {
+            uint32_t b0, b1;
+            ldsm_x2_trans(b0, b1, e_s + (lane & 15) * ks + (tc.t0 - bt0 + u) * 8);
+            mma16816(acc[u], ahi[0], ahi[1], ahi[2], ahi[3], b0, b1);
+            mma16816(acc[u], alo[0], alo[1], alo[2], alo[3], b0, b1);
+          }
+        }
       }
     }
   }
-  __syncthreads();  // every warp has read its last RC row: rel_s becomes the bins
-  dq_dump(st, dq_s, warp, lane);
-  bins_dump(st, rel_s, rel_stride, g.W, g.H, nbw, warp, lane);
-  __syncthreads();
-  const int d0 = chunk * KW, ndc = min(KW, g.dkh - d0);
-  for (int e = tid; e < qn * ndc; e += NT) {
-    const int r = e / ndc, d = e - r * ndc;
-    float x = dq_s[r * DQS + d];
-    if (rel.Rw != nullptr) x += rel_dq(rel_s + r * rel_stride, rel.Rw, rel.Rh, q0 + r, d0 + d, g);
-    dst.dq.row(z, y, q0 + r)[d0 + d] = __float2bfloat16(x);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int vq = q0 + ra + 8 * rr;
+    if (vq >= n) continue;
+    bf16* dq_i = vt.row(dst.dq, vq);
+    const bool pairs = (reinterpret_cast<uintptr_t>(dq_i) & 3) == 0;
+#pragma unroll
+    for (int u = 0; u < NTG; ++u)
+      if (u < ntg) store_pair(dq_i, (tc.t0 + u) * 8 + 2 * t, g.dkh, pairs, acc[u][2 * rr],
+                              acc[u][2 * rr + 1]);
   }
-  if (chunk == 0)
-    dq_rows_out(DqOut<bf16>{{}, dst.bins, dst.drc, {}}, rel_s, nullptr, rel_stride, z, y, q0, qn,
-                g, tid, NT);
+  if (tb.group0 == 0 && relative)  // the bins: dRW / dRH lanes, or the dRC rows
+    for (int e = tid; e < BW_ROWS * WH; e += block_threads()) {
+      const int r = e / WH, c = e - r * WH;
+      if (q0 + r >= n) continue;
+      if (dst.bins.p != nullptr) put(vt.row(dst.bins, q0 + r) + c, rel_s[r * rs + c]);
+      if (dst.drc.p != nullptr) vt.row(dst.drc, q0 + r)[c] = rel_s[r * rs + c];
+    }
 }
 
-// Pass dkdv: a block owns DKDV_ROWS keys of one (batch, head) and output
-// chunk blockIdx.x % max(nk, nv); per query tile, S^T over the chunks of dkh
-// (k, q through kv_s, q_s), dp^T over the chunks of dvh (v, dout through
-// kv_s, do_s), then its own q and dout chunks for dk += ds^T q and dv += p^T
-// dout. rcl: the queries' RC rows (qr lanes, or the rc scratch of pass dq).
+// Pass dkdv: own tokens are keys. Per query tile: S^T = k q^T and dp^T = v
+// dout^T, the relative logits from the queries' RC rows (rcl: the qr lanes,
+// or the rc scratch of pass dq, staged with the tile) at the keys' image
+// columns and rows, p^T, ds^T; then over the group's n8 tiles of [dk | dv]:
+// dk += ds^T q, dv += p^T dout. Group 0 writes the zero pad lanes of a slot.
 template <typename RT>
-__global__ void __launch_bounds__(DKDV_WARPS * 32, 1)
-dkdv_mma_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
-                Rows<const bf16> dout, Rows<const float> lse, Rows<const float> delta,
-                Rows<const RT> rcl, DkdvOut<bf16> dst, Geo g, int rel_stride) {
-  constexpr int ND = KW / 8;
+__global__ void __launch_bounds__(BW_WG * BW_NT, 1)
+dkdv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
+               Rows<const bf16> dout, Rows<const float> lse, Rows<const float> delta,
+               Rows<const RT> rcl, DkdvOut<bf16> dst, Geo g, TcPlan pl) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* kv_s = reinterpret_cast<bf16*>(smem_raw);           // DKDV_ROWS x KS: k or v chunk
-  bf16* q_s = kv_s + DKDV_ROWS * KS;                        // TN x KS
-  bf16* do_s = q_s + TN * KS;                               // TN x VS
-  float* rel_s = reinterpret_cast<float*>(do_s + TN * VS);  // TN x rel_stride
-  float* ld_s = rel_s + TN * rel_stride;                    // TN x 2
+  const int ks = pl.ks, vs = pl.vs, rs = pl.rs, tk = pl.tk;
+  bf16* ko_s = reinterpret_cast<bf16*>(smem_raw);  // BW_ROWS x ks: the keys
+  bf16* vo_s = ko_s + BW_ROWS * ks;                // BW_ROWS x vs: their values
+  // two buffers of a query tile: q (tk x ks), dout (tk x vs), RC (tk x rs), (lse, delta)
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(vo_s + BW_ROWS * vs);
+  const size_t tile_bytes = static_cast<size_t>(tk) * ((ks + vs) * sizeof(bf16) +
+                                                       rs * sizeof(RT) + 2 * sizeof(float));
+  int* tok_s = reinterpret_cast<int*>(tiles + 2 * tile_bytes);  // BW_ROWS x 4: tok_table
+  auto q_of = [&](int b) { return reinterpret_cast<bf16*>(tiles + b * tile_bytes); };
+  auto do_of = [&](int b) { return q_of(b) + tk * ks; };
+  auto rel_of = [&](int b) { return reinterpret_cast<RT*>(do_of(b) + tk * vs); };
+  auto ld_of = [&](int b) { return reinterpret_cast<float*>(rel_of(b) + tk * rs); };
 
-  constexpr int NT = DKDV_WARPS * 32;
-  const int nco = max(g.nk, g.nv);
-  const int chunk = blockIdx.x % nco, key0 = blockIdx.x / nco * DKDV_ROWS;
-  const int y = blockIdx.y, z = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gl = lane >> 2, t = lane & 3;
-  const int kn = min(DKDV_ROWS, g.hw - key0), WH = g.W + g.H;
-  const int ra = dkdv_key(warp, lane, 0), rb = dkdv_key(warp, lane, 1);
-  const bool paired = rc_paired(rel_s, g.W);  // even W: a thread's two keys share a row
+  const TcBlock tb = tc_block(pl, g.hw);
+  VTok vt = tb.vt;
+  const int n = vt.n(), key0 = tb.own0, WH = g.W + g.H;
+  const bool packed = pl.pack > 1;
+  const int ndk = (g.dkh + 7) / 8;
+  const TcCols tc = tc_cols(pl, tb, warp, ndk + (g.dvh + 7) / 8);
+  const int ntg = tc.ntg;
 
-  DkdvWarp<ND> st;
+  // zeros: the pad columns, RC without relative logits
+  zero_smem(smem_raw, static_cast<size_t>(BW_ROWS) * (ks + vs) * sizeof(bf16) + 2 * tile_bytes,
+            tid);
+  tok_table(tok_s, vt, tid);
+  __syncthreads();
+  auto stage_tile = [&](int i0, int b) {
+    stage_v(q_of(b), ks, q, vt, i0, tk, g.dkh, pl.vq, tid);
+    stage_v(do_of(b), vs, dout, vt, i0, tk, g.dvh, pl.vdo, tid);
+    if (rcl.p != nullptr) stage_v(rel_of(b), rs, rcl, vt, i0, tk, WH, pl.vrel, tid);
+    stage_ld_v(ld_of(b), lse, delta, vt, i0, tk, tid);
+  };
+  stage_v(ko_s, ks, k, vt, key0, BW_ROWS, g.dkh, pl.vk, tid);
+  stage_v(vo_s, vs, v, vt, key0, BW_ROWS, g.dvh, pl.vv, tid);
+  stage_tile(0, 0);
+  cp_async_wait();
+  __syncthreads();
+
+  const int ra = warp % BW_WARPS * 16 + gl;
+  bool ok[2];
+  int kc_[2], kr_[2], pk[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int j = key0 + dkdv_key(warp, lane, i);
-    st.ok[i] = j < g.hw;
-    st.c[i] = st.ok[i] ? j % g.W : 0;
-    st.r[i] = st.ok[i] ? j / g.W : 0;
+    const int j = key0 + ra + 8 * i;
+    ok[i] = j < n;
+    const int tj = ok[i] ? vt.tok(j) : 0;
+    kc_[i] = tj % g.W;
+    kr_[i] = g.W + tj / g.W;
+    pk[i] = tok_s[4 * (ra + 8 * i)];
   }
+  float acc[NTO][4];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
+  for (int u = 0; u < NTO; ++u)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) st.dk[nd][i] = 0.f;
-#pragma unroll
-  for (int nv = 0; nv < NV; ++nv)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) st.dv[nv][i] = 0.f;
+    for (int i = 0; i < 4; ++i) acc[u][i] = 0.f;
 
-  for (int i0 = 0; i0 < g.hw; i0 += TN) {
-    const int qn = min(TN, g.hw - i0);
-    float s[TN / 8][4] = {}, dp[TN / 8][4] = {};
-    for (int c = 0; c < g.nk; ++c) {
-      __syncthreads();  // the previous tiles are consumed
-      stage<KW>(kv_s, KS, k, z, y, key0, kn, DKDV_ROWS, c * KW, g.dkh - c * KW, tid, NT);
-      stage<KW>(q_s, KS, q, z, y, i0, qn, TN, c * KW, g.dkh - c * KW, tid, NT);
-      __syncthreads();
-      load_a_frags(st.ka, kv_s, KS, ra, rb, t);
-#pragma unroll
-      for (int nt = 0; nt < TN / 8; ++nt) mma_k(s[nt], st.ka, q_s + (nt * 8 + gl) * KS + 2 * t);
+  const int ntiles = (n + tk - 1) / tk, ntk = tk / 8;
+  for (int it = 0; it < ntiles; ++it) {
+    const int i0 = it * tk, buf = it & 1;
+    if (it + 1 < ntiles) stage_tile(i0 + tk, buf ^ 1);
+    const bf16* q_s = q_of(buf);
+    const bf16* d_s = do_of(buf);
+    const RT* rel_s = rel_of(buf);
+    const float* ld_s = ld_of(buf);
+    float s[4][4] = {}, dp[4][4] = {};
+    if (ntg > 0) {
+      rows_product(s, ko_s, ks, ra, q_s, ks, pl.kp, ntk, gl, t);
+      rows_product(dp, vo_s, vs, ra, d_s, vs, pl.vp, ntk, gl, t);
     }
-    for (int c = 0; c < g.nv; ++c) {
-      __syncthreads();
-      stage<VW>(kv_s, VS, v, z, y, key0, kn, DKDV_ROWS, c * VW, g.dvh - c * VW, tid, NT);
-      stage<VW>(do_s, VS, dout, z, y, i0, qn, TN, c * VW, g.dvh - c * VW, tid, NT);
-      __syncthreads();
-      load_v_frags(st.va, kv_s, ra, rb, t);
 #pragma unroll
-      for (int nt = 0; nt < TN / 8; ++nt) mma_v(dp[nt], st.va, do_s + (nt * 8 + gl) * VS + 2 * t);
-    }
-    __syncthreads();
-    stage<KW>(q_s, KS, q, z, y, i0, qn, TN, chunk * KW, g.dkh - chunk * KW, tid, NT);
-    stage<VW>(do_s, VS, dout, z, y, i0, qn, TN, chunk * VW, g.dvh - chunk * VW, tid, NT);
-    for (int e = tid; e < TN * WH; e += NT) {
-      const int r = e / WH, c = e - r * WH;
-      rel_s[r * rel_stride + c] =
-          r < qn && rcl.p != nullptr ? to_f(rcl.row(z, y, i0 + r)[c]) : 0.f;
-    }
-    stage_ld(ld_s, lse.row(z, y, i0), delta.row(z, y, i0), qn, TN, tid, NT);
-    cp_async_wait();
-    __syncthreads();
-#pragma unroll
-    for (int qc = 0; qc < TN / 16; ++qc) {
-      if (qc * 16 < qn) {  // uniform across the block
+    for (int kc = 0; kc < 2; ++kc) {
+      if (kc * 16 < tk && ntg > 0) {  // uniform across the warp
         uint32_t pa[4], dsa[4];
 #pragma unroll
-        for (int half = 0; half < 2; ++half)
-          dkdv_ds(st, s[2 * qc + half], dp[2 * qc + half], qc * 16 + half * 8, ld_s, rel_s,
-                  rel_stride, paired, g.W, t, pa[2 * half], pa[2 * half + 1], dsa[2 * half],
-                  dsa[2 * half + 1]);
-        dkdv_accumulate(st, pa, dsa, qc, q_s, KS, do_s, lane);
+        for (int half = 0; half < 2; ++half) {
+          const int nt = 2 * kc + half, la = nt * 8 + 2 * t;  // queries la, la + 1 of the tile
+          const float4 ld = *reinterpret_cast<const float4*>(ld_s + 2 * la);
+          const RT* rqa = rel_s + la * rs;
+          const RT* rqb = rqa + rs;
+          bool m[4] = {ok[0], ok[0], ok[1], ok[1]};
+          if (packed) {  // each key sees its own pair's queries
+            const int qa = i0 + la, pa_ = qa < n ? tok_s[4 * qa] : -1,
+                      pb_ = qa + 1 < n ? tok_s[4 * qa + 4] : -1;
+            m[0] = m[0] && pk[0] == pa_;
+            m[1] = m[1] && pk[0] == pb_;
+            m[2] = m[2] && pk[1] == pa_;
+            m[3] = m[3] && pk[1] == pb_;
+          }
+          const float s0 = s[nt][0] + (to_f(rqa[kc_[0]]) + to_f(rqa[kr_[0]]));
+          const float s1 = s[nt][1] + (to_f(rqb[kc_[0]]) + to_f(rqb[kr_[0]]));
+          const float s2 = s[nt][2] + (to_f(rqa[kc_[1]]) + to_f(rqa[kr_[1]]));
+          const float s3 = s[nt][3] + (to_f(rqb[kc_[1]]) + to_f(rqb[kr_[1]]));
+          const float la2 = ld.x * LOG2E, lb2 = ld.z * LOG2E;
+          const float p0 = m[0] ? exp_shifted(s0, la2) : 0.f;
+          const float p1 = m[1] ? exp_shifted(s1, lb2) : 0.f;
+          const float p2 = m[2] ? exp_shifted(s2, la2) : 0.f;
+          const float p3 = m[3] ? exp_shifted(s3, lb2) : 0.f;
+          pa[2 * half] = pack_bf16(p0, p1);
+          pa[2 * half + 1] = pack_bf16(p2, p3);
+          dsa[2 * half] = pack_bf16(p0 * (dp[nt][0] - ld.y), p1 * (dp[nt][1] - ld.w));
+          dsa[2 * half + 1] = pack_bf16(p2 * (dp[nt][2] - ld.y), p3 * (dp[nt][3] - ld.w));
+        }
+        const bf16* q_row = q_s + (kc * 16 + (lane & 15)) * ks;
+        const bf16* d_row = d_s + (kc * 16 + (lane & 15)) * vs - ndk * 8;
+#pragma unroll
+        for (int u = 0; u < NTO; ++u) {  // dk += ds^T q, dv += p^T dout over the group's tiles
+          if (u < ntg) {
+            const int i = tc.t0 + u;
+            const bool is_k = i < ndk;
+            uint32_t b0, b1;
+            ldsm_x2_trans(b0, b1, (is_k ? q_row : d_row) + i * 8);
+            mma16816(acc[u], is_k ? dsa[0] : pa[0], is_k ? dsa[1] : pa[1], is_k ? dsa[2] : pa[2],
+                     is_k ? dsa[3] : pa[3], b0, b1);
+          }
+        }
       }
     }
+    cp_async_wait();
+    __syncthreads();  // the next tile has landed; this one is consumed
   }
 
-  const int d0 = chunk * KW, e0 = chunk * VW;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int j = key0 + dkdv_key(warp, lane, i);
-    if (j >= g.hw) continue;
+  for (int rr = 0; rr < 2; ++rr) {
+    const int j = key0 + ra + 8 * rr;
+    if (j >= n) continue;
+    bf16* dk_j = vt.row(dst.dk, j);
+    bf16* dv_j = vt.row(dst.dv, j);
+    const bool k_pairs = (reinterpret_cast<uintptr_t>(dk_j) & 3) == 0;
+    const bool v_pairs = (reinterpret_cast<uintptr_t>(dv_j) & 3) == 0;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int d = d0 + nd * 8 + 2 * t;
-      bf16* dk_j = dst.dk.row(z, y, j);
-      if (d < g.dkh) dk_j[d] = __float2bfloat16(st.dk[nd][2 * i]);
-      if (d + 1 < g.dkh) dk_j[d + 1] = __float2bfloat16(st.dk[nd][2 * i + 1]);
+    for (int u = 0; u < NTO; ++u) {
+      if (u < ntg) {
+        const int i = tc.t0 + u;
+        if (i < ndk)
+          store_pair(dk_j, i * 8 + 2 * t, g.dkh, k_pairs, acc[u][2 * rr], acc[u][2 * rr + 1]);
+        else
+          store_pair(dv_j, (i - ndk) * 8 + 2 * t, g.dvh, v_pairs, acc[u][2 * rr],
+                     acc[u][2 * rr + 1]);
+      }
     }
-#pragma unroll
-    for (int nv = 0; nv < NV; ++nv) {
-      const int c = e0 + nv * 8 + 2 * t;
-      bf16* dv_j = dst.dv.row(z, y, j);
-      if (c < g.dvh) dv_j[c] = __float2bfloat16(st.dv[nv][2 * i]);
-      if (c + 1 < g.dvh) dv_j[c + 1] = __float2bfloat16(st.dv[nv][2 * i + 1]);
-    }
-    if (chunk == 0)
-      for (int e = t; e < dst.npad; e += 4) dst.pad.row(z, y, j)[e] = __float2bfloat16(0.f);
+    if (tc.group == 0)
+      for (int e = t; e < dst.npad; e += 4) vt.row(dst.pad, j)[e] = __float2bfloat16(0.f);
   }
 }
 
@@ -783,38 +1247,120 @@ int fwd(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rel<T> rel, const int
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NBT>
-int dq_mma_nbt(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
-               Rows<const bf16> dout, Rows<const float> lse, Rows<const float> delta,
-               Rel<bf16> rel, const int* tab, DqOut<bf16> dst, Geo g, int Y, int Z,
-               void* stream) {
-  const int rs = rel_stride_of(g.W, g.H);
-  const size_t smem =
-      static_cast<size_t>(DQ_ROWS) * (rs + 2 + dq_stride<KW / 8>()) * sizeof(float) +
-                      key_table_words(bin_tiles(g.W, g.H)) * sizeof(int) +
-                      static_cast<size_t>((DQ_ROWS + TN) * KS) * sizeof(bf16);
-  auto kern = dq_mma_kernel<NBT>;
+// The widest copy (16 bytes, or 8, 4, at most cap) that every row of r
+// allows, its start and strides included; else the element size (plain loads).
+template <typename T>
+int copy_bytes(const Rows<T>& r, int cap) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(r.p);
+  const long long e = sizeof(T);
+  for (int v = cap; v >= 4; v /= 2)
+    if (a % v == 0 && r.sz * e % v == 0 && r.sy * e % v == 0 && r.sr * e % v == 0) return v;
+  return static_cast<int>(sizeof(T));
+}
+
+// Shared memory of a tensor-core pass at tk other tokens a tile (rel_bytes:
+// the element size of pass dkdv's RC rows).
+inline size_t tc_smem(bool pass_dq, int tk, int ks, int vs, int rs, int rel_bytes) {
+  const size_t own = static_cast<size_t>(BW_ROWS) * (ks + vs) * sizeof(bf16) +
+                     BW_ROWS * 4 * sizeof(int);
+  if (pass_dq)
+    return own + 2 * static_cast<size_t>(tk) * (ks + vs) * sizeof(bf16) +
+           static_cast<size_t>(BW_ROWS) * (rs + 2) * sizeof(float);
+  return own + 2 * static_cast<size_t>(tk) *
+                   ((ks + vs) * sizeof(bf16) + static_cast<size_t>(rs) * rel_bytes +
+                    2 * sizeof(float));
+}
+
+// The host's plan of a tensor-core pass (ops/fused_attention.py::
+// wide_bwd_plan, where it is chosen): (batch, head) pairs a tile, column
+// groups of the output's n8 tiles, warp groups a block, other tokens a tile
+// and the shared memory all that takes; tk 0 sends the pass to the
+// CUDA-core kernels.
+struct WidePlan {
+  int pack, groups, wg, tk, smem;
+};
+
+// The TcPlan of the host's plan wp for a tensor-core pass over (Y x Z) pairs
+// of the head g, at most cap n8 output tiles a group; false where the
+// kernels cannot run it: a pack that overfills a tile, a column group past
+// cap or empty, warp groups past BW_WG or the groups, tk other than 16 or 32,
+// shared memory other than tc_smem's or past BW_SMEM_MAX, or a grid too
+// large.
+inline bool tc_plan(TcPlan& pl, bool pass_dq, const Geo& g, int Y, int Z, int cap,
+                    int rel_bytes, const WidePlan& wp) {
+  const long long np = static_cast<long long>(Y) * Z;
+  pl.Y = Y;
+  pl.np = static_cast<int>(np);
+  pl.pack = wp.pack;
+  if (wp.pack < 1 || (wp.pack > 1 && static_cast<long long>(wp.pack) * g.hw > BW_ROWS) ||
+      wp.groups < 1 || wp.wg < 1 || wp.wg > BW_WG || wp.wg > wp.groups ||
+      (wp.tk != 16 && wp.tk != 32))
+    return false;
+  pl.kp = (g.dkh + 15) / 16 * 16;
+  pl.vp = (g.dvh + 15) / 16 * 16;
+  pl.ks = pl.kp + 8;
+  pl.vs = pl.vp + 8;
+  pl.rs = rel_stride_of(g.W, g.H);
+  pl.nbt = bin_tiles(g.W, g.H);
+  pl.words = key_table_words(pl.nbt);
+  const int tiles = (g.dkh + 7) / 8 + (pass_dq ? 0 : (g.dvh + 7) / 8);
+  pl.ngroup = wp.groups;
+  pl.ntg = (tiles + pl.ngroup - 1) / pl.ngroup;
+  if (pl.ntg > cap || (pl.ngroup - 1) * pl.ntg >= tiles) return false;
+  pl.wg = wp.wg;
+  pl.gblocks = (pl.ngroup + pl.wg - 1) / pl.wg;
+  pl.ntile = pl.pack > 1 ? 1 : (g.hw + BW_ROWS - 1) / BW_ROWS;
+  const long long npg = pl.pack > 1 ? (np + pl.pack - 1) / pl.pack : np;
+  if (np > 0x7fffffff || npg * pl.ntile * pl.gblocks > 0x7fffffff) return false;
+  pl.tk = wp.tk;
+  const size_t smem = tc_smem(pass_dq, pl.tk, pl.ks, pl.vs, pl.rs, rel_bytes);
+  return smem == static_cast<size_t>(wp.smem) && smem <= BW_SMEM_MAX;
+}
+
+inline dim3 tc_grid(const TcPlan& pl) {
+  const long long npg = pl.pack > 1 ? (static_cast<long long>(pl.np) + pl.pack - 1) / pl.pack
+                                    : pl.np;
+  return dim3(static_cast<unsigned>(npg * pl.ntile * pl.gblocks));
+}
+
+template <int NBT, int NTG>
+int dq_tc(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rows<const bf16> dout,
+          Rows<const float> lse, Rows<const float> delta, Rel<bf16> rel, const int* tab,
+          DqOut<bf16> dst, Geo g, const TcPlan& pl, void* stream) {
+  const size_t smem = tc_smem(true, pl.tk, pl.ks, pl.vs, pl.rs, 4);
+  auto kern = dq_tc_kernel<NBT, NTG>;
   const cudaError_t e = amma::allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((g.hw + DQ_ROWS - 1) / DQ_ROWS * g.nk, Y, Z);
-  kern<<<grid, DQ_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, dout, lse, delta, rel, tab, dst, g, rs);
+  kern<<<tc_grid(pl), pl.wg * BW_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, dout, lse, delta, rel, tab, dst, g, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
+// wp: the host's plan of the pass (WidePlan); tk 0 runs the CUDA-core kernel,
+// which f32 always does.
 template <typename T>
 int dq(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rows<const T> dout,
        Rows<const float> lse, Rows<const float> delta, Rel<T> rel, const int* tab, DqOut<T> dst,
-       Geo g, int Y, int Z, void* stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (mma_fits(g.W, g.H)) {
-      if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
+       Geo g, int Y, int Z, const WidePlan& wp, void* stream) {
+  if (wp.tk != 0) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      const bool few_bins = bin_tiles(g.W, g.H) <= 4;
+      TcPlan pl;
+      if (!mma_fits(g.W, g.H) || tab == nullptr ||
+          reinterpret_cast<uintptr_t>(tab) % 16 != 0 ||
+          !tc_plan(pl, true, g, Y, Z, few_bins ? NTO : NTO_BINS, 4, wp))
         return static_cast<int>(cudaErrorInvalidValue);
-      const int nb = bin_tiles(g.W, g.H);
-      if (nb <= 4) return dq_mma_nbt<4>(q, k, v, dout, lse, delta, rel, tab, dst, g, Y, Z, stream);
-      if (nb <= 10)
-        return dq_mma_nbt<10>(q, k, v, dout, lse, delta, rel, tab, dst, g, Y, Z, stream);
-      return dq_mma_nbt<MAX_BIN_TILES>(q, k, v, dout, lse, delta, rel, tab, dst, g, Y, Z, stream);
+      pl.vq = copy_bytes(q, 16);
+      pl.vk = copy_bytes(k, 16);
+      pl.vv = copy_bytes(v, 16);
+      pl.vdo = copy_bytes(dout, 16);
+      pl.vrel = 4;
+      if (few_bins)
+        return dq_tc<4, NTO>(q, k, v, dout, lse, delta, rel, tab, dst, g, pl, stream);
+      return dq_tc<MAX_BIN_TILES, NTO_BINS>(q, k, v, dout, lse, delta, rel, tab, dst, g, pl,
+                                            stream);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   const int rs = (g.W + g.H) | 1;
@@ -832,19 +1378,26 @@ int dq(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rows<const T> dout,
 template <typename T, typename RT>
 int dkdv(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rows<const T> dout,
          Rows<const float> lse, Rows<const float> delta, Rows<const RT> rcl, DkdvOut<T> dst,
-         Geo g, int Y, int Z, void* stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (mma_fits(g.W, g.H)) {
-      const int rs = rel_stride_of(g.W, g.H);
-      const size_t smem = static_cast<size_t>(DKDV_ROWS * KS + TN * (KS + VS)) * sizeof(bf16) +
-                          static_cast<size_t>(TN) * (rs + 2) * sizeof(float);
-      auto kern = dkdv_mma_kernel<RT>;
+         Geo g, int Y, int Z, const WidePlan& wp, void* stream) {
+  if (wp.tk != 0) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      TcPlan pl;
+      if (!mma_fits(g.W, g.H) || !tc_plan(pl, false, g, Y, Z, NTO, sizeof(RT), wp))
+        return static_cast<int>(cudaErrorInvalidValue);
+      pl.vq = copy_bytes(q, 16);
+      pl.vk = copy_bytes(k, 16);
+      pl.vv = copy_bytes(v, 16);
+      pl.vdo = copy_bytes(dout, 16);
+      pl.vrel = copy_bytes(rcl, sizeof(RT) == 2 ? 8 : 16);  // bf16 RC rows: 8-byte rows in smem
+      const size_t smem = static_cast<size_t>(wp.smem);
+      auto kern = dkdv_tc_kernel<RT>;
       const cudaError_t e = amma::allow_smem(kern, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
-      const dim3 grid((g.hw + DKDV_ROWS - 1) / DKDV_ROWS * max(g.nk, g.nv), Y, Z);
-      kern<<<grid, DKDV_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-          q, k, v, dout, lse, delta, rcl, dst, g, rs);
+      kern<<<tc_grid(pl), pl.wg * BW_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+          q, k, v, dout, lse, delta, rcl, dst, g, pl);
       return static_cast<int>(cudaGetLastError());
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   const int rs = (g.W + g.H) | 1;

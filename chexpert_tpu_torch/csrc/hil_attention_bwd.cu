@@ -29,11 +29,11 @@
 //     dP rows and its dRC rows to a scratch (B, nh, hw, W+H) f32;
 //   pass dkdv: a block per (batch, head, 128-key tile) walks every query and
 //     writes the k, v and pad lanes of its dP rows;
-//   pass drel: a block per image column (or row) and batch element, a
-//     thread per lane m of its dRC rows and share of the heads; sums
-//     q[t, d] * dRC[t, m] over the heads and the H (or W) tokens of the
-//     column (or row) in a fixed order into a per-batch partial; one torch
-//     sum over the batch follows.
+//   pass drel: a block per image column (or row) and group of bsplit batch
+//     elements, a thread per lane m of its dRC rows, share of the heads and
+//     batch element; sums q[t, d] * dRC[t, m] over the heads, batch elements
+//     and the H (or W) tokens of the column (or row) in a fixed order into a
+//     partial per group; one torch sum over the groups follows.
 // Why a scratch and not per-block partials of dRw / dRh: a token adds an
 // outer product q (x) dRC_w to the block of its own column, so a partial
 // shrinks only by the number of tokens of one column that a block holds. A
@@ -88,8 +88,11 @@
 // their dkh-wide rows DK wide in registers. The largest class's library also
 // takes any wider head, in the nk / nv chunks the entries receive:
 // attention_wide.cuh's dq and dkdv passes (both routes hand the RC rows on
-// through the rc scratch), and drel in nk chunks of DK lanes on the grid's z
-// axis.
+// through the rc scratch; on the tensor cores a block forms p and ds once
+// per tile pair for every output column of its group), and drel in
+// chunks of DREL_LANES lanes on the grid's z axis.
+
+#include <type_traits>
 
 #include "attention_wide.cuh"
 #include "hil_attention_common.cuh"
@@ -699,29 +702,77 @@ hil_attention_bwd_dq_kernel(const T* __restrict__ P, const float* __restrict__ R
   }
 }
 
+constexpr size_t DREL_SMEM_MAX = 64 * 1024;  // pass drel's partial sums in a block
+constexpr int DREL_LANES = 32;  // lanes of dkh a thread of pass drel holds (DK), but the zoo's
+
+// Lanes a q load of pass drel takes: 16 bytes where DK holds whole ones,
+// else 4 lanes, else 1.
+template <int DK, typename T>
+__host__ __device__ constexpr int drel_vec() {
+  constexpr int w = 16 / static_cast<int>(sizeof(T));
+  return DK % w == 0 ? w : DK % 4 == 0 ? 4 : 1;
+}
+
+// acc[d] += q[t, d0 + d] * gv for d < dc (lanes past dc take what lies
+// beyond, inside the slot, and are never written): drel_vec lanes a load
+// where vec (every token's lanes start on that many elements), else one.
+template <int DK, typename T>
+__device__ __forceinline__ void q_fma(float (&acc)[DK], const T* qt, float gv, int dc, bool vec) {
+  constexpr int VEC = drel_vec<DK, T>();
+  if constexpr (VEC > 1) {
+    if (vec) {
+      using V = typename std::conditional<VEC * sizeof(T) == 16, uint4, uint2>::type;
+#pragma unroll
+      for (int d = 0; d < DK; d += VEC) {
+        if (d < dc) {
+          const V raw = __ldg(reinterpret_cast<const V*>(qt + d));
+          const T* w = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[d + i] = fmaf(to_f32(w[i]), gv, acc[d + i]);
+        }
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < DK; ++d)
+    if (d < dc) acc[d] = fmaf(to_f32(qt[d]), gv, acc[d]);
+}
+
 // The (dkh, n) block of dRw (blockIdx.x < W: image column blockIdx.x, n = W)
-// or of dRh (above: image row blockIdx.x - W, n = H) for one batch element,
-// its lanes d0 .. d0 + dc - 1 of dkh (d0 = blockIdx.z * DK: a head wider than
-// the class takes ceil(dkh / DK) chunks on the grid's z axis). A thread owns
-// one lane m of the block's dRC rows and a share of the heads, and holds the
-// chunk's dc sums of that lane (DK wide, zero past dc): each dRC entry is
-// read once per chunk, the q lanes of a token are the same address for every
-// thread of a head. The heads' partial sums meet in shared memory and are
-// added in a fixed order.
+// or of dRh (above: image row blockIdx.x - W, n = H) for bsplit batch
+// elements (group blockIdx.y), its lanes d0 .. d0 + dc - 1 of dkh (d0 =
+// blockIdx.z * DK: a head wider than DK, DREL_LANES or the zoo's 20, takes
+// ceil(dkh / DK) chunks on the grid's z axis, so a thread holds 32 sums and
+// not a width class's 128). A thread owns one lane m of the block's dRC rows, a
+// share of the heads (hsplit) and one batch element of the group (bsplit),
+// and holds the chunk's dc sums of that lane (DK wide, zero past
+// dc): each dRC entry is read once per chunk, the q lanes of a token are the
+// same address for every thread of a head (16-byte loads where the slots
+// allow). The partial sums of the heads and batch elements meet in shared
+// memory and are added in a fixed order (batch element, then head), one
+// partial per group. hil_attention.py::drel_plan picks hsplit and bsplit so
+// that a block has at least 128 threads where the batch allows (at 8x8 with
+// two heads a block had 16 before batch elements shared one); the large maps
+// keep one batch element a block (bsplit 1).
 template <typename T, int DK>
 __global__ void hil_attention_bwd_drel_kernel(const T* __restrict__ P,
                                               const float* __restrict__ drc,
-                                              float* __restrict__ part, int hw, int H, int W,
-                                              int nh, int slot, int dkh, int hsplit) {
-  extern __shared__ float red_s[];  // hsplit x dc x n
+                                              float* __restrict__ part, int B, int hw, int H,
+                                              int W, int nh, int slot, int dkh, int hsplit,
+                                              int bsplit, int vec) {
+  extern __shared__ float red_s[];  // bsplit x hsplit x dc x n
   dkh = DK == DK_ZOO ? DK_ZOO : dkh;  // the zoo's width as a constant, as it was tuned
   const int d0 = DK == DK_ZOO ? 0 : static_cast<int>(blockIdx.z) * DK;
   const int dc = min(DK, dkh - d0);
-  const int b = blockIdx.y;
   const bool is_w = static_cast<int>(blockIdx.x) < W;
   const int n = is_w ? W : H;                      // width of the block's rows
   const int idx = is_w ? blockIdx.x : blockIdx.x - W;
-  const int m = threadIdx.x % n, hy = threadIdx.x / n;
+  // a lane of max(W, H) threads per (batch element, head share)
+  const int nl = W > H ? W : H;
+  const int m = threadIdx.x % nl, hb = threadIdx.x / nl;
+  const int hy = hb % hsplit, bb = hb / hsplit;
+  const int b = static_cast<int>(blockIdx.y) * bsplit + bb;
   const int WH = W + H;
   const int ntok = is_w ? H : W;                   // tokens of one column / row
   const int t0 = is_w ? idx : idx * W;
@@ -731,24 +782,21 @@ __global__ void hil_attention_bwd_drel_kernel(const T* __restrict__ P,
   float acc[DK];
 #pragma unroll
   for (int d = 0; d < DK; ++d) acc[d] = 0.f;
-  // the block has max(W, H) * hsplit threads: on the shorter axis some are spare
-  for (int h = hy < hsplit ? hy : nh; h < nh; h += hsplit) {
+  // spare threads: a lane past n, a batch slot past B
+  const bool active = m < n && b < B;
+  for (int h = active ? hy : nh; h < nh; h += hsplit) {
     const T* q = P + static_cast<size_t>(b) * hw * row + static_cast<size_t>(h) * slot + d0;
     const float* g = drc + (static_cast<size_t>(b) * nh + h) * hw * WH + lane;
 #pragma unroll 4
     for (int u = 0; u < ntok; ++u) {
       const size_t t = t0 + u * tstep;
-      const float gv = g[t * WH];
-      const T* qt = q + t * row;
-#pragma unroll
-      for (int d = 0; d < DK; ++d)
-        if (d < dc) acc[d] = fmaf(to_f32(qt[d]), gv, acc[d]);
+      q_fma<DK>(acc, q + t * row, g[t * WH], dc, vec);
     }
   }
-  if (hy < hsplit) {
+  if (m < n) {
 #pragma unroll
     for (int d = 0; d < DK; ++d)
-      if (d < dc) red_s[(hy * dc + d) * n + m] = acc[d];
+      if (d < dc) red_s[((bb * hsplit + hy) * dc + d) * n + m] = acc[d];
   }
   __syncthreads();
   const size_t per_b = static_cast<size_t>(dkh) * (W * W + H * H);
@@ -756,10 +804,11 @@ __global__ void hil_attention_bwd_drel_kernel(const T* __restrict__ P,
       (is_w ? static_cast<size_t>(idx) * dkh * W
             : static_cast<size_t>(dkh) * W * W + static_cast<size_t>(idx) * dkh * H) +
       static_cast<size_t>(d0) * n;
+  const int nb = min(bsplit, B - static_cast<int>(blockIdx.y) * bsplit);
   for (int e = threadIdx.x; e < dc * n; e += blockDim.x) {  // e = d * n + m
     float sum = 0.f;
-    for (int y = 0; y < hsplit; ++y) sum += red_s[y * dc * n + e];
-    part[b * per_b + off + e] = sum;
+    for (int y = 0; y < nb * hsplit; ++y) sum += red_s[y * dc * n + e];
+    part[blockIdx.y * per_b + off + e] = sum;
   }
 }
 
@@ -834,47 +883,55 @@ int launch_dq(const void* P, const void* Rw, const void* Rh, const void* dout, c
 
 template <typename T, int DK>
 int launch_drel_dk(const void* P, const void* drc, void* part, int B, int hw, int H, int W,
-                   int nh, int slot, int dkh, int nk, void* stream) {
+                   int nh, int slot, int dkh, int hsplit, int bsplit, void* stream) {
   const int n = W > H ? W : H, dc = dkh < DK ? dkh : DK;
-  int hsplit = 1024 / n < nh ? 1024 / n : nh;  // heads that work side by side in a block
-  while (static_cast<size_t>(hsplit) * dc * n * sizeof(float) > 48 * 1024 && hsplit > 1) --hsplit;
-  const size_t smem = static_cast<size_t>(hsplit) * dc * n * sizeof(float);
+  const size_t smem = static_cast<size_t>(bsplit) * hsplit * dc * n * sizeof(float);
+  if (hsplit < 1 || hsplit > nh || bsplit < 1 || bsplit > B ||
+      static_cast<long long>(n) * hsplit * bsplit > 1024 || smem > DREL_SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kern = hil_attention_bwd_drel_kernel<T, DK>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(W + H, B, nk);
-  kern<<<grid, n * hsplit, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(P), static_cast<const float*>(drc), static_cast<float*>(part), hw,
-      H, W, nh, slot, dkh, hsplit);
+  constexpr int VEC = drel_vec<DK, T>();
+  const int vec = reinterpret_cast<uintptr_t>(P) % (VEC * sizeof(T)) == 0 && slot % VEC == 0;
+  const dim3 grid(W + H, (B + bsplit - 1) / bsplit, (dkh + DK - 1) / DK);
+  kern<<<grid, n * hsplit * bsplit, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(P), static_cast<const float*>(drc), static_cast<float*>(part), B,
+      hw, H, W, nh, slot, dkh, hsplit, bsplit, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
+// hsplit, bsplit: hil_attention.py::drel_plan; part holds ceil(B / bsplit)
+// partials.
 template <typename T>
 int launch_drel(const void* P, const void* drc, void* part, int B, int hw, int H, int W,
-                int nh, int slot, int dkh, int nk, void* stream) {
+                int nh, int slot, int dkh, int nk, int hsplit, int bsplit, void* stream) {
   const int route = attention_wide::route(dkh, 1, nk, 1);
   if (route < 0 || bad_shape(B, hw, H, W, nh, slot, route > 0 ? 1 : dkh, 1) ||
       slot < 2 * dkh + 1 || W + H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((W > H ? W : H) > 1024) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (amma::KW == 32) {
     if (dkh == DK_ZOO)
-      return launch_drel_dk<T, DK_ZOO>(P, drc, part, B, hw, H, W, nh, slot, dkh, nk, stream);
+      return launch_drel_dk<T, DK_ZOO>(P, drc, part, B, hw, H, W, nh, slot, dkh, hsplit, bsplit,
+                                       stream);
   }
-  return launch_drel_dk<T, amma::KW>(P, drc, part, B, hw, H, W, nh, slot, dkh, nk, stream);
+  return launch_drel_dk<T, DREL_LANES>(P, drc, part, B, hw, H, W, nh, slot, dkh, hsplit, bsplit,
+                                       stream);
 }
 
 // A head past the largest width class (attention_wide.cuh): the slots' rows,
-// grid (tiles x chunks, nh, B). The RC rows reach pass dkdv through the rc
-// scratch of pass dq on both routes.
+// grid (tiles x chunks, nh, B); wp, the host's plan of the pass. The RC rows
+// reach pass dkdv through the rc scratch of pass dq on both routes.
 struct Slots {
   long long n, row, orow, rcs;
   int B, nh, slot, dkh, dvh;
   attention_wide::Geo g;
-  Slots(int B_, int hw, int H, int W, int nh_, int slot_, int dkh_, int dvh_, int nk, int nv)
+  attention_wide::WidePlan wp;
+  Slots(int B_, int hw, int H, int W, int nh_, int slot_, int dkh_, int dvh_, int nk, int nv,
+        attention_wide::WidePlan wp_)
       : n(hw), row(static_cast<long long>(nh_) * slot_), orow(static_cast<long long>(nh_) * dvh_),
         rcs(W + H), B(B_), nh(nh_), slot(slot_), dkh(dkh_), dvh(dvh_),
-        g{hw, H, W, dkh_, dvh_, nk, nv} {}
+        g{hw, H, W, dkh_, dvh_, nk, nv}, wp(wp_) {}
   bool bad() const {
     return B < 1 || B > 65535 || nh < 1 || nh > 65535 || slot < 2 * dkh + dvh ||
            g.hw != g.H * g.W || g.hw < 1;
@@ -902,7 +959,7 @@ int dkdv_wide(const void* P, const void* Rw, const void* Rh, const void* dout, c
       sl.heads(static_cast<const float*>(rc), sl.rcs),
       attention_wide::DkdvOut<T>{sl.lanes(d + sl.dkh), sl.lanes(d + 2 * sl.dkh),
                        sl.lanes(d + 2 * sl.dkh + sl.dvh), sl.slot - 2 * sl.dkh - sl.dvh},
-      sl.g, sl.nh, sl.B, stream);
+      sl.g, sl.nh, sl.B, sl.wp, stream);
 }
 
 template <typename T>
@@ -922,7 +979,7 @@ int dq_wide(const void* P, const void* Rw, const void* Rh, const void* dout, con
       attention_wide::DqOut<T>{sl.lanes(static_cast<T*>(dP)), {},
                                sl.heads(static_cast<float*>(drc), sl.rcs),
                                sl.heads(static_cast<float*>(rc), sl.rcs)},
-      sl.g, sl.nh, sl.B, stream);
+      sl.g, sl.nh, sl.B, sl.wp, stream);
 }
 
 // The bf16 entries take the tensor-core passes wherever amma::mma_fits (every
@@ -932,17 +989,20 @@ int dq_wide(const void* P, const void* Rw, const void* Rh, const void* dout, con
 // (ops/fused_attention.py::key_table) that the tensor-core dq reads; the
 // class's CUDA-core kernels ignore both. nk, nv: the head's chunk counts
 // (ops/fused_attention.py::width_plan), 1 and 1 for a head its class holds; a
-// wider head takes attention_wide.cuh, whose passes use rc on both routes.
+// wider head takes attention_wide.cuh, whose passes use rc on both routes, in
+// the plan pack, groups, wg, tk, smem of ops/fused_attention.py::bwd_plan_args
+// (attention_wide::WidePlan; all 0 for a head its class holds, and for f32).
 
 int dkdv_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
               const void* delta, void* dP, const void* rc, int B, int hw, int H, int W, int nh,
-              int slot, int dkh, int dvh, int nk, int nv, void* stream) {
+              int slot, int dkh, int dvh, int nk, int nv, attention_wide::WidePlan wp,
+              void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
       return dkdv_wide<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, dP, rc,
-                                      Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv), stream);
+                                      Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv, wp), stream);
   }
   if (!amma::mma_fits(W, H))
     return launch_dkdv<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, dP, B, hw, H, W, nh, slot,
@@ -956,13 +1016,14 @@ int dkdv_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, c
 
 int dq_bf16(const void* P, const void* Rw, const void* Rh, const void* dout, const void* lse,
             const void* delta, const void* tab, void* dP, void* drc, void* rc, int B, int hw,
-            int H, int W, int nh, int slot, int dkh, int dvh, int nk, int nv, void* stream) {
+            int H, int W, int nh, int slot, int dkh, int dvh, int nk, int nv,
+            attention_wide::WidePlan wp, void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
       return dq_wide<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc,
-                                    Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv), stream);
+                                    Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv, wp), stream);
   }
   if (!amma::mma_fits(W, H))
     return launch_dq<__nv_bfloat16>(P, Rw, Rh, dout, lse, delta, dP, drc, B, hw, H, W, nh, slot,
@@ -980,13 +1041,16 @@ extern "C" int hil_attention_bwd_dkdv_f32(const void* P, const void* Rw, const v
                                           const void* dout, const void* lse, const void* delta,
                                           void* dP, const void* rc, int B, int hw, int H, int W,
                                           int nh, int slot, int dkh, int dvh, int nk, int nv,
+                                          int pack, int groups, int wg, int tk, int smem,
                                           void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
       return dkdv_wide<float>(P, Rw, Rh, dout, lse, delta, dP, rc,
-                              Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv), stream);
+                              Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv,
+                                    {pack, groups, wg, tk, smem}),
+                              stream);
   }
   return launch_dkdv<float>(P, Rw, Rh, dout, lse, delta, dP, B, hw, H, W, nh, slot, dkh, dvh,
                             stream);
@@ -996,22 +1060,26 @@ extern "C" int hil_attention_bwd_dkdv_bf16(const void* P, const void* Rw, const 
                                            const void* dout, const void* lse, const void* delta,
                                            void* dP, const void* rc, int B, int hw, int H, int W,
                                            int nh, int slot, int dkh, int dvh, int nk, int nv,
+                                           int pack, int groups, int wg, int tk, int smem,
                                            void* stream) {
   return dkdv_bf16(P, Rw, Rh, dout, lse, delta, dP, rc, B, hw, H, W, nh, slot, dkh, dvh, nk, nv,
-                   stream);
+                   {pack, groups, wg, tk, smem}, stream);
 }
 
 extern "C" int hil_attention_bwd_dq_f32(const void* P, const void* Rw, const void* Rh,
                                         const void* dout, const void* lse, const void* delta,
                                         const void* tab, void* dP, void* drc, void* rc, int B,
                                         int hw, int H, int W, int nh, int slot, int dkh,
-                                        int dvh, int nk, int nv, void* stream) {
+                                        int dvh, int nk, int nv, int pack, int groups, int wg,
+                                        int tk, int smem, void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
       return dq_wide<float>(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc,
-                            Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv), stream);
+                            Slots(B, hw, H, W, nh, slot, dkh, dvh, nk, nv,
+                                  {pack, groups, wg, tk, smem}),
+                            stream);
   }
   return launch_dq<float>(P, Rw, Rh, dout, lse, delta, dP, drc, B, hw, H, W, nh, slot, dkh, dvh,
                           stream);
@@ -1021,17 +1089,20 @@ extern "C" int hil_attention_bwd_dq_bf16(const void* P, const void* Rw, const vo
                                          const void* dout, const void* lse, const void* delta,
                                          const void* tab, void* dP, void* drc, void* rc, int B,
                                          int hw, int H, int W, int nh, int slot, int dkh,
-                                         int dvh, int nk, int nv, void* stream) {
+                                         int dvh, int nk, int nv, int pack, int groups, int wg,
+                                         int tk, int smem, void* stream) {
   return dq_bf16(P, Rw, Rh, dout, lse, delta, tab, dP, drc, rc, B, hw, H, W, nh, slot, dkh, dvh,
-                 nk, nv, stream);
+                 nk, nv, {pack, groups, wg, tk, smem}, stream);
 }
 
 // nk: the chunk count of dkh (ops/fused_attention.py::width_plan), 1 for a
-// head its class holds.
+// head its class holds; hsplit, bsplit: hil_attention.py::drel_plan.
 #define DREL_ENTRY(NAME, T)                                                                  \
   extern "C" int NAME(const void* P, const void* drc, void* part, int B, int hw, int H,      \
-                      int W, int nh, int slot, int dkh, int nk, void* stream) {              \
-    return launch_drel<T>(P, drc, part, B, hw, H, W, nh, slot, dkh, nk, stream);             \
+                      int W, int nh, int slot, int dkh, int nk, int hsplit, int bsplit,      \
+                      void* stream) {                                                        \
+    return launch_drel<T>(P, drc, part, B, hw, H, W, nh, slot, dkh, nk, hsplit, bsplit,      \
+                          stream);                                                           \
   }
 
 DREL_ENTRY(hil_attention_bwd_drel_f32, float)

@@ -30,9 +30,10 @@
 // keeps its code). In the widest classes those register rows spill to local
 // memory: right, and slow (PERF.md records their times). The largest class's
 // library also takes any wider head, in the nk / nv chunks the entries
-// receive: attention_wide.cuh's passes sum S and dp over the chunks in the
-// block and split dk, dv and dq by chunks over the grid (the bins by chunk
-// 0).
+// receive: attention_wide.cuh's passes (on the tensor cores a block forms S,
+// p and ds once per tile pair over the whole head and feeds every output
+// column of its group; on the CUDA cores they sum S and dp over chunks and
+// split dk, dv and dq by chunks over the grid).
 //
 // Two sets of kernels, chosen by the operand dtype:
 //   bf16 (what autocast training hands over): the tensor-core passes of
@@ -654,13 +655,16 @@ int launch_dq(const void* qr, const void* k, const void* v, const void* dout,
 }
 
 // A head past the largest width class (attention_wide.cuh): head-major rows,
-// grid (tiles x chunks, bn).
+// grid (tiles x chunks, bn); wp, the host's plan of the pass.
 struct HeadMajor {
   long long n, L;
   int bn, dkh, dvh;
   attention_wide::Geo g;
-  HeadMajor(int bn_, int hw, int H, int W, int dkh_, int dvh_, int nk, int nv)
-      : n(hw), L(dkh_ + W + H), bn(bn_), dkh(dkh_), dvh(dvh_), g{hw, H, W, dkh_, dvh_, nk, nv} {}
+  attention_wide::WidePlan wp;
+  HeadMajor(int bn_, int hw, int H, int W, int dkh_, int dvh_, int nk, int nv,
+            attention_wide::WidePlan wp_)
+      : n(hw), L(dkh_ + W + H), bn(bn_), dkh(dkh_), dvh(dvh_), g{hw, H, W, dkh_, dvh_, nk, nv},
+        wp(wp_) {}
   bool bad() const { return g.hw != g.H * g.W || g.hw < 1 || bn < 1 || bn > 65535; }
   template <typename T>
   attention_wide::Rows<T> rows(T* p, long long width) const { return {p, 0, n * width, width}; }
@@ -678,7 +682,7 @@ int dkdv_wide(const void* qr, const void* k, const void* v, const void* dout, co
       hm.rows(q + hm.dkh, hm.L),
       attention_wide::DkdvOut<T>{hm.rows(static_cast<T*>(dk), hm.dkh),
                                  hm.rows(static_cast<T*>(dv), hm.dvh), {}, 0},
-      hm.g, hm.bn, 1, stream);
+      hm.g, hm.bn, 1, hm.wp, stream);
 }
 
 template <typename T>
@@ -694,7 +698,7 @@ int dq_wide(const void* qr, const void* k, const void* v, const void* dout, cons
       attention_wide::Rel<T>{hm.rows(q + hm.dkh, hm.L), nullptr, nullptr},
       static_cast<const int*>(tab),
       attention_wide::DqOut<T>{hm.rows(d, hm.L), hm.rows(d + hm.dkh, hm.L), {}, {}}, hm.g, hm.bn,
-      1, stream);
+      1, hm.wp, stream);
 }
 
 }  // namespace
@@ -702,18 +706,23 @@ int dq_wide(const void* qr, const void* k, const void* v, const void* dout, cons
 // The bf16 entries take the tensor-core passes wherever amma::mma_fits (every
 // map up to 64x64); a larger map takes the CUDA-core kernels above. nk, nv:
 // the head's chunk counts (ops/fused_attention.py::width_plan), 1 and 1 for a
-// head its class holds; a wider head takes attention_wide.cuh.
+// head its class holds; a wider head takes attention_wide.cuh, in the plan
+// pack, groups, wg, tk, smem of ops/fused_attention.py::bwd_plan_args
+// (attention_wide::WidePlan; all 0 for a head its class holds, and for f32).
 
 extern "C" int rel_attention_bwd_dkdv_f32(const void* qr, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* delta,
                                           void* dk, void* dv, int bn, int hw, int H, int W,
-                                          int dkh, int dvh, int nk, int nv, void* stream) {
+                                          int dkh, int dvh, int nk, int nv, int pack, int groups,
+                                          int wg, int tk, int smem, void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
       return dkdv_wide<float>(qr, k, v, dout, lse, delta, dk, dv,
-                              HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv), stream);
+                              HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv,
+                                        {pack, groups, wg, tk, smem}),
+                              stream);
   }
   return launch_dkdv<float>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh, stream);
 }
@@ -721,13 +730,16 @@ extern "C" int rel_attention_bwd_dkdv_f32(const void* qr, const void* k, const v
 extern "C" int rel_attention_bwd_dkdv_bf16(const void* qr, const void* k, const void* v,
                                            const void* dout, const void* lse, const void* delta,
                                            void* dk, void* dv, int bn, int hw, int H, int W,
-                                           int dkh, int dvh, int nk, int nv, void* stream) {
+                                           int dkh, int dvh, int nk, int nv, int pack,
+                                           int groups, int wg, int tk, int smem, void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
       return dkdv_wide<__nv_bfloat16>(qr, k, v, dout, lse, delta, dk, dv,
-                                      HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv), stream);
+                                      HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv,
+                                                {pack, groups, wg, tk, smem}),
+                                      stream);
   }
   if (!amma::mma_fits(W, H))
     return launch_dkdv<__nv_bfloat16>(qr, k, v, dout, lse, delta, dk, dv, bn, hw, H, W, dkh, dvh,
@@ -742,13 +754,16 @@ extern "C" int rel_attention_bwd_dkdv_bf16(const void* qr, const void* k, const 
 extern "C" int rel_attention_bwd_dq_f32(const void* qr, const void* k, const void* v,
                                         const void* dout, const void* lse, const void* delta,
                                         const void* tab, void* dqr, int bn, int hw, int H,
-                                        int W, int dkh, int dvh, int nk, int nv, void* stream) {
+                                        int W, int dkh, int dvh, int nk, int nv, int pack,
+                                        int groups, int wg, int tk, int smem, void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
       return dq_wide<float>(qr, k, v, dout, lse, delta, tab, dqr,
-                            HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv), stream);
+                            HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv,
+                                      {pack, groups, wg, tk, smem}),
+                            stream);
   }
   return launch_dq<float>(qr, k, v, dout, lse, delta, dqr, bn, hw, H, W, dkh, dvh, stream);
 }
@@ -756,13 +771,16 @@ extern "C" int rel_attention_bwd_dq_f32(const void* qr, const void* k, const voi
 extern "C" int rel_attention_bwd_dq_bf16(const void* qr, const void* k, const void* v,
                                          const void* dout, const void* lse, const void* delta,
                                          const void* tab, void* dqr, int bn, int hw, int H,
-                                         int W, int dkh, int dvh, int nk, int nv, void* stream) {
+                                         int W, int dkh, int dvh, int nk, int nv, int pack,
+                                         int groups, int wg, int tk, int smem, void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
       return dq_wide<__nv_bfloat16>(qr, k, v, dout, lse, delta, tab, dqr,
-                                    HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv), stream);
+                                    HeadMajor(bn, hw, H, W, dkh, dvh, nk, nv,
+                                              {pack, groups, wg, tk, smem}),
+                                    stream);
   }
   if (!amma::mma_fits(W, H))
     return launch_dq<__nv_bfloat16>(qr, k, v, dout, lse, delta, dqr, bn, hw, H, W, dkh, dvh,

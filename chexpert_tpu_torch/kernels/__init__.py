@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -87,6 +88,11 @@ def _lib_path(target: Target) -> Path:
     return BUILD_DIR / f"{name}{tag}-{h.hexdigest()[:16]}.so"
 
 
+def _log_path(target: Target) -> Path:
+    """nvcc's output (its ``-Xptxas -v`` report) beside the library."""
+    return _lib_path(target).with_suffix(".ptxas")
+
+
 def build(which: Iterable[Union[str, Target]]) -> Dict[str, float]:
     """Compile the libraries named by ``which`` (source names or (name,
     defines) targets) that have no current library, one nvcc process each,
@@ -103,7 +109,7 @@ def build(which: Iterable[Union[str, Target]]) -> Dict[str, float]:
             took[label(target)] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *target[1], "-o", str(tmp),
+        cmd = [nvcc_path(), *NVCC_FLAGS, *target[1], "-Xptxas", "-v", "-o", str(tmp),
                str(CSRC_DIR / f"{target[0]}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         done = {}
@@ -122,6 +128,7 @@ def build(which: Iterable[Union[str, Target]]) -> Dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{done['log']}")
             continue
+        _log_path(next(t for t in todo if label(t) == name)).write_text(done["log"])
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -145,6 +152,57 @@ def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(target)))
             _libs[target] = lib
         return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)' for '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def parse_ptxas(log: str) -> list:
+    """One record per kernel of an ``-Xptxas -v`` log: symbol, arch,
+    registers, static shared memory, stack frame and spill bytes."""
+    records, cur = [], None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = {"symbol": m.group(1), "arch": m.group(2)}
+            records.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = _FRAME.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(s.group(1)) if s else 0
+    return records
+
+
+def demangle(names) -> Dict[str, str]:
+    """The C++ names of mangled symbols, where c++filt is installed (else
+    the symbols themselves)."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.split("\n")
+        return dict(zip(names, out))
+    except (OSError, subprocess.SubprocessError):
+        return {n: n for n in names}
+
+
+def ptxas_report(target: Union[str, Sequence]) -> list:
+    """``parse_ptxas`` of the current library ``target``'s build (the report
+    ``build`` keeps beside it), each record with its C++ name as ``kernel``;
+    empty where the library has not been built."""
+    log = _log_path(_target(target))
+    records = parse_ptxas(log.read_text() if log.exists() else "")
+    names = demangle([r["symbol"] for r in records]) if records else {}
+    for r in records:
+        r["kernel"] = names[r["symbol"]]
+    return records
 
 
 def check(err: int, name: str) -> None:

@@ -57,6 +57,14 @@ WIDTH_SOURCES = ("rel_attention_fwd", "rel_attention_bwd", "hil_attention_fwd",
                  "hil_attention_bwd")
 MMA_MAX_BIN_TILES = 16  # csrc/attention_bwd_mma.cuh MAX_BIN_TILES
 KEY_TILE = 64           # csrc/attention_bwd_mma.cuh TN: keys per row of the key table
+# csrc/attention_wide.cuh: the tensor-core backward passes of a head past the
+# largest class, whose plan ``wide_bwd_plan`` chooses (tc_plan checks it)
+BW_ROWS = 64            # BW_ROWS: own tokens of a block
+BW_NTO = 32             # NTO: n8 output tiles a warp holds (pass dkdv; dq with <= 4 bin tiles)
+BW_NTO_BINS = 16        # NTO_BINS: pass dq with more bin tiles
+BW_SMEM_MAX = 232448    # BW_SMEM_MAX: dynamic shared memory of one block on the H100
+BW_WG = 2               # BW_WG: column groups (warp groups of 4 warps) a block holds at most
+SM_SMEM = 233472        # shared memory of an H100 SM, 1 KB of it reserved per block
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _BF16_ONE = 0x3F80      # 1.0 in bf16
 
@@ -126,12 +134,89 @@ def on_tensor_cores(dtype, H: int, W: int) -> bool:
     return dtype == torch.bfloat16 and bin_tiles(H, W) <= MMA_MAX_BIN_TILES
 
 
+def bwd_pack(H: int, W: int, dkh: int, dvh: int) -> int:
+    """The (batch, head) pairs that one BW_ROWS-token tile of the tensor-core
+    backward passes of ``csrc/attention_wide.cuh`` packs: a head past the
+    largest width class on a map of at most BW_ROWS / 2 tokens takes
+    BW_ROWS // hw (1x1: 64, 2x2: 16, 4x4: 4), anything else 1. Pass dq reads
+    the key table of that many copies of the map (``key_table``)."""
+    hw = H * W
+    if width_plan(dkh, dvh)[1:] == (1, 1) or hw > BW_ROWS // 2:
+        return 1
+    return BW_ROWS // hw
+
+
+def _rel_stride(W: int, H: int) -> int:  # csrc/attention_bwd_mma.cuh rel_stride_of
+    s = W + H
+    return s + ((4 - s % 8) + 8) % 8
+
+
+def wide_bwd_plan(H: int, W: int, dkh: int, dvh: int, layout: str = "bn") -> dict:
+    """The plan of the tensor-core backward passes for a bf16 head past the
+    largest width class, chosen here alone: the entries take it
+    (``bwd_plan_args``) and csrc/attention_wide.cuh's ``tc_plan`` refuses a
+    plan its kernels cannot run, shared memory other than its own count
+    included. Per pass the column groups (each a warp group's n8 output
+    tiles, dq's over dkh, dkdv's over [dk | dv]), n8 tiles per group, warp
+    groups a block (BW_WG where there are several groups: they share the
+    block's staged rows), other tokens per tile (tk: 32, or 16 where that
+    alone lets two one-group blocks share an SM) and shared memory in bytes;
+    None for a pass whose rows do not fit at tk 16 (the CUDA-core passes take
+    it), as for a map past ``on_tensor_cores``. ``layout``: "bn" (pass dkdv
+    stages bf16 RC lanes of qr) or "hil" (f32 rows of the rc scratch)."""
+    hw = H * W
+    pack = bwd_pack(H, W, dkh, dvh)
+    kp, vp = -(-dkh // 16) * 16, -(-dvh // 16) * 16
+    ks, vs, rs = kp + 8, vp + 8, _rel_stride(W, H)
+    plan = {"pack": pack, "own_tiles": 1 if pack > 1 else -(-hw // BW_ROWS)}
+    for name in ("dq", "dkdv"):
+        is_dq = name == "dq"
+        tiles = -(-dkh // 8) + (0 if is_dq else -(-dvh // 8))
+        cap = BW_NTO if not is_dq or bin_tiles(H, W) <= 4 else BW_NTO_BINS
+        groups = -(-tiles // cap)
+        rel_bytes = 2 if layout == "bn" else 4
+        own = BW_ROWS * (ks + vs) * 2 + BW_ROWS * 16
+        plan[name] = None
+        if not on_tensor_cores(torch.bfloat16, H, W):
+            continue
+        smem = {tk: (own + 2 * tk * (ks + vs) * 2 + BW_ROWS * (rs + 2) * 4 if is_dq
+                     else own + 2 * tk * ((ks + vs) * 2 + rs * rel_bytes + 8))
+                for tk in (32, 16)}
+        wg = BW_WG if groups > 1 else 1
+        tk = next((tk for tk in (32, 16) if wg == 1 and 2 * (smem[tk] + 1024) <= SM_SMEM),
+                  next((tk for tk in (32, 16) if smem[tk] <= BW_SMEM_MAX), None))
+        if tk is not None:
+            plan[name] = {"groups": groups, "tiles": -(-tiles // groups), "warp_groups": wg,
+                          "blocks_per_tile": -(-groups // wg), "tk": tk, "smem": smem[tk]}
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan_args(pass_name: str, dtype, H: int, W: int, dkh: int, dvh: int,
+                  layout: str = "bn") -> Tuple[int, int, int, int, int]:
+    """The plan that the backward entries take for pass ``pass_name`` ("dq"
+    or "dkdv"), after the head's chunk counts: (pack, column groups, warp
+    groups a block, tk, shared memory bytes) of ``wide_bwd_plan``, which the
+    tensor-core pass runs; all 0 for a head its width class holds, for f32
+    or a map past ``on_tensor_cores``, and for a pass whose rows do not fit
+    (the CUDA-core passes take those)."""
+    if width_plan(dkh, dvh)[1:] == (1, 1) or not on_tensor_cores(dtype, H, W):
+        return (0, 0, 0, 0, 0)
+    plan = wide_bwd_plan(H, W, dkh, dvh, layout)
+    p = plan[pass_name]
+    if p is None:
+        return (0, 0, 0, 0, 0)
+    return (plan["pack"], p["groups"], p["warp_groups"], p["tk"], p["smem"])
+
+
 @functools.lru_cache(maxsize=64)
-def key_table(H: int, W: int, device: torch.device) -> torch.Tensor:
+def key_table(H: int, W: int, device: torch.device, pack: int = 1) -> torch.Tensor:
     """What the tensor-core kernels need to know of each tile of 64 keys (the
     dq passes all of it, the forwards the key positions): an int32 table
     (tiles, words) that depends on the map alone, so it is built once per
-    (H, W, device) and kept. Per row (``KeyTable`` in
+    (H, W, device, pack) and kept. ``pack`` > 1 (``bwd_plan_args``): the
+    keys are ``pack`` copies of the map's hw tokens one after another, key v
+    being token v % hw (one row). Per row (``KeyTable`` in
     csrc/attention_bwd_mma.cuh):
 
       [4 chunks of 16 keys][bin tiles][32 lanes][2]  the B fragments (b0, b1)
@@ -143,10 +228,11 @@ def key_table(H: int, W: int, device: torch.device) -> torch.Tensor:
       [64]  per key, image column | row << 16 (0 past the last key)
     """
     hw, nbw, nbt = H * W, -(-W // 8), bin_tiles(H, W)
-    tiles = -(-hw // KEY_TILE)
+    nkeys = pack * hw
+    tiles = -(-nkeys // KEY_TILE)
     key = torch.arange(tiles * KEY_TILE)
-    col = torch.where(key < hw, key % W, -1)
-    row = torch.where(key < hw, key // W, -1)
+    col = torch.where(key < nkeys, key % hw % W, -1)
+    row = torch.where(key < nkeys, key % hw // W, -1)
     lane = torch.arange(32)
     g, t = lane >> 2, lane & 3
     tile = torch.arange(nbt)
@@ -161,7 +247,7 @@ def key_table(H: int, W: int, device: torch.device) -> torch.Tensor:
     frags = torch.stack([hit(0) * _BF16_ONE | hit(1) * (_BF16_ONE << 16),
                          hit(8) * _BF16_ONE | hit(9) * (_BF16_ONE << 16)], dim=-1)
     touched = ((frags != 0).any(-1).any(-1).long() << tile[None, :]).sum(-1)  # (chunks,)
-    kpos = torch.where(key < hw, col | (row << 16), 0)
+    kpos = torch.where(key < nkeys, col | (row << 16), 0)
     table = torch.cat([frags.reshape(tiles, -1), touched.reshape(tiles, -1),
                        kpos.reshape(tiles, -1)], dim=1)
     return table.to(torch.int32).contiguous().to(device)
@@ -295,12 +381,13 @@ def rel_attention_bwd_dkdv(qr, k, v, dout, lse, delta, H: int, W: int, dkh: int)
     if qr.device.type == "cpu":
         return rel_attention_bwd_dkdv_plain(qr, k, v, dout, lse, delta, H, W, dkh)
     bn, hw, _ = qr.shape
-    fn = _kernel_entry(BWD_DKDV, BWD_SOURCE, (qr, k, v, dout), (lse, delta), dkh, v.shape[-1])
+    dvh = v.shape[-1]
+    fn = _kernel_entry(BWD_DKDV, BWD_SOURCE, (qr, k, v, dout), (lse, delta), dkh, dvh)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     kernels.launch(BWD_DKDV, fn,
                    [t.data_ptr() for t in (qr, k, v, dout, lse, delta, dk, dv)],
-                   [bn, hw, H, W, dkh, v.shape[-1], *width_plan(dkh, v.shape[-1])[1:]],
-                   qr.device)
+                   [bn, hw, H, W, dkh, dvh, *width_plan(dkh, dvh)[1:],
+                    *bwd_plan_args("dkdv", qr.dtype, H, W, dkh, dvh)], qr.device)
     return dk, dv
 
 
@@ -311,14 +398,15 @@ def rel_attention_bwd_dq(qr, k, v, dout, lse, delta, H: int, W: int, dkh: int):
     if qr.device.type == "cpu":
         return rel_attention_bwd_dq_plain(qr, k, v, dout, lse, delta, H, W, dkh)
     bn, hw, _ = qr.shape
-    fn = _kernel_entry(BWD_DQ, BWD_SOURCE, (qr, k, v, dout), (lse, delta), dkh, v.shape[-1])
+    dvh = v.shape[-1]
+    fn = _kernel_entry(BWD_DQ, BWD_SOURCE, (qr, k, v, dout), (lse, delta), dkh, dvh)
     dqr = torch.empty_like(qr)
-    tab = key_table(H, W, qr.device) if on_tensor_cores(qr.dtype, H, W) else None
+    plan = bwd_plan_args("dq", qr.dtype, H, W, dkh, dvh)
+    tab = key_table(H, W, qr.device, max(plan[0], 1)) if on_tensor_cores(qr.dtype, H, W) else None
     kernels.launch(BWD_DQ, fn,
                    [None if t is None else t.data_ptr()
                     for t in (qr, k, v, dout, lse, delta, tab, dqr)],
-                   [bn, hw, H, W, dkh, v.shape[-1], *width_plan(dkh, v.shape[-1])[1:]],
-                   qr.device)
+                   [bn, hw, H, W, dkh, dvh, *width_plan(dkh, dvh)[1:], *plan], qr.device)
     return dqr
 
 

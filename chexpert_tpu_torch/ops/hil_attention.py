@@ -52,6 +52,7 @@ import torch
 
 from chexpert_tpu_torch import kernels
 from chexpert_tpu_torch.ops.fused_attention import (
+    bwd_plan_args,
     key_positions,
     key_table,
     on_tensor_cores,
@@ -65,6 +66,10 @@ BWD_DKDV = "hil_attention_bwd_dkdv"
 BWD_DQ = "hil_attention_bwd_dq"
 BWD_DREL = "hil_attention_bwd_drel"
 BWD_PASSES = (BWD_DKDV, BWD_DQ, BWD_DREL)
+DREL_THREADS = 128          # pass drel's least threads a block, where the batch allows
+DREL_LANES = 32             # csrc/hil_attention_bwd.cu DREL_LANES: lanes of dkh a thread holds
+DREL_SMEM_MAX = 64 * 1024   # csrc/hil_attention_bwd.cu DREL_SMEM_MAX
+DREL_HEAD_SMEM = 48 * 1024  # the heads' partial sums alone (hsplit's limit)
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -284,8 +289,8 @@ def hil_attention_bwd_dkdv(P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slo
                          f"{BWD_DQ}, got {None if rc is None else tuple(rc.shape)}")
     fn = _kernel_entry(BWD_DKDV, BWD_SOURCE, (P0, dout, dP), (Rw, Rh, lse, delta, rc), dkh, dvh)
     kernels.launch(BWD_DKDV, fn, [_ptr(t) for t in (P0, Rw, Rh, dout, lse, delta, dP, rc)],
-                   [P0.shape[0], H * W, H, W, nh, slot, dkh, dvh, *width_plan(dkh, dvh)[1:]],
-                   P0.device)
+                   [P0.shape[0], H * W, H, W, nh, slot, dkh, dvh, *width_plan(dkh, dvh)[1:],
+                    *bwd_plan_args("dkdv", P0.dtype, H, W, dkh, dvh, "hil")], P0.device)
 
 
 def hil_attention_bwd_dq(P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slot):
@@ -300,27 +305,51 @@ def hil_attention_bwd_dq(P0, Rw, Rh, dout, lse, delta, dP, H, W, dkh, dvh, slot)
     drc = None if Rw is None else torch.empty(shape, dtype=torch.float32, device=P0.device)
     rc = (torch.empty(shape, dtype=torch.float32, device=P0.device)
           if Rw is not None and _reads_rc(P0.dtype, H, W, dkh, dvh) else None)
-    tab = key_table(H, W, P0.device) if on_tensor_cores(P0.dtype, H, W) else None
+    plan = bwd_plan_args("dq", P0.dtype, H, W, dkh, dvh, "hil")
+    tab = key_table(H, W, P0.device, max(plan[0], 1)) if on_tensor_cores(P0.dtype, H, W) else None
     kernels.launch(BWD_DQ, fn,
                    [_ptr(t) for t in (P0, Rw, Rh, dout, lse, delta, tab, dP, drc, rc)],
-                   [P0.shape[0], H * W, H, W, nh, slot, dkh, dvh, *width_plan(dkh, dvh)[1:]],
-                   P0.device)
+                   [P0.shape[0], H * W, H, W, nh, slot, dkh, dvh, *width_plan(dkh, dvh)[1:],
+                    *plan], P0.device)
     return drc, rc
+
+
+def drel_plan(B: int, H: int, W: int, nh: int, dkh: int) -> Tuple[int, int]:
+    """(hsplit, bsplit) of pass drel (csrc/hil_attention_bwd.cu): a block
+    has max(W, H) threads for each of hsplit shares of the heads and bsplit
+    batch elements. hsplit takes every head that fits 1024 threads and
+    DREL_HEAD_SMEM of partial sums; bsplit then grows until the block has
+    DREL_THREADS threads, or the batch, 1024 threads or DREL_SMEM_MAX run
+    out. The kernel writes one partial per group of bsplit batch elements."""
+    n = max(W, H)
+    dc = min(dkh, DREL_LANES)  # the lanes of dkh a block holds (DK)
+    hsplit = min(1024 // n, nh)
+    while hsplit > 1 and hsplit * dc * n * 4 > DREL_HEAD_SMEM:
+        hsplit -= 1
+    bsplit = 1
+    while (n * hsplit * bsplit < DREL_THREADS and bsplit < B
+           and n * hsplit * (bsplit + 1) <= 1024
+           and (bsplit + 1) * hsplit * dc * n * 4 <= DREL_SMEM_MAX):
+        bsplit += 1
+    return hsplit, bsplit
 
 
 def hil_attention_bwd_drel(P0, drc, H: int, W: int, dkh: int, slot: int, dvh: int = 1):
     """Pass 3 of B6 on the card: (dRw, dRh) f32; the kernel writes one
-    partial per batch element, summed here in a fixed order. ``dvh`` picks
-    the library (the width class of the other passes); the kernel reads q
-    and dRC alone."""
+    partial per group of batch elements (``drel_plan``), summed here in a
+    fixed order. ``dvh`` picks the library (the width class of the other
+    passes); the kernel reads q and dRC alone."""
     B, hw, width = P0.shape
     nh = width // slot
     if drc.shape != (B, nh, hw, W + H):
         raise ValueError(f"dRC {tuple(drc.shape)} does not match P0 {tuple(P0.shape)}")
     fn = _kernel_entry(BWD_DREL, BWD_SOURCE, (P0,), (drc,), dkh, dvh, W, H)
-    part = torch.empty((B, dkh * (W * W + H * H)), dtype=torch.float32, device=P0.device)
+    hsplit, bsplit = drel_plan(B, H, W, nh, dkh)
+    part = torch.empty((-(-B // bsplit), dkh * (W * W + H * H)), dtype=torch.float32,
+                       device=P0.device)
     kernels.launch(BWD_DREL, fn, [_ptr(t) for t in (P0, drc, part)],
-                   [B, hw, H, W, nh, slot, dkh, width_plan(dkh, dvh)[1]], P0.device)
+                   [B, hw, H, W, nh, slot, dkh, width_plan(dkh, dvh)[1], hsplit, bsplit],
+                   P0.device)
     dR = part.sum(0)
     return dR[:dkh * W * W].view(W * dkh, W), dR[dkh * W * W:].view(H * dkh, H)
 

@@ -212,6 +212,7 @@ import importlib.util
 import io
 import json
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -2202,6 +2203,32 @@ def _rel_err(names, got, want) -> dict:
             for n, g, w in zip(names, got, want)}
 
 
+ATTENTION_PASSES = ("fwd", "dq", "dkdv", "drel")
+
+
+def pass_registers(source: str, cls) -> dict:
+    """Registers and spill stores of the kernels of ``source``'s library for
+    the width class ``cls``, by the pass that each kernel's name carries
+    (ATTENTION_PASSES), from the ``-Xptxas -v`` report of the library's
+    build (kernels.ptxas_report): per pass the most over its kernels (every
+    route, dtype and compile-time tile of that pass, the one that ran among
+    them) and how many there are."""
+    from chexpert_tpu_torch import kernels
+    from chexpert_tpu_torch.ops.fused_attention import width_defines
+
+    found = {p: [] for p in ATTENTION_PASSES}
+    for r in kernels.ptxas_report((source, width_defines(cls))):
+        name = r["kernel"].replace("(anonymous namespace)::", "").replace("void ", "", 1)
+        words = re.split(r"[<(]", name)[0].split("::")[-1].split("_")
+        for p in ATTENTION_PASSES:
+            if p in words:
+                found[p].append(r)
+    return {p: {"registers": max((r.get("registers", 0) for r in rs), default=None),
+                "spill_stores": max((r.get("spill_stores", 0) for r in rs), default=None),
+                "kernels": len(rs)}
+            for p, rs in found.items()}
+
+
 def bench_attention_rows(geos, nh=NH, time_f32=False):
     """B1, B2's two passes, B5 and B6's three passes at each (H, W, dvh, dkh)
     of ``geos`` and BENCH_BATCH x nh heads, f32 and bf16, against their plain
@@ -2348,7 +2375,15 @@ def bench_attention_rows(geos, nh=NH, time_f32=False):
             torch.cuda.empty_cache()
             row["ok"] = (finite and max(max(b1_err.values()), max(b5_err.values())) <= TOL[dtype]
                          and max(max(b2_err.values()), max(b6_err.values())) <= BWD_TOL[dtype])
+            row["registers"] = {
+                f"{k} {p}": pass_registers(src, cls)[p]
+                for k, src, ps in (("b1", "rel_attention_fwd", ("fwd",)),
+                                   ("b2", "rel_attention_bwd", ("dkdv", "dq")),
+                                   ("b5", "hil_attention_fwd", ("fwd",)),
+                                   ("b6", "hil_attention_bwd", ("dq", "dkdv", "drel")))
+                for p in ps}
             rows.append(row)
+            regs = row["registers"]
             times = ""
             if timed:
                 times = (f"; device ms B1 {row['b1']['ms']:.4f} (plain {row['b1']['plain_ms']:.4f}"
@@ -2367,7 +2402,10 @@ def bench_attention_rows(geos, nh=NH, time_f32=False):
                   f"{ {n: float(f'{e:.3g}') for n, e in b5_err.items()} } (tol {TOL[dtype]}); "
                   f"B2 rel err { {n: float(f'{e:.3g}') for n, e in b2_err.items()} } B6 rel err "
                   f"{ {n: float(f'{e:.3g}') for n, e in b6_err.items()} } (tol "
-                  f"{BWD_TOL[dtype]}){times}", flush=True)
+                  f"{BWD_TOL[dtype]}){times}; registers / spill stores (most over the "
+                  f"pass's kernels) "
+                  f"{ {k: (r['registers'], r['spill_stores']) for k, r in regs.items()} }",
+                  flush=True)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"an attention kernel disagrees with its plain version at a "
@@ -2644,6 +2682,8 @@ def bench_run(argv, layout, smi: str, per_step: dict, per_eval: dict, steps: int
     steady = rec["ms"][1:] or rec["ms"]  # the first step builds kernels' tables, plans cuDNN
     ms_step = statistics.median(steady)
     device_step = statistics.median(rec["device_ms"]) if rec["device_ms"] else float("nan")
+    attention_step = (statistics.median(g["attention"] for g in rec["groups_ms"])
+                      if rec["groups_ms"] else float("nan"))
     checks = {
         "steps": len(rec["step"]) == steps and len(losses) == steps,
         "losses_finite": bool(np.isfinite(losses).all()),
@@ -2660,6 +2700,7 @@ def bench_run(argv, layout, smi: str, per_step: dict, per_eval: dict, steps: int
            "eval_forwards": len(rec["eval"]), "captures": len(rec["capture"]),
            "ms_per_step": ms_step, "step_ms": rec["ms"],
            "device_ms_per_step": device_step, "profiled_wall_ms": rec["wall_ms"],
+           "attention_ms_per_step": attention_step,
            "top_kernels_ms": rec["top_kernels_ms"], "device_ms_by_group": rec["groups_ms"],
            "busy_share": device_step / ms_step, "images_per_sec": BENCH_BATCH / ms_step * 1e3,
            "peak_gib": peak_gib, "wall_s": wall_s, "vis_files": len(vis),
@@ -2669,7 +2710,8 @@ def bench_run(argv, layout, smi: str, per_step: dict, per_eval: dict, steps: int
           f"step {rec['step'][-1] if rec['step'] else {}} (want {per_step}), per eval forward "
           f"{rec['eval'][-1] if rec['eval'] else {}} (want {per_eval}), {len(rec['capture'])} "
           f"captures; {ms_step:.2f} ms/step (median after the first; steps "
-          f"{[round(t, 2) for t in rec['ms']]}), device {device_step:.2f} ms/step (profiler), "
+          f"{[round(t, 2) for t in rec['ms']]}), device {device_step:.2f} ms/step (profiler; "
+          f"attention kernels {attention_step:.2f}), "
           f"busy {out['busy_share']:.3f}, {out['images_per_sec']:.1f} img/s, peak "
           f"{peak_gib:.2f} GiB, wall {wall_s:.1f} s, {len(vis)} vis files (matplotlib "
           f"{'present' if rendered else f'absent: {len(maps)} calls kept'}), on {smi}; checks "

@@ -55,6 +55,8 @@ from chexpert_tpu_torch.ops.fused_attention import (
     rel_attention_bwd_plain,
     rel_attention_fwd,
     rel_attention_fwd_plain,
+    bwd_pack,
+    wide_bwd_plan,
     width_class,
     width_plan,
 )
@@ -63,7 +65,10 @@ from chexpert_tpu_torch.ops.hil_attention import (
     BWD_PASSES,
     FWD,
     HilAttention,
+    drel_plan,
     hil_attention_bwd,
+    hil_attention_bwd_drel,
+    hil_attention_bwd_drel_plain,
     hil_attention_bwd_plain,
     hil_attention_fwd,
     hil_attention_fwd_plain,
@@ -418,10 +423,11 @@ def _check_close(name, got, want, tol, scale_by_max):
     assert err <= tol * scale, (name, err, scale)
 
 
-def _match_plain(dkh, dvh, B, nh, H, W, layout, dtype):
+def _match_plain(dkh, dvh, B, nh, H, W, layout, dtype, slot=None):
     """B1 / B5 and every backward pass of B2 / B6 at the head (dkh, dvh) and
     map against the plain versions: out and lse within TOL, the gradients
-    within BWD_TOL, one launch of each kernel, the pad lanes of dP zero."""
+    within BWD_TOL, one launch of each kernel, the pad lanes of dP zero
+    (heads-in-lanes at ``slot``, by default ``hil_slot``)."""
     dout_gen = torch.Generator().manual_seed(1)
     kernels.reset_launch_counts()
     if layout == "bn":
@@ -433,7 +439,7 @@ def _match_plain(dkh, dvh, B, nh, H, W, layout, dtype):
         want_b = rel_attention_bwd_plain(qr, k, v, out, lse, dout, H, W, dkh)
         names, launched = ("dqr", "dk", "dv"), {NAME: 1, BWD_DKDV: 1, BWD_DQ: 1}
     else:
-        slot = hil_slot(dkh, dvh)
+        slot = slot or hil_slot(dkh, dvh)
         P0, Rw, Rh = _hil_inputs(B, nh, H, W, dvh, dtype, slot, dkh=dkh)
         geo = (H, W, dkh, dvh, slot)
         out, lse = hil_attention_fwd(P0, Rw, Rh, *geo)
@@ -489,6 +495,140 @@ def test_wide_heads_match_plain(cuda, head, geo, layout, dtype):
     cls, nk, nv = width_plan(dkh, dvh)
     assert cls == WIDTH_CLASSES[-1] and (nk, nv) != (1, 1)
     _match_plain(dkh, dvh, *geo, layout, dtype)
+
+
+# the tensor-core passes' own cases of heads past the largest class: tiny
+# maps, several (batch, head) pairs a tile, B*nh not a multiple of the pack
+# (1x1 packs 64, 2x2 16, 4x4 4); maps whose tokens are not a multiple of the
+# 64-token tile (10x10, 20x20); the ragged (150, 75)
+PACK_CASES = [((512, 256), (5, 13, 1, 1)), ((160, 64), (3, 5, 2, 2)),
+              ((320, 128), (3, 3, 4, 4)), ((160, 64), (1, 3, 10, 10)),
+              ((150, 75), (1, 2, 20, 20)), ((150, 75), (2, 3, 10, 10))]
+
+
+@pytest.mark.parametrize("layout", ["bn", "hil"])
+@pytest.mark.parametrize("head,geo", PACK_CASES, ids=lambda x: "x".join(map(str, x)))
+def test_wide_heads_packed_and_ragged_maps(cuda, head, geo, layout):
+    """bf16 heads past (128, 64) on the tensor-core passes (wide_bwd_plan
+    finds room for both) at packed tiny maps and ragged token counts match
+    the plain versions."""
+    dkh, dvh = head
+    B, nh, H, W = geo
+    plan = wide_bwd_plan(H, W, dkh, dvh, layout)
+    assert plan["dq"] is not None and plan["dkdv"] is not None
+    assert plan["pack"] == bwd_pack(H, W, dkh, dvh)
+    assert plan["pack"] == 1 or (B * nh) % plan["pack"] != 0
+    _match_plain(dkh, dvh, B, nh, H, W, layout, torch.bfloat16)
+
+
+@pytest.mark.parametrize("head,geo", [((160, 64), (1, 2, 8, 8)), ((150, 75), (2, 3, 4, 4)),
+                                      ((129, 8), (1, 3, 5, 7))],
+                         ids=lambda x: "x".join(map(str, x)))
+def test_wide_heads_on_unaligned_slots(cuda, head, geo):
+    """Heads-in-lanes slots of 2 dkh + dvh + 3 lanes (odd): q, k and v lanes
+    start off 16, 8 and 4 bytes, so the tensor-core passes stage them by
+    narrower copies and 2-byte loads, and match the plain versions."""
+    dkh, dvh = head
+    _match_plain(dkh, dvh, *geo, "hil", torch.bfloat16, slot=2 * dkh + dvh + 3)
+
+
+# pass drel's plans: 8x8 with one and two heads (batch elements share a
+# block; 24 is not a multiple of bsplit), aaresnet152's 40x40 with 8 heads
+# (one batch element a block), a head past the largest class
+DREL_CASES = [(24, 1, 8, 8, 64, 32), (24, 2, 8, 8, 64, 32), (16, 8, 40, 40, 20, 1),
+              (40, 1, 8, 8, 320, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,nh,H,W,dkh,dvh", DREL_CASES)
+def test_drel_matches_plain_on_every_plan(cuda, B, nh, H, W, dkh, dvh, dtype):
+    """hil_attention_bwd_drel at drel_plan's split (threads a block >= 128
+    where the batch allows) against its plain version, f32 sums within 1e-4
+    relative to the largest entry."""
+    hsplit, bsplit = drel_plan(B, H, W, nh, dkh)
+    assert max(H, W) * hsplit * bsplit >= 128
+    slot = hil_slot(dkh, dvh)
+    P0, _, _ = _hil_inputs(B, nh, H, W, dvh, dtype, slot, relative=False, dkh=dkh)
+    drc = torch.randn(B, nh, H * W, W + H, generator=torch.Generator().manual_seed(3)).cuda()
+    kernels.reset_launch_counts()
+    got = hil_attention_bwd_drel(P0, drc, H, W, dkh, slot, dvh)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {BWD_PASSES[2]: 1}
+    for g, w in zip(got, hil_attention_bwd_drel_plain(P0, drc, H, W, dkh, slot)):
+        _check_close("dR", g, w, BWD_TOL[torch.float32], True)
+
+
+@pytest.mark.parametrize("layout", ["bn", "hil"])
+@pytest.mark.parametrize("head,geo", [((320, 128), (2, 2, 8, 8)), ((512, 256), (3, 5, 1, 1)),
+                                      ((64, 32), (2, 2, 8, 8))],
+                         ids=lambda x: "x".join(map(str, x)))
+def test_backward_is_deterministic(cuda, head, geo, layout):
+    """Two backward calls on the same inputs give bit-equal dq / dk / dv (dP)
+    and dRw / dRh: every block owns what it writes and sums in a fixed
+    order."""
+    dkh, dvh = head
+    B, nh, H, W = geo
+    dout_gen = torch.Generator().manual_seed(1)
+    if layout == "bn":
+        qr, k, v = _inputs(B, nh, H, W, dvh, torch.bfloat16, dkh=dkh)
+        out, lse = rel_attention_fwd(qr, k, v, H, W, dkh)
+        dout = torch.randn(out.shape, generator=dout_gen).to("cuda", torch.bfloat16)
+        runs = [rel_attention_bwd(qr, k, v, out, lse, dout, H, W, dkh) for _ in range(2)]
+    else:
+        geo5 = (H, W, dkh, dvh, hil_slot(dkh, dvh))
+        P0, Rw, Rh = _hil_inputs(B, nh, H, W, dvh, torch.bfloat16, geo5[4], dkh=dkh)
+        out, lse = hil_attention_fwd(P0, Rw, Rh, *geo5)
+        dout = torch.randn(out.shape, generator=dout_gen).to("cuda", torch.bfloat16)
+        runs = [hil_attention_bwd(P0, Rw, Rh, out, lse, dout, *geo5) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+# plans (pack, column groups, warp groups, tk, shared memory) that the
+# tensor-core passes refuse at (320, 128) on 8x8, made from the one that
+# wide_bwd_plan chooses: shared memory 16 bytes off its count, tk 64, one
+# column group where the tiles need two, a pack of 2 on a map of 64 tokens,
+# three warp groups a block
+BAD_PLANS = {"smem": lambda p: (*p[:4], p[4] + 16), "tk": lambda p: (*p[:3], 64, p[4]),
+             "groups": lambda p: (p[0], 1, 1, *p[3:]), "pack": lambda p: (2, *p[1:]),
+             "wg": lambda p: (*p[:2], 3, *p[3:])}
+
+
+@pytest.mark.parametrize("layout", ["bn", "hil"])
+@pytest.mark.parametrize("pass_name", ["dq", "dkdv"])
+@pytest.mark.parametrize("bad", sorted(BAD_PLANS))
+def test_wide_entries_refuse_a_plan_they_cannot_run(cuda, monkeypatch, layout, pass_name, bad):
+    """The tensor-core passes take the plan of wide_bwd_plan from the wrapper
+    (bwd_plan_args) and refuse one their kernels cannot run, its shared
+    memory included: the wrapper raises and counts no launch of the pass."""
+    from chexpert_tpu_torch.ops import fused_attention, hil_attention
+
+    dkh, dvh, B, nh, H, W = 320, 128, 2, 1, 8, 8
+    mod = fused_attention if layout == "bn" else hil_attention
+    real = fused_attention.bwd_plan_args
+    assert real(pass_name, torch.bfloat16, H, W, dkh, dvh, layout)[3] in (16, 32)
+    monkeypatch.setattr(mod, "bwd_plan_args", lambda name, *a: (
+        BAD_PLANS[bad](real(name, *a)) if name == pass_name else real(name, *a)))
+    dout_gen = torch.Generator().manual_seed(1)
+    if layout == "bn":
+        qr, k, v = _inputs(B, nh, H, W, dvh, torch.bfloat16, dkh=dkh)
+        out, lse = rel_attention_fwd(qr, k, v, H, W, dkh)
+        dout = torch.randn(out.shape, generator=dout_gen).to("cuda", torch.bfloat16)
+        kernels.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            rel_attention_bwd(qr, k, v, out, lse, dout, H, W, dkh)
+        name = BWD_DQ if pass_name == "dq" else BWD_DKDV
+    else:
+        geo5 = (H, W, dkh, dvh, hil_slot(dkh, dvh))
+        P0, Rw, Rh = _hil_inputs(B, nh, H, W, dvh, torch.bfloat16, geo5[4], dkh=dkh)
+        out, lse = hil_attention_fwd(P0, Rw, Rh, *geo5)
+        dout = torch.randn(out.shape, generator=dout_gen).to("cuda", torch.bfloat16)
+        kernels.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            hil_attention_bwd(P0, Rw, Rh, out, lse, dout, *geo5)
+        name = BWD_PASSES[1] if pass_name == "dq" else BWD_PASSES[0]
+    torch.cuda.synchronize()
+    assert name not in kernels.launch_counts()
 
 
 @pytest.mark.parametrize("dkh,dvh", [(0, 4), (20, 0)])
