@@ -38,9 +38,8 @@
 // ops/fused_attention.py::width_plan is its own library, compiled with
 // -DATTN_KW=KW -DATTN_VW=VW, and takes every dkh <= KW and dvh <= VW, passed at
 // run time, in the kernels of the .cu files; a head past the largest class
-// runs in that class's library (attention_wide.cuh: the forward in chunks of
-// KW / VW lanes, finishing a tile with fwd_logits / fwd_softmax; the backward
-// passes with their own tiles over the whole head). Padding lives in shared
+// runs in that class's library (attention_wide.cuh: the forward and the
+// backward passes with their own tiles over the whole head). Padding lives in shared
 // memory only: dkh -> KW as a contraction
 // (KW / 16 k16 steps) and -> 8 * ND as an output width (ND n8 tiles), dvh -> VW
 // as a width (VW / 8 n8 tiles) and -> 16 as a contraction where VW is 8 (the

@@ -174,23 +174,6 @@ __device__ __forceinline__ void fwd_step(FwdWarp& st, const bf16* k_s, int ks, c
   fwd_softmax(st, s, mx0, mx1, v_s, vs, lane);
 }
 
-// The same key tile where the products q . k^T are already in s (summed
-// over the chunks of a head wider than the class: attention_wide.cuh).
-template <typename RelT>
-__device__ __forceinline__ void fwd_update(FwdWarp& st, float (&s)[FWD_NT][4], const bf16* v_s,
-                                           int vs, const int* kpos, const RelT* rel_s,
-                                           int rel_stride, int W, int kn, int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const RelT* rel0 = rel_s + (warp * 16 + g) * rel_stride;
-  const RelT* rel1 = rel0 + 8 * rel_stride;
-  const bool paired = rc_paired(rel_s, W);
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < FWD_NT; ++nt)
-    fwd_logits(s[nt], s[nt], mx0, mx1, nt * 8, kpos, rel0, rel1, paired, W, kn, t);
-  fwd_softmax(st, s, mx0, mx1, v_s, vs, lane);
-}
-
 // The warp's results: out[nv][i] (rows g, g+8 at dv columns 8 nv + 2t,
 // 8 nv + 2t + 1, as st.o) and lse[r] of rows g and g+8.
 __device__ __forceinline__ void fwd_finish(const FwdWarp& st, float (&out)[NV][4],

@@ -8,41 +8,40 @@
 // with nk = ceil(dkh / KW) key chunks and nv = ceil(dvh / VW) value chunks
 // passed at run time (the entries check them against dkh and dvh).
 //
-// The forward (fwd_mma_kernel, fwd_core_kernel) and the CUDA-core backward
-// passes loop over the head dimensions in chunks: a contraction (S = q k^T
-// over dkh, dp = dout v^T over dvh) sums the chunks in the block, staged
-// through the class's tiles (KW or VW columns, or CW = 32 on the CUDA cores)
-// by 2-byte loads with zero fill; an output width splits over chunks on the
-// grid's x axis, next to the token tiles, and each block recomputes S and p
-// for its own output columns. The forward's chunk 0 writes lse; the CUDA-core
-// pass dq's chunk 0 writes the bins and the RC scratch, pass dkdv's the pad
-// lanes of a slot.
+// The CUDA-core kernels (f32, and bf16 maps past amma::mma_fits) loop over
+// the head dimensions in chunks: a contraction (S = q k^T over dkh, dp =
+// dout v^T over dvh) sums the chunks in the block, staged through CW = 32
+// columns by 2-byte loads with zero fill; an output width splits over chunks
+// on the grid's x axis, next to the token tiles, and each block recomputes S
+// and p for its own output columns. The forward's chunk 0 writes lse; pass
+// dq's chunk 0 writes the bins and the RC scratch, pass dkdv's the pad lanes
+// of a slot.
 //
-// The bf16 backward passes on the tensor cores (maps up to amma::mma_fits)
-// do not: a block computes S, dp, p and ds once per tile pair over the whole
-// head width and feeds every output column of its group from them, with
-// each operand row staged once per tile pair by cp.async into two buffers
-// (see "The backward passes on the tensor cores" below).
-// One launch per call, and every block owns what it writes: no atomics.
+// The bf16 kernels on the tensor cores (maps up to amma::mma_fits), the
+// forward and both backward passes, do not: a block computes S and p (and dp,
+// ds) once per tile pair over the whole head width and feeds every output
+// column of its column group from them, with each operand row staged once
+// per tile pair by cp.async into two buffers (see "The tensor-core kernels"
+// below). One launch per call, and every block owns what it writes: no
+// atomics.
 //
 // The relative logits: head-major, the RW / RH lanes of each query's qr row;
 // heads-in-lanes, RC[t, m] = sum_d q[t, d] Rw[(col(t), d), m] (and rows with
 // Rh) summed over all of dkh in f32 on the CUDA cores, by the one function
-// (rc_at) that the forward and pass dq both call, so the backward's p =
-// exp(S - lse) sees the forward's S. Pass dq leaves those rows in the rc
-// scratch, which pass dkdv reads on both routes (it is the only way pass
-// dkdv sees RC here). The relative part of dq, sum_m dRC[t, m] Rw[(col(t),
-// d), m], is summed on the CUDA cores from the block's bins.
+// (rc_at) that every forward and pass dq call, the tensor-core ones through
+// the same rc_rows, so the backward's p = exp(S - lse) sees the forward's S.
+// Pass dq leaves those rows in the rc scratch, which pass dkdv reads on both
+// routes (it is the only way pass dkdv sees RC here). The relative part of
+// dq, sum_m dRC[t, m] Rw[(col(t), d), m], is a product from the block's bins.
 //
-// Routes, as in the classes: bf16 maps up to amma::mma_fits run the
-// tensor-core kernels (the forward on the class's tiles with fwd_update of
-// attention_fwd_mma.cuh; the backward passes below), f32 and larger maps the
-// CUDA-core kernels, which stage CW = 32 columns at a time and split their
-// outputs by CW: their rows of dk, dv, dq and out stay CW registers wide.
-// A bf16 head whose rows do not fit the tensor-core passes' shared memory
-// (dkh + dvh past about 1150) takes the CUDA-core passes too: the host plans
-// each tensor-core pass (ops/fused_attention.py::wide_bwd_plan) and passes
-// the plan in, which tc_plan checks (WidePlan).
+// Routes: bf16 maps up to amma::mma_fits run the tensor-core kernels, f32
+// and larger maps the CUDA-core kernels, which stage CW = 32 columns at a
+// time and split their outputs by CW: their rows of dk, dv, dq and out stay
+// CW registers wide. A bf16 head whose rows do not fit a tensor-core
+// kernel's shared memory (dkh + dvh past about 1150) takes the CUDA-core
+// kernel too: the host plans each tensor-core kernel (ops/fused_attention.py
+// ::wide_fwd_plan, ::wide_bwd_plan) and passes the plan in, which tc_plan
+// checks (WidePlan).
 
 #pragma once
 
@@ -196,112 +195,66 @@ __device__ __forceinline__ void dq_rows_out(const DqOut<T>& dst, const float* bi
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core kernels (bf16, maps up to amma::mma_fits).
-
-// The forward: a block owns FWD_ROWS queries of one (batch, head) and value
-// chunk blockIdx.x % nv; per key tile, S over the nk chunks of dkh (q and k
-// chunks through q_s and k_s), then the online softmax and p v over its v
-// chunk.
-template <typename T>  // bf16: a template, so that only the library that runs it builds it
-__global__ void __launch_bounds__(FWD_WARPS * 32)
-fwd_mma_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rel<T> rel,
-               const int* __restrict__ tab, Rows<T> out, Rows<float> lse, Geo g,
-               int rel_stride) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* rel_s = reinterpret_cast<float*>(smem_raw);                  // FWD_ROWS x rel_stride
-  bf16* q_s = reinterpret_cast<bf16*>(rel_s + FWD_ROWS * rel_stride);  // FWD_ROWS x KS
-  bf16* k_s = q_s + FWD_ROWS * KS;                                     // TN x KS
-  bf16* v_s = k_s + TN * KS;                                           // TN x VS
-  int* kpos_s = reinterpret_cast<int*>(v_s + TN * VS);                 // TN
-
-  constexpr int NT = FWD_WARPS * 32;
-  const int chunk = blockIdx.x % g.nv, q0 = blockIdx.x / g.nv * FWD_ROWS;
-  const int y = blockIdx.y, z = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gl = lane >> 2, t = lane & 3;
-  const int qn = min(FWD_ROWS, g.hw - q0), nbt = bin_tiles(g.W, g.H);
-  const int v0 = chunk * VW, nvc = min(VW, g.dvh - v0);
-  rc_rows(rel_s, rel_stride, rel, q, z, y, q0, FWD_ROWS, g, tid, NT);
-
-  FwdWarp st;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    st.m[i] = -INFINITY;
-    st.l[i] = 0.f;
-  }
-#pragma unroll
-  for (int nv = 0; nv < NV; ++nv)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) st.o[nv][i] = 0.f;
-  for (int j0 = 0; j0 < g.hw; j0 += TN) {
-    const int kn = min(TN, g.hw - j0);
-    float s[FWD_NT][4] = {};
-    for (int c = 0; c < g.nk; ++c) {
-      __syncthreads();  // the previous chunk's tiles are consumed
-      stage<KW>(q_s, KS, q, z, y, q0, qn, FWD_ROWS, c * KW, g.dkh - c * KW, tid, NT);
-      stage<KW>(k_s, KS, k, z, y, j0, kn, TN, c * KW, g.dkh - c * KW, tid, NT);
-      __syncthreads();
-      load_a_frags(st.qa, q_s, KS, warp * 16 + gl, warp * 16 + gl + 8, t);
-#pragma unroll
-      for (int nt = 0; nt < FWD_NT; ++nt) mma_k(s[nt], st.qa, k_s + (nt * 8 + gl) * KS + 2 * t);
-    }
-    __syncthreads();
-    stage<VW>(v_s, VS, v, z, y, j0, kn, TN, v0, nvc, tid, NT);
-    stage_kpos(kpos_s, tab, j0 / TN, nbt, tid, NT);
-    cp_async_wait();
-    __syncthreads();
-    fwd_update(st, s, v_s, VS, kpos_s, rel_s, rel_stride, g.W, kn, warp, lane);
-  }
-  float o[NV][4], l[2];
-  fwd_finish(st, o, l);
-  fwd_store(o, l, out.row(z, y, 0) + v0, out.sr, chunk == 0 ? lse.row(z, y, 0) : nullptr,
-            q0 + warp * 16 + gl, g.hw, nvc, lane);
-}
-
-// The backward passes on the tensor cores (bf16, maps up to amma::mma_fits).
+// The tensor-core kernels (bf16, maps up to amma::mma_fits): the forward
+// (fwd_tc_kernel, B1 / B5) and the backward passes dq and dkdv (B2 / B6).
 //
 // A warp group of BW_WARPS warps owns BW_ROWS tokens of its own side
-// (queries in pass dq, keys in pass dkdv; a warp 16 rows) and a column group
-// of the output's n8 tiles (every tile of dq, or of [dk | dv], where one
-// group holds them), and walks the other side's tokens TK at a time (32, or
-// 16 where that lets two blocks share an SM). Per (own tile, other tile):
+// (queries in the forward and pass dq, keys in pass dkdv; a warp 16 rows)
+// and a column group of the output's n8 tiles (every tile of out, dq, or of
+// [dk | dv], where one group holds them), and walks the other side's tokens
+// TK at a time (32, or 16 where that lets two blocks share an SM). Per (own
+// tile, other tile):
 //   - S (and S^T) and dp over the whole head width, once: the own rows' A
 //     fragments and the other rows' B words read from shared memory, k16
 //     step by step over dkh padded to 16 (dvh likewise);
-//   - p and ds as bf16 A fragments in registers, once, reused by every
-//     output tile of the group: dq += ds k (and the bins dRC += ds onehot,
-//     from the key table); dk += ds^T q, dv += p^T dout.
+//   - p (and ds) as bf16 A fragments in registers, once, reused by every
+//     output tile of the group: out += p v under the online softmax; dq +=
+//     ds k (and the bins dRC += ds onehot, from the key table); dk += ds^T
+//     q, dv += p^T dout.
 // The own rows (all of dkh and dvh) are staged once per block; the other
 // rows, whole, once per tile pair, into two buffers: the next tile's
 // cp.async copies run under this tile's products. Copies are 16 bytes where
 // every row of the operand starts on 16 bytes (8, 4 where it does not: odd
 // slot offsets, ragged widths); rows that allow none (dvh 75: 150-byte
 // rows) and the columns past the last whole copy (dkh 150) take 2-byte
-// loads, several in flight a thread, and rows past the last token are zero.
+// loads, several in flight a thread, and rows past the last token are zero
+// (the backward) or left as they are where nothing reads them unmasked (the
+// forward).
 // Registers bound a column group: a warp holds NTO n8 tiles of its 16 rows
 // in f32 (dq with more than 4 bin tiles: NTO_BINS, beside its bins). A head
 // with more tiles takes ceil(tiles / NTO) groups, BW_WG of them a block as
 // warp groups that share the block's staged rows, RC rows and E; each warp
 // group computes S, dp, p and ds for its own columns (recomputed per group):
-// (320, 128) takes 2 groups in each pass (one block), (512, 256) 2 and 3,
-// (640, 320) 3 and 4.
-// Tiny maps: where hw <= BW_ROWS / 2 a tile packs pack = BW_ROWS / hw
+// (320, 128) takes 2 groups in each backward pass (one block), (512, 256) 2
+// and 3, (640, 320) 3 and 4; the forward one group up to dvh 256, two at
+// (640, 320).
+// Tiny maps: where hw <= BW_ROWS / 2 a tile packs up to BW_ROWS / hw
 // (batch, head) pairs (1x1: 64, 2x2: 16, 4x4: 4), virtual token v being
 // token v % hw of pair v / hw (tok_table), and S is masked to each pair's
 // own keys, so a block does the work of pack heads and not of one row in 64.
+// The backward packs BW_ROWS / hw. The forward packs the fewest pairs that
+// let the whole grid be resident at once (ops/fused_attention.py::fwd_pack:
+// a block's time hardly grows with its pairs, and a second wave of blocks
+// doubles the call), not pairs // 132, which keeps a block for every SM: at
+// 1x1 with 512 pairs that is 4 pairs a tile, 128 blocks, faster than 3 a
+// tile, 171 blocks in two waves (scripts/ab_attention_torch.py --packs).
 // mma.sync.m16n8k16, as the classes: a 64-row wgmma tile would hold a
 // warpgroup's accumulators for the whole group (four times a warp's) and
-// leave no registers for S and dp.
+// leave no registers for S and dp (in the forward, for S beside out's 32
+// n8 tiles at dvh 256).
 // Pass dq's relative part, sum_m dRC[t, m] Rw[(col(t), d), m], is a product
 // on the tensor cores from the bins (the class kernels' skew): E = rel_w^T
 // read back out of Rw a k16 step at a time; the RC rows stay rc_at's f32
-// sums, four rows in flight a thread.
+// sums (rc_rows, the forward's too: q from the staged rows, R staged in
+// chunks, each value of R feeding four queries).
 // Shared memory: (BW_ROWS + 2 TK) rows of dkh + dvh (padded to 16, + 8 a
-// row), the RC rows and (lse, delta): at most 203 KB at (512, 256) and 194
-// KB at (640, 320) (TK 16); a head whose rows do not fit even at TK 16
-// takes the CUDA-core kernels below. The plan (pack, column groups, warp
-// groups, TK, shared memory) is chosen on the host, once, by
-// ops/fused_attention.py::wide_bwd_plan; tc_plan fills in what follows from
-// it and refuses a plan the kernels cannot run.
+// row; the forward's own rows dkh alone), the RC rows and (lse, delta): at
+// most 203 KB at (512, 256) and 194 KB at (640, 320) (TK 16) in the
+// backward, 214 KB at (640, 320) in the forward; a head whose rows do not fit
+// even at TK 16 takes the CUDA-core kernels below. The plan (pack, column
+// groups, warp groups, TK, shared memory) is chosen on the host, once, by
+// ops/fused_attention.py::wide_fwd_plan / wide_bwd_plan; tc_plan fills in
+// what follows from it and refuses a plan the kernels cannot run.
 
 constexpr int BW_WARPS = 4;
 constexpr int BW_ROWS = BW_WARPS * 16;  // own tokens of a block
@@ -344,6 +297,279 @@ __device__ __forceinline__ void tok_table(int* tab_s, VTok& vt, int tid) {
   vt.tab = tab_s;
 }
 
+constexpr int RC_LANES = 4;  // RC lanes a thread reads at once in rc_rows (head-major)
+
+// cp.async groups: close the thread's copies issued so far into one group;
+// wait until at most N of its groups are in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// (r, c) of the elements e = tid, tid + threads, ... of rows x cols, stepped
+// by the block's threads without a division (stride (dr, dc), c < cols).
+struct Step {
+  int r, c, dr, dc, cols;
+  __device__ __forceinline__ Step(int tid, int threads, int cols_) : cols(cols_) {
+    dr = threads / cols;
+    dc = threads - dr * cols;
+    r = tid / cols;
+    c = tid - r * cols;
+  }
+  __device__ __forceinline__ void next() {
+    c += dc;
+    r += dr;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+};
+
+// Values c0 .. c0 + dn - 1 of d of every row of Rw and Rh into chunk (f32):
+// the W rows of Rw (image column cc at cc * D * W, D * W floats a row) and
+// then the H rows of Rh (image row rr at W * W * D + rr * D * H), each row's
+// run of d contiguous in device memory, by cp.async of VEC bytes (16 where W
+// and H are multiples of 4 and R is 16-byte aligned, else 4).
+template <int VEC, typename T>
+__device__ __forceinline__ void stage_r(float* chunk, const Rel<T>& rel, int c0, int dn, int D,
+                                        const Geo& g, int tid) {
+  constexpr int PER = VEC / 4;
+  const int bt = block_threads();
+#pragma unroll
+  for (int axis = 0; axis < 2; ++axis) {
+    const int n = axis == 0 ? g.W : g.H;
+    const float* R = axis == 0 ? rel.Rw : rel.Rh;
+    float* dst = chunk + (axis == 0 ? 0 : g.W * g.W * D);
+    const int cols = dn * n / PER;  // copies a row
+    for (Step st(tid, bt, cols); st.r < n; st.next())
+      cp_async<VEC>(dst + st.r * D * n + st.c * PER,
+                    R + (static_cast<size_t>(st.r) * g.dkh + c0) * n + st.c * PER);
+  }
+}
+
+// One task of rc_sums: G neighbouring lanes (c .. c + G - 1 of one axis) of
+// up to RC_QS of the block's queries that read the same row of R there (the
+// same image column for Rw, row for Rh), so that each value of R read feeds
+// RC_QS queries; qo: the queries' rows in q_s, dst: their RC rows in rel_s
+// (-1 for a query past the set).
+constexpr int RC_QS = 4;
+
+template <int G>
+struct RcTask {
+  int qo[RC_QS], dst[RC_QS];
+  int rrow, n;  // the R row (the column or row of the image) and its lanes
+  float x[RC_QS][G];
+};
+
+// x[i][j] += sum over d in [d0, d1) of q[qo[i] + d] r[(d - rd0) * n + j], f32
+// fmaf with d in order; r: the task's R row at d = rd0 (device or shared
+// memory). Four values of d at a time where they and q_s's rows allow one
+// 8-byte read of q (q4).
+template <int G, typename T>
+__device__ __forceinline__ void rc_task_sums(RcTask<G>& tk, const T* q_s, const float* r, int rd0,
+                                             int d0, int d1, bool q4) {
+  int d = d0;
+  if (q4 && d0 % 4 == 0) {
+    for (; d + 4 <= d1; d += 4) {
+      float qv[RC_QS][4];
+#pragma unroll
+      for (int i = 0; i < RC_QS; ++i) {
+        const uint2 w = *reinterpret_cast<const uint2*>(q_s + tk.qo[i] + d);
+        qv[i][0] = __uint_as_float(w.x << 16);
+        qv[i][1] = __uint_as_float(w.x & 0xffff0000u);
+        qv[i][2] = __uint_as_float(w.y << 16);
+        qv[i][3] = __uint_as_float(w.y & 0xffff0000u);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* rp = r + (d + u - rd0) * tk.n;
+        float rv[G];
+        if constexpr (G == 4) {
+          const float4 v4 = *reinterpret_cast<const float4*>(rp);
+          rv[0] = v4.x;
+          rv[1] = v4.y;
+          rv[2] = v4.z;
+          rv[3] = v4.w;
+        } else {
+          rv[0] = *rp;
+        }
+#pragma unroll
+        for (int i = 0; i < RC_QS; ++i)
+#pragma unroll
+          for (int j = 0; j < G; ++j) tk.x[i][j] = fmaf(qv[i][u], rv[j], tk.x[i][j]);
+      }
+    }
+  }
+  for (; d < d1; ++d) {
+    const float* rp = r + (d - rd0) * tk.n;
+#pragma unroll
+    for (int i = 0; i < RC_QS; ++i) {
+      const float qv = to_f(q_s[tk.qo[i] + d]);
+#pragma unroll
+      for (int j = 0; j < G; ++j) tk.x[i][j] = fmaf(qv, rp[j], tk.x[i][j]);
+    }
+  }
+}
+
+// The RC lanes of heads-in-lanes (rc_rows) as tasks (RcTask): for each axis
+// (Rw over the W lanes, Rh over the H lanes), each row rho of R (an image
+// column, an image row), each group of G lanes, the block's queries that
+// read row rho, RC_QS at a time. G = 4 where W and H are multiples of 4 and
+// R is 16-byte aligned (one 16-byte read of R feeds 16 sums), else 1. A
+// block's tile of 64 queries at 16x16 is 128 tasks, one a thread. q from the
+// staged rows q_s (row stride qs), R from chunks of D values of d staged in
+// scratch by cp.async two at a time (the next one's copies under this one's
+// sums), or, where D is 0 (a map whose R rows do not fit), from device
+// memory. Rows past vt.n() are 0. Every thread calls it: it synchronises
+// the block where D > 0.
+template <int G, typename T>
+__device__ __forceinline__ void rc_sums(float* rel_s, int rs, const Rel<T>& rel, const T* q_s,
+                                        int qs, float* scratch, int D, const VTok& vt, int q0,
+                                        const Geo& g, int tid) {
+  const int W = g.W, H = g.H, WH = W + H, bt = block_threads();
+  const int nq = min(BW_ROWS, vt.n() - q0);  // the block's queries
+  for (int e = tid; e < (BW_ROWS - nq) * WH; e += bt) {
+    const int r = e / WH;
+    rel_s[(nq + r) * rs + e - r * WH] = 0.f;
+  }
+  const bool packed = vt.pack > 1;
+  const int np = packed ? nq / vt.hw : 1;  // pairs of a packed tile
+  // per axis: rows rho of R in reach, lane groups, query sets of RC_QS a row
+  const int rho0_h = packed ? 0 : q0 / W, nrho_h = packed ? H : (q0 + nq - 1) / W - q0 / W + 1;
+  const int nset_w = packed ? (np * H + RC_QS - 1) / RC_QS : ((nq + W - 1) / W + RC_QS - 1) / RC_QS;
+  const int nset_h = packed ? (np * W + RC_QS - 1) / RC_QS : (min(W, nq) + RC_QS - 1) / RC_QS;
+  const int tasks_w = W * (W / G) * nset_w, tasks = tasks_w + nrho_h * (H / G) * nset_h;
+  const int chunk = D * (W * W + H * H), nchunks = D > 0 ? (g.dkh + D - 1) / D : 1;
+  const bool q4 = qs % 4 == 0;
+
+  for (int p0 = 0; p0 < tasks; p0 += bt) {  // passes, the same for every thread
+    const int f = p0 + tid;
+    RcTask<G> tk;
+    const bool on = f < tasks;
+    int axis = 0, c = 0;
+    {
+      const int h = f - tasks_w, ax = on && h >= 0 ? 1 : 0, ff = ax ? h : (on ? f : 0);
+      const int lgs = (ax ? H : W) / G, nset = ax ? nset_h : nset_w;
+      const int set = ff % nset, lg = ff / nset % lgs, rho = ff / nset / lgs + (ax ? rho0_h : 0);
+      axis = ax;
+      c = lg * G;
+      tk.rrow = rho;
+      tk.n = ax ? H : W;
+#pragma unroll
+      for (int i = 0; i < RC_QS; ++i) {
+        const int j = set * RC_QS + i;  // the query's place among those that read row rho
+        int v = -1;
+        if (!on) {
+        } else if (packed) {
+          const int per = ax ? W : H;  // tokens of a pair that read row rho
+          const int pp = j / per, k = j - pp * per;
+          if (pp < np) v = pp * vt.hw + (ax ? rho * W + k : k * W + rho);
+        } else if (ax == 0) {
+          const int first = q0 + ((rho - q0 % W) % W + W) % W;
+          if (first + j * W < q0 + nq) v = first + j * W - q0;
+        } else {
+          const int lo = max(q0, rho * W), hi = min(q0 + nq, rho * W + W);
+          if (lo + j < hi) v = lo + j - q0;
+        }
+        tk.qo[i] = (v < 0 ? 0 : v) * qs;
+        tk.dst[i] = v < 0 ? -1 : v * rs + (ax ? W : 0) + c;
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) tk.x[i][jj] = 0.f;
+      }
+    }
+    const float* Rax = axis ? rel.Rh : rel.Rw;
+    if (D == 0) {
+      if (on) rc_task_sums(tk, q_s, Rax + static_cast<size_t>(tk.rrow) * g.dkh * tk.n + c, 0, 0,
+                           g.dkh, q4);
+    } else {
+      constexpr int VEC = G == 4 ? 16 : 4;
+      const int roff = (axis ? W * W * D : 0) + tk.rrow * D * tk.n + c;  // the task's row in a chunk
+      stage_r<VEC>(scratch, rel, 0, min(D, g.dkh), D, g, tid);
+      cp_async_commit();
+      for (int ci = 0; ci < nchunks; ++ci) {
+        const int c0 = ci * D, dn = min(D, g.dkh - c0);
+        if (ci + 1 < nchunks) {  // the next chunk into the other buffer, under these sums
+          stage_r<VEC>(scratch + ((ci + 1) & 1) * chunk, rel, c0 + D, min(D, g.dkh - c0 - D), D,
+                       g, tid);
+          cp_async_commit();
+          cp_async_wait_groups<1>();
+        } else {
+          cp_async_wait_groups<0>();
+        }
+        __syncthreads();
+        if (on) rc_task_sums(tk, q_s, scratch + (ci & 1) * chunk + roff, c0, c0, c0 + dn, q4);
+        __syncthreads();  // this chunk's buffer is consumed
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RC_QS; ++i)
+      if (tk.dst[i] >= 0)
+#pragma unroll
+        for (int j = 0; j < G; ++j) rel_s[tk.dst[i] + j] = tk.x[i][j];
+  }
+}
+
+// The values of d a chunk of R holds in rc_sums where two chunks fit
+// scratch_bytes (0 where not even one value's rows do: R is then read from
+// device memory).
+__device__ __forceinline__ int rc_chunk(const Geo& g, size_t scratch_bytes) {
+  const long long per_d = static_cast<long long>(g.W * g.W + g.H * g.H) * 2 * sizeof(float);
+  const long long d = static_cast<long long>(scratch_bytes) / per_d;
+  return d >= g.dkh ? g.dkh : static_cast<int>(d >= 4 ? d / 4 * 4 : d);
+}
+
+// The RC rows of the block's virtual queries q0 .. q0 + BW_ROWS - 1 into
+// rel_s (f32, row stride rs), zero past vt.n(): the qr lanes (head-major;
+// rc_at, four lanes in flight a thread), or (heads-in-lanes) RC[t, c] =
+// sum_d q[t, d] R[(col(t), d), c] (Rh at row(t) past c = W) as rc_at sums
+// it: f32 fmaf over d in order from 0, q read from the block's staged query
+// rows q_s (row stride qs; landed before the call), R staged through scratch
+// (scratch_bytes of shared memory that the caller does not use until the
+// call returns and refills afterwards) in chunks of d, a thread summing four
+// lanes of four queries that read the same row of R (rc_sums). The
+// tensor-core forward and pass dq call it, so the backward's p = exp(S -
+// lse) sees the forward's S. vt.tab: tok_table's. Every thread calls it.
+template <typename T>
+__device__ __forceinline__ void rc_rows(float* rel_s, int rs, const Rel<T>& rel,
+                                        const Rows<const T>& q, const T* q_s, int qs,
+                                        void* scratch, size_t scratch_bytes, const VTok& vt,
+                                        int q0, const Geo& g, int tid) {
+  if (rel.Rw != nullptr) {
+    const bool vec = g.W % 4 == 0 && g.H % 4 == 0 &&
+                     ((reinterpret_cast<uintptr_t>(rel.Rw) | reinterpret_cast<uintptr_t>(rel.Rh)) &
+                      15) == 0;
+    float* sc = static_cast<float*>(scratch);
+    const int D = rc_chunk(g, scratch_bytes);
+    if (vec)
+      rc_sums<4>(rel_s, rs, rel, q_s, qs, sc, D, vt, q0, g, tid);
+    else
+      rc_sums<1>(rel_s, rs, rel, q_s, qs, sc, D, vt, q0, g, tid);
+    return;
+  }
+  const int WH = g.W + g.H, n = vt.n(), bt = block_threads();
+  for (int e0 = tid; e0 < BW_ROWS * WH; e0 += RC_LANES * bt) {
+    float x[RC_LANES];  // lanes in flight
+#pragma unroll
+    for (int k = 0; k < RC_LANES; ++k) {
+      const int e = e0 + k * bt, r = e / WH, c = e - r * WH, vq = q0 + r;
+      x[k] = 0.f;
+      if (e < BW_ROWS * WH && vq < n) {
+        const int* tv = vt.tab + 4 * (vt.pack > 1 ? vq : 0);
+        x[k] = rc_at(rel, q, tv[1], tv[2], vt.tok(vq), c, g);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RC_LANES; ++k) {
+      const int e = e0 + k * bt, r = e / WH;
+      if (e < BW_ROWS * WH) rel_s[r * rs + (e - r * WH)] = x[k];
+    }
+  }
+}
+
 // What a launch of the passes below knows of its head (tc_plan).
 struct TcPlan {
   int Y, np, pack, ntile, ngroup, ntg, tk;  // grid: pair groups x own tiles x column groups
@@ -351,18 +577,22 @@ struct TcPlan {
   int kp, vp, ks, vs, rs;                    // dkh, dvh padded to 16; tile row strides
   int nbt, words;                            // bin tiles; key-table words per row
   int vq, vk, vv, vdo, vrel;                 // copy bytes of each operand's rows
+  int vo, oflat;  // the forward's out: copy bytes of its rows; its virtual rows one run
 };
 
 // Columns [0, ncols) of virtual tokens v0 .. v0 + nrows - 1 of src into dst
 // (row stride ds): copies of vec bytes by cp.async (complete after
 // cp_async_wait), the columns past the last whole copy by plain loads (all
-// of them where vec is the element size), zeros for tokens past vt.n(). The
-// threads form a grid of rows x (copies a row, rounded up to a power of
-// two), so a copy costs no division; a row's start is the pair's first row
-// plus v rows, but for packed tokens.
+// of them where vec is the element size), zeros for tokens past vt.n()
+// (left as they are where zero is false). The threads form a grid of rows x
+// (copies a row, rounded up to a power of two), so a copy costs no
+// division; a row's start is the pair's first row plus v rows, but for
+// packed tokens.
 template <typename T>
 __device__ __forceinline__ void stage_v(T* dst, int ds, const Rows<const T>& src, const VTok& vt,
-                                        int v0, int nrows, int ncols, int vec, int tid) {
+                                        int v0, int nrows, int ncols, int vec, int tid,
+                                        bool zero = true) {
+  if (!zero) nrows = max(0, min(nrows, vt.n() - v0));  // rows past the last token: untouched
   const int per = vec / static_cast<int>(sizeof(T));
   const int nfull = vec >= 4 ? ncols / per : 0;
   const int cpr = nfull + (ncols - nfull * per);
@@ -374,7 +604,7 @@ __device__ __forceinline__ void stage_v(T* dst, int ds, const Rows<const T>& src
     const bool whole = c < nfull;
     const int c0 = whole ? c * per : nfull * per + (c - nfull);
     T* d = dst + r * ds + c0;
-    if (v >= nv) {
+    if (v >= nv) {  // (zero: nrows stops at the last token otherwise)
       for (int i = 0; i < (whole ? per : 1); ++i) put(d + i, 0.f);
       return;
     }
@@ -388,46 +618,43 @@ __device__ __forceinline__ void stage_v(T* dst, int ds, const Rows<const T>& src
     else
       cp_async<4>(d, s);
   };
+  const int bt = block_threads();
   if (nfull == 0) {  // rows of plain loads: every thread by turns, eight loads in flight
-    const int total = nrows * ncols;
-    for (int e0 = tid; e0 < total; e0 += 8 * block_threads()) {
+    for (Step st(tid, bt, ncols); st.r < nrows;) {
       T x[8];
+      Step s1 = st;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int e = e0 + k * block_threads(), r = e / ncols, v = v0 + r;
-        x[k] = e < total && v < nv ? src_of(v)[e - r * ncols] : T(0.f);
-      }
+      for (int k = 0; k < 8; ++k, s1.next())
+        x[k] = s1.r < nrows && v0 + s1.r < nv ? src_of(v0 + s1.r)[s1.c] : T(0.f);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int e = e0 + k * block_threads(), r = e / ncols;
-        if (e < total) dst[r * ds + e - r * ncols] = x[k];
-      }
+      for (int k = 0; k < 8; ++k, st.next())
+        if (st.r < nrows) dst[st.r * ds + st.c] = x[k];
     }
     return;
   }
   const int lg = cpr > 1 ? 32 - __clz(cpr - 1) : 0;
-  if ((1 << lg) > block_threads()) {
-    for (int e = tid; e < nrows * cpr; e += block_threads()) copy(e / cpr, e - e / cpr * cpr);
+  if ((1 << lg) > bt) {  // a row of more copies than threads
+    for (Step st(tid, bt, cpr); st.r < nrows; st.next()) copy(st.r, st.c);
     return;
   }
-  const int c = tid & ((1 << lg) - 1), step = block_threads() >> lg;
+  const int c = tid & ((1 << lg) - 1), rstep = bt >> lg;
   if (c >= cpr) return;
   if (c < nfull) {
-    for (int r = tid >> lg; r < nrows; r += step) copy(r, c);
+    for (int r = tid >> lg; r < nrows; r += rstep) copy(r, c);
     return;
   }
   // the column past the last whole copy: four rows' loads in flight
   const int col = nfull * per + (c - nfull);
-  for (int r0 = tid >> lg; r0 < nrows; r0 += 4 * step) {
+  for (int r0 = tid >> lg; r0 < nrows; r0 += 4 * rstep) {
     T x[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int r = r0 + k * step, v = v0 + r;
+      const int r = r0 + k * rstep, v = v0 + r;
       x[k] = r < nrows && v < nv ? src_of(v)[col] : T(0.f);
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      if (r0 + k * step < nrows) dst[(r0 + k * step) * ds + col] = x[k];
+      if (r0 + k * rstep < nrows) dst[(r0 + k * rstep) * ds + col] = x[k];
   }
 }
 
@@ -556,33 +783,31 @@ dq_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rows<co
   const bool bins_block = relative && (tb.group0 == 0 || rel.Rw != nullptr);
   const bool bins_on = relative && ntg > 0 && (tc.group == 0 || rel.Rw != nullptr);
 
+  // the own rows, then (heads-in-lanes) their RC rows with R staged through
+  // the key and value tiles' room, then the first key tile
+  const size_t tiles_bytes = static_cast<size_t>(2 * tk) * (ks + vs) * sizeof(bf16);
+  const bool r_staged = rel.Rw != nullptr;
   zero_smem(smem_raw, static_cast<size_t>(BW_ROWS + 2 * tk) * (ks + vs) * sizeof(bf16), tid);
   tok_table(tok_s, vt, tid);
   __syncthreads();
   stage_v(qo_s, ks, q, vt, q0, BW_ROWS, g.dkh, pl.vq, tid);
   stage_v(do_s, vs, dout, vt, q0, BW_ROWS, g.dvh, pl.vdo, tid);
   stage_ld_v(ld_s, lse, delta, vt, q0, BW_ROWS, tid);
-  stage_v(kb_s, ks, k, vt, 0, tk, g.dkh, pl.vk, tid);
-  stage_v(vb_s, vs, v, vt, 0, tk, g.dvh, pl.vv, tid);
-  // the RC rows, under the copies
-  for (int e0 = tid; e0 < BW_ROWS * WH; e0 += 4 * block_threads()) {
-    float x[4];  // four rows' sums in flight
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int e = e0 + k * block_threads(), r = e / WH, c = e - r * WH, vq = q0 + r;
-      x[k] = 0.f;
-      if (e < BW_ROWS * WH && vq < n) {
-        const int* tv = tok_s + 4 * (packed ? vq : 0);
-        x[k] = rc_at(rel, q, tv[1], tv[2], vt.tok(vq), c, g);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int e = e0 + k * block_threads(), r = e / WH;
-      if (e < BW_ROWS * WH) rel_s[r * rs + (e - r * WH)] = x[k];
-    }
-  }
+  auto stage_first = [&] {
+    stage_v(kb_s, ks, k, vt, 0, tk, g.dkh, pl.vk, tid);
+    stage_v(vb_s, vs, v, vt, 0, tk, g.dvh, pl.vv, tid);
+  };
+  if (!r_staged) stage_first();
   cp_async_wait();
+  __syncthreads();
+  rc_rows(rel_s, rs, rel, q, qo_s, ks, kb_s, tiles_bytes, vt, q0, g, tid);
+  if (r_staged) {  // the tiles' room again: its zero pad columns, the first tile
+    __syncthreads();
+    zero_smem(kb_s, tiles_bytes, tid);
+    __syncthreads();
+    stage_first();
+    cp_async_wait();
+  }
   __syncthreads();
   if (tb.group0 == 0 && dst.rc.p != nullptr)  // the RC rows for pass dkdv
     for (int e = tid; e < BW_ROWS * WH; e += block_threads()) {
@@ -931,6 +1156,279 @@ dkdv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   }
 }
 
+// The forward's instances: n8 tiles of out a warp holds, and the blocks an
+// SM's registers hold of each (ops/fused_attention.py::FWD_INSTANCES).
+constexpr int FWD_NTG[4] = {8, 12, 16, 32};
+constexpr int fwd_blocks(int ntg) { return ntg <= 12 ? 4 : ntg <= 16 ? 3 : 1; }
+
+// ldmatrix.x4: four 8x8 bf16 matrices, the rows of matrix i named by lanes
+// 8i .. 8i + 7; register i holds matrix i's fragment (row lane / 4, columns
+// 2 (lane % 4) and + 1), or its transpose's with trans.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// s[nt] += rows r0 .. r0 + 15 of a_s (row stride as) times rows 8 nt .. 8 nt
+// + 7 of b_s (row stride bs) transposed, over kp columns (a multiple of 16),
+// for the ntk (<= 4) n8 tiles that hold a key: rows_product's sums in its
+// order, each k16 step's fragments by one ldmatrix.x4 a side and pair of
+// tiles.
+__device__ __forceinline__ void s_product(float (&s)[4][4], const bf16* a_s, int as, int r0,
+                                          const bf16* b_s, int bs, int kp, int ntk, int lane) {
+  const int i = lane >> 3, r = lane & 7;
+  const bf16* a = a_s + (r0 + r + (i & 1) * 8) * as + (i >> 1) * 8;
+  const bf16* b = b_s + (r + (i >> 1) * 8) * bs + (i & 1) * 8;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kp; k0 += 16) {
+    uint32_t af[4], bf[4];
+    ldsm_x4(af, a + k0);
+    ldsm_x4(bf, b + k0);
+    mma16816(s[0], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+    if (ntk > 1) mma16816(s[1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+    if (ntk > 2) {
+      ldsm_x4(bf, b + 16 * bs + k0);
+      mma16816(s[2], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+      if (ntk > 3) mma16816(s[3], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+    }
+  }
+}
+
+// The forward (B1 head-major, B5 heads-in-lanes): own tokens are queries,
+// NTG the n8 tiles of out a warp holds at most (FWD_NTG: registers scale
+// with it). A block stages its queries once (all of dkh), sums their RC rows
+// (rc_rows: the qr lanes head-major; heads-in-lanes rc_at's f32 sums, pass
+// dq's code, with R staged through the key tiles' room before the first key
+// tile lands), then per key tile: S = q k^T over all of dkh, the relative
+// logits at each key's image column and row (key table), masked past the
+// last key and, packed, to each query's own pair; the online softmax (a
+// row's max over a quad of lanes; out's rescale skipped where no row of the
+// warp moved its max) and out += p v over the group's tiles of dvh, p
+// rounded to bf16 once; the next tile's copies run under these products.
+// out leaves through the tiles' room in copies as wide as its rows allow
+// (one run of 16-byte copies where the block's rows are contiguous); lse is
+// written once per query row, by group 0. Own rows and key rows past the
+// last token are left as they are (their rows of S are never written, their
+// columns are masked); the pad columns of q and k and the value tiles are
+// zeroed, so that a masked p of 0 meets finite values.
+template <int NTG>  // one warp group up to 16 n8 tiles: fwd_blocks(NTG) blocks an SM
+__global__ void __launch_bounds__(NTG <= 16 ? BW_NT : BW_WG * BW_NT, fwd_blocks(NTG))
+fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rel<bf16> rel,
+              const int* __restrict__ tab, Rows<bf16> out, Rows<float> lse, Geo g, TcPlan pl) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ks = pl.ks, vs = pl.vs, rs = pl.rs, tk = pl.tk;
+  bf16* qo_s = reinterpret_cast<bf16*>(smem_raw);  // BW_ROWS x ks: the queries
+  bf16* kb_s = qo_s + BW_ROWS * ks;                // 2 x (tk x ks): key tiles
+  bf16* vb_s = kb_s + 2 * tk * ks;                 // 2 x (tk x vs): value tiles
+  float* rel_s = reinterpret_cast<float*>(vb_s + 2 * tk * vs);  // BW_ROWS x rs: RC
+  int* tok_s = reinterpret_cast<int*>(rel_s + BW_ROWS * rs);    // BW_ROWS x 4: tok_table
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gl = lane >> 2, t = lane & 3;
+  const TcBlock tb = tc_block(pl, g.hw);
+  VTok vt = tb.vt;
+  const int n = vt.n(), q0 = tb.own0;
+  const bool packed = pl.pack > 1;
+  const int kpos0 = (TN / 16) * pl.nbt * 64 + TN / 16;  // the key positions in a table row
+  const TcCols tc = tc_cols(pl, tb, warp, (g.dvh + 7) / 8);
+  const int ntg = tc.ntg, w16 = warp % BW_WARPS * 16, ra = w16 + gl;
+  const bool active = ntg > 0 && q0 + w16 < n;  // uniform across the warp
+
+  // the queries, their RC rows ((heads-in-lanes) with R staged through the
+  // key and value tiles' room, before the first key tile); zeros: the pad
+  // columns of the query and key rows (one run of rows), the value tiles
+  const size_t tiles_bytes = static_cast<size_t>(2 * tk) * (ks + vs) * sizeof(bf16);
+  const bool r_staged = rel.Rw != nullptr;
+  auto zeros = [&](bf16* rows, int nr) {
+    for (int r = tid; r < nr; r += block_threads())
+      for (int c = g.dkh; c < pl.kp; ++c) rows[r * ks + c] = __float2bfloat16(0.f);
+    zero_smem(vb_s, static_cast<size_t>(2 * tk) * vs * sizeof(bf16), tid);
+  };
+  auto stage_tile = [&](int j0, int b) {  // key tile j0 into buffer b
+    stage_v(kb_s + b * tk * ks, ks, k, vt, j0, tk, g.dkh, pl.vk, tid, false);
+    stage_v(vb_s + b * tk * vs, vs, v, vt, j0, tk, g.dvh, pl.vv, tid, false);
+  };
+  zeros(qo_s, BW_ROWS + 2 * tk);
+  tok_table(tok_s, vt, tid);
+  __syncthreads();
+  stage_v(qo_s, ks, q, vt, q0, BW_ROWS, g.dkh, pl.vq, tid, false);
+  if (!r_staged) stage_tile(0, 0);
+  cp_async_wait();
+  __syncthreads();
+  rc_rows(rel_s, rs, rel, q, qo_s, ks, kb_s, tiles_bytes, vt, q0, g, tid);
+  if (r_staged) {  // the tiles' room again: its zeros, the first tile
+    __syncthreads();
+    zeros(kb_s, 2 * tk);
+    __syncthreads();
+    stage_tile(0, 0);
+    cp_async_wait();
+  }
+  __syncthreads();
+
+  int pr[2];  // the rows' pairs in the block (packed)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) pr[i] = tok_s[4 * (ra + 8 * i)];
+  const float* rel0 = rel_s + ra * rs;
+  const float* rel1 = rel0 + 8 * rs;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[NTG][4];
+#pragma unroll
+  for (int u = 0; u < NTG; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[u][i] = 0.f;
+
+  const int ntiles = (n + tk - 1) / tk;
+  for (int it = 0; it < ntiles; ++it) {
+    const int j0 = it * tk, buf = it & 1;
+    if (it + 1 < ntiles) stage_tile(j0 + tk, buf ^ 1);  // under this tile's work
+    if (active) {
+      const bf16* k_s = kb_s + buf * tk * ks;
+      const bf16* v_s = vb_s + buf * tk * vs;
+      const int kn = min(tk, n - j0);  // keys of this tile
+      float s[4][4] = {};
+      s_product(s, qo_s, ks, w16, k_s, ks, pl.kp, (kn + 7) / 8, lane);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (nt * 8 < tk) {
+          const int jv = j0 + nt * 8 + 2 * t;  // keys jv, jv + 1 (one 64-key table row)
+          const int2 kp = __ldg(reinterpret_cast<const int2*>(
+              tab + static_cast<size_t>(jv / TN) * pl.words + kpos0 + jv % TN));
+          const int ca = kp.x & 0xffff, rwa = kp.x >> 16, cb = kp.y & 0xffff, rwb = kp.y >> 16;
+          bool ok[4] = {jv < n, jv + 1 < n, jv < n, jv + 1 < n};
+          if (packed) {  // each query sees its own pair's keys
+            const int pa = jv < n ? tok_s[4 * jv] : -1, pb = jv + 1 < n ? tok_s[4 * jv + 4] : -1;
+            ok[0] = ok[0] && pa == pr[0];
+            ok[1] = ok[1] && pb == pr[0];
+            ok[2] = ok[2] && pa == pr[1];
+            ok[3] = ok[3] && pb == pr[1];
+          }
+          s[nt][0] = ok[0] ? s[nt][0] + (rel0[ca] + rel0[g.W + rwa]) : -INFINITY;
+          s[nt][1] = ok[1] ? s[nt][1] + (rel0[cb] + rel0[g.W + rwb]) : -INFINITY;
+          s[nt][2] = ok[2] ? s[nt][2] + (rel1[ca] + rel1[g.W + rwa]) : -INFINITY;
+          s[nt][3] = ok[3] ? s[nt][3] + (rel1[cb] + rel1[g.W + rwb]) : -INFINITY;
+          mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+        }
+      }
+      float ml[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float mn = fmaxf(m[i], mx[i]);  // -inf while a packed row has seen no own key
+        ml[i] = mn == -INFINITY ? 0.f : mn * LOG2E;
+        alpha[i] = mn == m[i] ? 1.f : exp_shifted(m[i], ml[i]);
+        m[i] = mn;
+        l[i] *= alpha[i];
+      }
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int u = 0; u < NTG; ++u) {
+          acc[u][0] *= alpha[0];
+          acc[u][1] *= alpha[0];
+          acc[u][2] *= alpha[1];
+          acc[u][3] *= alpha[1];
+        }
+      }
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        if (kc * 16 < kn) {  // uniform across the warp
+          uint32_t pa[4];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float* c = s[2 * kc + half];
+            const float p0 = exp_shifted(c[0], ml[0]), p1 = exp_shifted(c[1], ml[0]);
+            const float p2 = exp_shifted(c[2], ml[1]), p3 = exp_shifted(c[3], ml[1]);
+            l[0] += p0 + p1;
+            l[1] += p2 + p3;
+            pa[2 * half] = pack_bf16(p0, p1);
+            pa[2 * half + 1] = pack_bf16(p2, p3);
+          }
+          // out += p v over the group's tiles, two a ldmatrix.x4.trans
+          const bf16* v_row = v_s + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * vs +
+                              (tc.t0 + (lane >> 4)) * 8;
+#pragma unroll
+          for (int u = 0; u < NTG; u += 2) {
+            if (u + 1 < ntg) {
+              uint32_t b[4];
+              ldsm_x4_trans(b, v_row + u * 8);
+              mma16816(acc[u], pa[0], pa[1], pa[2], pa[3], b[0], b[1]);
+              mma16816(acc[u + 1], pa[0], pa[1], pa[2], pa[3], b[2], b[3]);
+            } else if (u < ntg) {
+              uint32_t b0, b1;
+              ldsm_x2_trans(b0, b1, v_s + (kc * 16 + (lane & 15)) * vs + (tc.t0 + u) * 8);
+              mma16816(acc[u], pa[0], pa[1], pa[2], pa[3], b0, b1);
+            }
+          }
+        }
+      }
+    }
+    cp_async_wait();
+    __syncthreads();  // the next tile has landed; this one is consumed
+  }
+
+  // out through the tiles' room (all of it consumed): each warp's rows and
+  // columns into a tile of the block's rows, row stride os (dvh where the
+  // block's out rows are one run of memory, oflat, else dvh rounded up to 8),
+  // then copied out by every thread, in copies as wide as the rows allow
+  const int os = pl.oflat ? g.dvh : (g.dvh + 7) / 8 * 8;
+  const bool via_smem = static_cast<size_t>(BW_ROWS) * os * sizeof(bf16) <= tiles_bytes;
+  bf16* o_s = kb_s;
+  if (active) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float lr = l[rr];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int r = ra + 8 * rr, vq = q0 + r;
+      if (vq >= n) continue;
+      const float inv = 1.f / lr;
+      if (tc.group == 0 && t == 0) *vt.row(lse, vq) = m[rr] + logf(lr);
+      bf16* o = via_smem ? o_s + r * os : vt.row(out, vq);
+      const bool pairs = (reinterpret_cast<uintptr_t>(o) & 3) == 0;
+#pragma unroll
+      for (int u = 0; u < NTG; ++u)
+        if (u < ntg) store_pair(o, (tc.t0 + u) * 8 + 2 * t, g.dvh, pairs, acc[u][2 * rr] * inv,
+                                acc[u][2 * rr + 1] * inv);
+    }
+  }
+  if (!via_smem) return;
+  __syncthreads();
+  const int nr = min(BW_ROWS, n - q0), bt = block_threads();
+  auto vcopy = [](bf16* d, const bf16* s, int bytes) {
+    if (bytes == 16)
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+    else if (bytes == 8)
+      *reinterpret_cast<uint2*>(d) = *reinterpret_cast<const uint2*>(s);
+    else if (bytes == 4)
+      *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s);
+    else
+      *d = *s;
+  };
+  if (pl.oflat) {  // one run: nr * dvh elements from the block's first row
+    bf16* dst = vt.row(out, q0);
+    const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
+    const int vec = a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 2, per = vec / 2;
+    const int total = nr * g.dvh, nvec = total / per;
+#pragma unroll 4
+    for (int e = tid; e < nvec; e += bt) vcopy(dst + e * per, o_s + e * per, vec);
+    for (int e = nvec * per + tid; e < total; e += bt) dst[e] = o_s[e];
+    return;
+  }
+  const int per = pl.vo / 2, nfull = g.dvh / per, cpr = nfull + (g.dvh - nfull * per);
+  for (Step st(tid, bt, cpr); st.r < nr; st.next()) {
+    const int c0 = st.c < nfull ? st.c * per : nfull * per + (st.c - nfull);
+    vcopy(vt.row(out, q0 + st.r) + c0, o_s + st.r * os + c0, st.c < nfull ? pl.vo : 2);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The CUDA-core kernels (f32, and bf16 maps past amma::mma_fits): f32
 // arithmetic, CW columns at a time.
@@ -1212,40 +1710,9 @@ dkdv_core_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rows<const T
 }
 
 // ---------------------------------------------------------------------------
-// Launches, for the entries of the four sources: grid (token tiles x output
-// chunks, Y, Z), where (Y, Z) = (bn, 1) head-major and (nh, B) heads-in-lanes.
-
-template <typename T>
-int fwd(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rel<T> rel, const int* tab,
-        Rows<T> out, Rows<float> lse, Geo g, int Y, int Z, void* stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (mma_fits(g.W, g.H)) {
-      if (tab == nullptr || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-      const int rs = rel_stride_of(g.W, g.H);
-      const size_t smem = static_cast<size_t>(FWD_ROWS) * rs * sizeof(float) +
-                          static_cast<size_t>(FWD_ROWS * KS + TN * (KS + VS)) * sizeof(bf16) +
-                          TN * sizeof(int);
-      auto kern = fwd_mma_kernel<T>;
-      const cudaError_t e = amma::allow_smem(kern, smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      const dim3 grid((g.hw + FWD_ROWS - 1) / FWD_ROWS * g.nv, Y, Z);
-      kern<<<grid, FWD_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(q, k, v, rel, tab,
-                                                                              out, lse, g, rs);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
-  const int rs = (g.W + g.H) | 1;  // odd row stride spreads rows over banks
-  const size_t smem =
-      static_cast<size_t>(CQ * rs + (CQ + FTK) * (CW + 1) + FTK * CW) * sizeof(float);
-  auto kern = fwd_core_kernel<T>;
-  const cudaError_t e = amma::allow_smem(kern, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((g.hw + CQ - 1) / CQ * ((g.dvh + CW - 1) / CW), Y, Z);
-  kern<<<grid, CQ * FSPLIT, smem, static_cast<cudaStream_t>(stream)>>>(q, k, v, rel, out, lse,
-                                                                        g, rs);
-  return static_cast<int>(cudaGetLastError());
-}
+// Launches, for the entries of the four sources: (Y, Z) = (bn, 1) head-major
+// and (nh, B) heads-in-lanes; the CUDA-core kernels' grid (token tiles x
+// output chunks, Y, Z), the tensor-core kernels' one axis (tc_grid).
 
 // The widest copy (16 bytes, or 8, 4, at most cap) that every row of r
 // allows, its start and strides included; else the element size (plain loads).
@@ -1258,12 +1725,19 @@ int copy_bytes(const Rows<T>& r, int cap) {
   return static_cast<int>(sizeof(T));
 }
 
-// Shared memory of a tensor-core pass at tk other tokens a tile (rel_bytes:
+// The tensor-core kernels, as tc_smem and tc_plan count them.
+enum class TcKernel { dq, dkdv, fwd };
+
+// Shared memory of a tensor-core kernel at tk other tokens a tile (rel_bytes:
 // the element size of pass dkdv's RC rows).
-inline size_t tc_smem(bool pass_dq, int tk, int ks, int vs, int rs, int rel_bytes) {
-  const size_t own = static_cast<size_t>(BW_ROWS) * (ks + vs) * sizeof(bf16) +
-                     BW_ROWS * 4 * sizeof(int);
-  if (pass_dq)
+inline size_t tc_smem(TcKernel kernel, int tk, int ks, int vs, int rs, int rel_bytes) {
+  const size_t tab = BW_ROWS * 4 * sizeof(int);
+  if (kernel == TcKernel::fwd)
+    return static_cast<size_t>(BW_ROWS) * ks * sizeof(bf16) + tab +
+           2 * static_cast<size_t>(tk) * (ks + vs) * sizeof(bf16) +
+           static_cast<size_t>(BW_ROWS) * rs * sizeof(float);
+  const size_t own = static_cast<size_t>(BW_ROWS) * (ks + vs) * sizeof(bf16) + tab;
+  if (kernel == TcKernel::dq)
     return own + 2 * static_cast<size_t>(tk) * (ks + vs) * sizeof(bf16) +
            static_cast<size_t>(BW_ROWS) * (rs + 2) * sizeof(float);
   return own + 2 * static_cast<size_t>(tk) *
@@ -1271,22 +1745,22 @@ inline size_t tc_smem(bool pass_dq, int tk, int ks, int vs, int rs, int rel_byte
                     2 * sizeof(float));
 }
 
-// The host's plan of a tensor-core pass (ops/fused_attention.py::
-// wide_bwd_plan, where it is chosen): (batch, head) pairs a tile, column
-// groups of the output's n8 tiles, warp groups a block, other tokens a tile
-// and the shared memory all that takes; tk 0 sends the pass to the
-// CUDA-core kernels.
+// The host's plan of a tensor-core kernel (ops/fused_attention.py::
+// wide_fwd_plan, ::wide_bwd_plan, where it is chosen): (batch, head) pairs a
+// tile, column groups of the output's n8 tiles, warp groups a block, other
+// tokens a tile and the shared memory all that takes; tk 0 sends the call to
+// the CUDA-core kernels.
 struct WidePlan {
   int pack, groups, wg, tk, smem;
 };
 
-// The TcPlan of the host's plan wp for a tensor-core pass over (Y x Z) pairs
+// The TcPlan of the host's plan wp for a tensor-core kernel over (Y x Z) pairs
 // of the head g, at most cap n8 output tiles a group; false where the
 // kernels cannot run it: a pack that overfills a tile, a column group past
 // cap or empty, warp groups past BW_WG or the groups, tk other than 16 or 32,
 // shared memory other than tc_smem's or past BW_SMEM_MAX, or a grid too
 // large.
-inline bool tc_plan(TcPlan& pl, bool pass_dq, const Geo& g, int Y, int Z, int cap,
+inline bool tc_plan(TcPlan& pl, TcKernel kernel, const Geo& g, int Y, int Z, int cap,
                     int rel_bytes, const WidePlan& wp) {
   const long long np = static_cast<long long>(Y) * Z;
   pl.Y = Y;
@@ -1303,7 +1777,8 @@ inline bool tc_plan(TcPlan& pl, bool pass_dq, const Geo& g, int Y, int Z, int ca
   pl.rs = rel_stride_of(g.W, g.H);
   pl.nbt = bin_tiles(g.W, g.H);
   pl.words = key_table_words(pl.nbt);
-  const int tiles = (g.dkh + 7) / 8 + (pass_dq ? 0 : (g.dvh + 7) / 8);
+  const int ndk = (g.dkh + 7) / 8, ndv = (g.dvh + 7) / 8;  // the output's n8 tiles
+  const int tiles = kernel == TcKernel::dq ? ndk : kernel == TcKernel::dkdv ? ndk + ndv : ndv;
   pl.ngroup = wp.groups;
   pl.ntg = (tiles + pl.ngroup - 1) / pl.ngroup;
   if (pl.ntg > cap || (pl.ngroup - 1) * pl.ntg >= tiles) return false;
@@ -1313,7 +1788,7 @@ inline bool tc_plan(TcPlan& pl, bool pass_dq, const Geo& g, int Y, int Z, int ca
   const long long npg = pl.pack > 1 ? (np + pl.pack - 1) / pl.pack : np;
   if (np > 0x7fffffff || npg * pl.ntile * pl.gblocks > 0x7fffffff) return false;
   pl.tk = wp.tk;
-  const size_t smem = tc_smem(pass_dq, pl.tk, pl.ks, pl.vs, pl.rs, rel_bytes);
+  const size_t smem = tc_smem(kernel, pl.tk, pl.ks, pl.vs, pl.rs, rel_bytes);
   return smem == static_cast<size_t>(wp.smem) && smem <= BW_SMEM_MAX;
 }
 
@@ -1323,11 +1798,69 @@ inline dim3 tc_grid(const TcPlan& pl) {
   return dim3(static_cast<unsigned>(npg * pl.ntile * pl.gblocks));
 }
 
+template <int NTG>
+int fwd_tc(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rel<bf16> rel,
+           const int* tab, Rows<bf16> out, Rows<float> lse, Geo g, const TcPlan& pl,
+           void* stream) {
+  const size_t smem = tc_smem(TcKernel::fwd, pl.tk, pl.ks, pl.vs, pl.rs, 4);
+  auto kern = fwd_tc_kernel<NTG>;
+  const cudaError_t e = amma::allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<tc_grid(pl), pl.wg * BW_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, rel, tab, out, lse, g, pl);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward. wp: the host's plan (WidePlan); tk 0 runs the CUDA-core
+// kernel, which f32 always does. The tensor-core kernel is instantiated for
+// 8, 12, 16 and 32 n8 tiles of out a warp (FWD_NTG: the least that holds the
+// plan's column group; 32 for two warp groups a block), so that narrow heads
+// keep few registers and fwd_blocks blocks an SM.
+template <typename T>
+int fwd(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rel<T> rel, const int* tab,
+        Rows<T> out, Rows<float> lse, Geo g, int Y, int Z, const WidePlan& wp, void* stream) {
+  if (wp.tk != 0) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      TcPlan pl;
+      if (!mma_fits(g.W, g.H) || tab == nullptr ||
+          reinterpret_cast<uintptr_t>(tab) % 16 != 0 ||
+          !tc_plan(pl, TcKernel::fwd, g, Y, Z, NTO, 4, wp))
+        return static_cast<int>(cudaErrorInvalidValue);
+      pl.vq = copy_bytes(q, 16);
+      pl.vk = copy_bytes(k, 16);
+      pl.vv = copy_bytes(v, 16);
+      pl.vdo = pl.vrel = 0;
+      pl.vo = copy_bytes(out, 16);
+      const long long run = static_cast<long long>(g.hw) * g.dvh;  // a pair's out rows, one run
+      pl.oflat = out.sr == g.dvh && (Y == 1 ? out.sz == run : Z == 1 && out.sy == run);
+      if (pl.wg == 1 && pl.ntg <= FWD_NTG[0])
+        return fwd_tc<FWD_NTG[0]>(q, k, v, rel, tab, out, lse, g, pl, stream);
+      if (pl.wg == 1 && pl.ntg <= FWD_NTG[1])
+        return fwd_tc<FWD_NTG[1]>(q, k, v, rel, tab, out, lse, g, pl, stream);
+      if (pl.wg == 1 && pl.ntg <= FWD_NTG[2])
+        return fwd_tc<FWD_NTG[2]>(q, k, v, rel, tab, out, lse, g, pl, stream);
+      return fwd_tc<FWD_NTG[3]>(q, k, v, rel, tab, out, lse, g, pl, stream);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const int rs = (g.W + g.H) | 1;  // odd row stride spreads rows over banks
+  const size_t smem =
+      static_cast<size_t>(CQ * rs + (CQ + FTK) * (CW + 1) + FTK * CW) * sizeof(float);
+  auto kern = fwd_core_kernel<T>;
+  const cudaError_t e = amma::allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((g.hw + CQ - 1) / CQ * ((g.dvh + CW - 1) / CW), Y, Z);
+  kern<<<grid, CQ * FSPLIT, smem, static_cast<cudaStream_t>(stream)>>>(q, k, v, rel, out, lse,
+                                                                        g, rs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int NBT, int NTG>
 int dq_tc(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rows<const bf16> dout,
           Rows<const float> lse, Rows<const float> delta, Rel<bf16> rel, const int* tab,
           DqOut<bf16> dst, Geo g, const TcPlan& pl, void* stream) {
-  const size_t smem = tc_smem(true, pl.tk, pl.ks, pl.vs, pl.rs, 4);
+  const size_t smem = tc_smem(TcKernel::dq, pl.tk, pl.ks, pl.vs, pl.rs, 4);
   auto kern = dq_tc_kernel<NBT, NTG>;
   const cudaError_t e = amma::allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1348,7 +1881,7 @@ int dq(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rows<const T> dout,
       TcPlan pl;
       if (!mma_fits(g.W, g.H) || tab == nullptr ||
           reinterpret_cast<uintptr_t>(tab) % 16 != 0 ||
-          !tc_plan(pl, true, g, Y, Z, few_bins ? NTO : NTO_BINS, 4, wp))
+          !tc_plan(pl, TcKernel::dq, g, Y, Z, few_bins ? NTO : NTO_BINS, 4, wp))
         return static_cast<int>(cudaErrorInvalidValue);
       pl.vq = copy_bytes(q, 16);
       pl.vk = copy_bytes(k, 16);
@@ -1382,7 +1915,7 @@ int dkdv(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rows<const T> dout,
   if (wp.tk != 0) {
     if constexpr (std::is_same<T, bf16>::value) {
       TcPlan pl;
-      if (!mma_fits(g.W, g.H) || !tc_plan(pl, false, g, Y, Z, NTO, sizeof(RT), wp))
+      if (!mma_fits(g.W, g.H) || !tc_plan(pl, TcKernel::dkdv, g, Y, Z, NTO, sizeof(RT), wp))
         return static_cast<int>(cudaErrorInvalidValue);
       pl.vq = copy_bytes(q, 16);
       pl.vk = copy_bytes(k, 16);

@@ -69,8 +69,12 @@
 // attention_bwd_mma.cuh), whose kernels above take dkh <= KW, dvh <= VW. The
 // largest class's library also takes any wider head, in the nk / nv chunks
 // the entries receive: attention_wide.cuh's forward, whose RC rows are f32
-// sums over all of dkh (the code its dq pass runs) and whose S sums over the
-// chunks of dkh in the block, out split by chunks of dvh over the grid.
+// sums over all of dkh (rc_rows, the code its dq pass runs), computed once
+// per 64-query tile; in bf16 up to amma::mma_fits on the tensor cores, S and
+// p once per tile pair for every column of out, the slots' k and v rows by
+// cp.async into two buffers, tiny maps several (batch, head) pairs a tile
+// (ops/fused_attention.py::wide_fwd_plan); in f32 and on larger maps the
+// CUDA-core kernel in chunks of 32 lanes.
 
 #include "attention_wide.cuh"
 #include "hil_attention_common.cuh"
@@ -391,12 +395,12 @@ int launch(const void* P, const void* Rw, const void* Rh, void* out, void* lse, 
   return launch_dk<T, amma::KW>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
 }
 
-// A head past the largest width class (attention_wide.cuh): the slots' rows,
-// grid (tiles x chunks, nh, B).
+// A head past the largest width class (attention_wide.cuh): the slots' rows;
+// wp, the host's plan of the forward.
 template <typename T>
 int launch_wide(const void* P, const void* Rw, const void* Rh, const void* tab, void* out,
                 void* lse, int B, int hw, int H, int W, int nh, int slot, int dkh, int dvh,
-                int nk, int nv, void* stream) {
+                int nk, int nv, const attention_wide::WidePlan& wp, void* stream) {
   using attention_wide::Rows;
   if (B < 1 || B > 65535 || nh < 1 || nh > 65535 || slot < 2 * dkh + dvh || hw != H * W ||
       hw < 1 || (Rw == nullptr) != (Rh == nullptr))
@@ -410,24 +414,28 @@ int launch_wide(const void* P, const void* Rw, const void* Rh, const void* tab, 
       attention_wide::Rel<T>{{}, static_cast<const float*>(Rw), static_cast<const float*>(Rh)},
       static_cast<const int*>(tab), Rows<T>{static_cast<T*>(out), n * orow, dvh, orow},
       Rows<float>{static_cast<float*>(lse), nh * n, n, 1},
-      attention_wide::Geo{hw, H, W, dkh, dvh, nk, nv}, nh, B, stream);
+      attention_wide::Geo{hw, H, W, dkh, dvh, nk, nv}, nh, B, wp, stream);
 }
 
 }  // namespace
 
-// tab: the key table of the map (ops/fused_attention.py::key_table), read by
-// the tensor-core kernels alone. nk, nv: the head's chunk counts
-// (ops/fused_attention.py::width_plan), 1 and 1 for a head its class holds.
+// tab: the key table of the map (ops/fused_attention.py::key_table, with the
+// plan's pack), read by the tensor-core kernels alone. nk, nv: the head's
+// chunk counts (ops/fused_attention.py::width_plan), 1 and 1 for a head its
+// class holds; a wider head takes attention_wide.cuh, in the plan pack,
+// groups, wg, tk, smem of ops/fused_attention.py::fwd_plan_args
+// (attention_wide::WidePlan; all 0 for a head its class holds, for f32 and
+// for a map past amma::mma_fits).
 extern "C" int hil_attention_fwd_f32(const void* P, const void* Rw, const void* Rh,
                                      const void* tab, void* out, void* lse, int B, int hw, int H,
                                      int W, int nh, int slot, int dkh, int dvh, int nk, int nv,
-                                     void* stream) {
+                                     int pack, int groups, int wg, int tk, int smem, void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
       return launch_wide<float>(P, Rw, Rh, tab, out, lse, B, hw, H, W, nh, slot, dkh, dvh, nk,
-                                nv, stream);
+                                nv, {pack, groups, wg, tk, smem}, stream);
   }
   return launch<float>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);
 }
@@ -435,13 +443,13 @@ extern "C" int hil_attention_fwd_f32(const void* P, const void* Rw, const void* 
 extern "C" int hil_attention_fwd_bf16(const void* P, const void* Rw, const void* Rh,
                                       const void* tab, void* out, void* lse, int B, int hw, int H,
                                       int W, int nh, int slot, int dkh, int dvh, int nk, int nv,
-                                      void* stream) {
+                                      int pack, int groups, int wg, int tk, int smem, void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
       return launch_wide<__nv_bfloat16>(P, Rw, Rh, tab, out, lse, B, hw, H, W, nh, slot, dkh, dvh,
-                                        nk, nv, stream);
+                                        nk, nv, {pack, groups, wg, tk, smem}, stream);
   }
   if (!amma::mma_fits(W, H))
     return launch<__nv_bfloat16>(P, Rw, Rh, out, lse, B, hw, H, W, nh, slot, dkh, dvh, stream);

@@ -53,10 +53,15 @@
 // Head widths: this file is built once per width class (KW, VW) of
 // ops/fused_attention.py::width_plan (-DATTN_KW, -DATTN_VW; see
 // attention_bwd_mma.cuh), whose kernels above take dkh <= KW, dvh <= VW. The
-// largest class's library also takes any wider head, in nk = ceil(dkh / KW)
-// and nv = ceil(dvh / VW) chunks that the entries receive and check: the
-// chunked kernels of attention_wide.cuh, S summed over the chunks of dkh in
-// the block, out split by chunks of dvh over the grid.
+// largest class's library also takes any wider head (nk = ceil(dkh / KW) and
+// nv = ceil(dvh / VW) chunks that the entries receive and check), in the
+// kernels of attention_wide.cuh: in bf16 up to amma::mma_fits its
+// tensor-core forward, where a block stages its 64 queries' rows whole once,
+// takes the key and value rows of each tile by cp.async into two buffers,
+// forms S and p once per tile pair over all of dkh and feeds every column of
+// out from them (tiny maps several (batch, head) pairs a tile), on the plan
+// of ops/fused_attention.py::wide_fwd_plan; in f32 and on larger maps the
+// CUDA-core kernel in chunks of 32 lanes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -342,12 +347,12 @@ int launch(const void* qr, const void* k, const void* v, void* out, void* lse, i
   return launch_dk<T, amma::KW>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);
 }
 
-// A head past the largest width class (attention_wide.cuh): head-major rows,
-// grid (tiles x chunks, bn).
+// A head past the largest width class (attention_wide.cuh): head-major rows;
+// wp, the host's plan of the forward.
 template <typename T>
 int launch_wide(const void* qr, const void* k, const void* v, const void* tab, void* out,
                 void* lse, int bn, int hw, int H, int W, int dkh, int dvh, int nk, int nv,
-                void* stream) {
+                const attention_wide::WidePlan& wp, void* stream) {
   using attention_wide::Rows;
   if (hw != H * W || hw < 1 || bn < 1 || bn > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = hw, L = dkh + W + H;
@@ -358,37 +363,42 @@ int launch_wide(const void* qr, const void* k, const void* v, const void* tab, v
                       attention_wide::Rel<T>{{q + dkh, 0, n * L, L}, nullptr, nullptr},
                       static_cast<const int*>(tab), Rows<T>{static_cast<T*>(out), 0, n * dvh, dvh},
                       Rows<float>{static_cast<float*>(lse), 0, n, 1},
-                      attention_wide::Geo{hw, H, W, dkh, dvh, nk, nv}, bn, 1, stream);
+                      attention_wide::Geo{hw, H, W, dkh, dvh, nk, nv}, bn, 1, wp, stream);
 }
 
 }  // namespace
 
-// tab: the key table of the map (ops/fused_attention.py::key_table), read by
-// the tensor-core kernels alone. nk, nv: the head's chunk counts
-// (ops/fused_attention.py::width_plan), 1 and 1 for a head its class holds.
+// tab: the key table of the map (ops/fused_attention.py::key_table, with the
+// plan's pack), read by the tensor-core kernels alone. nk, nv: the head's
+// chunk counts (ops/fused_attention.py::width_plan), 1 and 1 for a head its
+// class holds; a wider head takes attention_wide.cuh, in the plan pack,
+// groups, wg, tk, smem of ops/fused_attention.py::fwd_plan_args
+// (attention_wide::WidePlan; all 0 for a head its class holds, for f32 and
+// for a map past amma::mma_fits).
 extern "C" int rel_attention_fwd_f32(const void* qr, const void* k, const void* v,
                                      const void* tab, void* out, void* lse, int bn, int hw,
-                                     int H, int W, int dkh, int dvh, int nk, int nv,
-                                     void* stream) {
+                                     int H, int W, int dkh, int dvh, int nk, int nv, int pack,
+                                     int groups, int wg, int tk, int smem, void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
-      return launch_wide<float>(qr, k, v, tab, out, lse, bn, hw, H, W, dkh, dvh, nk, nv, stream);
+      return launch_wide<float>(qr, k, v, tab, out, lse, bn, hw, H, W, dkh, dvh, nk, nv,
+                              {pack, groups, wg, tk, smem}, stream);
   }
   return launch<float>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);
 }
 
 extern "C" int rel_attention_fwd_bf16(const void* qr, const void* k, const void* v,
                                       const void* tab, void* out, void* lse, int bn, int hw,
-                                      int H, int W, int dkh, int dvh, int nk, int nv,
-                                      void* stream) {
+                                      int H, int W, int dkh, int dvh, int nk, int nv, int pack,
+                                      int groups, int wg, int tk, int smem, void* stream) {
   const int route = attention_wide::route(dkh, dvh, nk, nv);
   if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (attention_wide::BUILT) {
     if (route > 0)
       return launch_wide<__nv_bfloat16>(qr, k, v, tab, out, lse, bn, hw, H, W, dkh, dvh, nk, nv,
-                                        stream);
+                                        {pack, groups, wg, tk, smem}, stream);
   }
   if (!amma::mma_fits(W, H))
     return launch<__nv_bfloat16>(qr, k, v, out, lse, bn, hw, H, W, dkh, dvh, stream);

@@ -65,6 +65,7 @@ BW_NTO_BINS = 16        # NTO_BINS: pass dq with more bin tiles
 BW_SMEM_MAX = 232448    # BW_SMEM_MAX: dynamic shared memory of one block on the H100
 BW_WG = 2               # BW_WG: column groups (warp groups of 4 warps) a block holds at most
 SM_SMEM = 233472        # shared memory of an H100 SM, 1 KB of it reserved per block
+H100_SMS = 132          # SMs of the H100 (SXM), where no card is asked
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _BF16_ONE = 0x3F80      # 1.0 in bf16
 
@@ -151,6 +152,14 @@ def _rel_stride(W: int, H: int) -> int:  # csrc/attention_bwd_mma.cuh rel_stride
     return s + ((4 - s % 8) + 8) % 8
 
 
+def _other_tile(smem: dict, wg: int):
+    """The other side's tokens a tile of a tensor-core kernel, of 32 and 16
+    whose shared memory ``smem[tk]`` fits: 32, or 16 where that alone lets
+    two one-group blocks share an SM; None where neither fits a block."""
+    return next((tk for tk in (32, 16) if wg == 1 and 2 * (smem[tk] + 1024) <= SM_SMEM),
+                next((tk for tk in (32, 16) if smem[tk] <= BW_SMEM_MAX), None))
+
+
 def wide_bwd_plan(H: int, W: int, dkh: int, dvh: int, layout: str = "bn") -> dict:
     """The plan of the tensor-core backward passes for a bf16 head past the
     largest width class, chosen here alone: the entries take it
@@ -183,8 +192,7 @@ def wide_bwd_plan(H: int, W: int, dkh: int, dvh: int, layout: str = "bn") -> dic
                      else own + 2 * tk * ((ks + vs) * 2 + rs * rel_bytes + 8))
                 for tk in (32, 16)}
         wg = BW_WG if groups > 1 else 1
-        tk = next((tk for tk in (32, 16) if wg == 1 and 2 * (smem[tk] + 1024) <= SM_SMEM),
-                  next((tk for tk in (32, 16) if smem[tk] <= BW_SMEM_MAX), None))
+        tk = _other_tile(smem, wg)
         if tk is not None:
             plan[name] = {"groups": groups, "tiles": -(-tiles // groups), "warp_groups": wg,
                           "blocks_per_tile": -(-groups // wg), "tk": tk, "smem": smem[tk]}
@@ -209,14 +217,123 @@ def bwd_plan_args(pass_name: str, dtype, H: int, W: int, dkh: int, dvh: int,
     return (plan["pack"], p["groups"], p["warp_groups"], p["tk"], p["smem"])
 
 
+# csrc/attention_wide.cuh FWD_NTG / fwd_blocks: the forward's instances, as
+# (n8 tiles of out a warp holds, the blocks an SM its launch bounds promise)
+FWD_INSTANCES = ((8, 4), (12, 4), (16, 3), (32, 1))
+FWD_WIDE_BLOCKS = 2  # the 32-tile instance, one warp group: blocks an SM at its ~240 registers
+
+
+def _fwd_tiles(H: int, W: int, dkh: int, dvh: int):
+    """Of the tensor-core forward for the head: per tk (32, 16), its shared
+    memory bytes and the blocks an SM holds (the shared memory and the
+    instance's registers, FWD_INSTANCES); its column groups, warp groups,
+    and tk as ``wide_bwd_plan`` chooses it (None: the rows do not fit)."""
+    kp, vp = -(-dkh // 16) * 16, -(-dvh // 16) * 16
+    ks, vs, rs = kp + 8, vp + 8, _rel_stride(W, H)
+    tiles = -(-dvh // 8)
+    groups = -(-tiles // BW_NTO)
+    wg = BW_WG if groups > 1 else 1
+    ntg = -(-tiles // groups)
+    regs = next((b for n, b in FWD_INSTANCES[:-1] if wg == 1 and ntg <= n),
+                FWD_WIDE_BLOCKS if wg == 1 else FWD_INSTANCES[-1][1])
+    smem = {tk: BW_ROWS * ks * 2 + BW_ROWS * 16 + 2 * tk * (ks + vs) * 2 + BW_ROWS * rs * 4
+            for tk in (32, 16)}
+    per_tk = {tk: (smem[tk], min(regs, SM_SMEM // (smem[tk] + 1024))) for tk in smem}
+    return per_tk, groups, wg, _other_tile(smem, wg)
+
+
+def fwd_pack(H: int, W: int, dkh: int, dvh: int, pairs: int, sms: int = H100_SMS) -> int:
+    """The (batch, head) pairs that one BW_ROWS-token tile of the tensor-core
+    forward of ``csrc/attention_wide.cuh`` packs, of ``pairs`` in all on a
+    card of ``sms`` SMs: a head past the largest width class on a map of at
+    most BW_ROWS / 2 tokens packs the fewest that let every block of the grid
+    be resident at once (one wave: sms x the blocks an SM holds), at most
+    BW_ROWS // hw; anything else 1. A block's time hardly grows with its
+    pairs and a second wave doubles the call, so at 1x1 with 512 pairs (one
+    block an SM) the pack is 4: 128 blocks, faster than 3 a tile in two
+    waves (``scripts/ab_attention_torch.py --packs``)."""
+    hw = H * W
+    if width_plan(dkh, dvh)[1:] == (1, 1) or hw > BW_ROWS // 2:
+        return 1
+    per_tk, _, _, tk = _fwd_tiles(H, W, dkh, dvh)
+    if tk is None:
+        return 1
+    return max(1, min(BW_ROWS // hw, -(-pairs // (sms * per_tk[tk][1]))))
+
+
+def wide_fwd_plan(H: int, W: int, dkh: int, dvh: int, pairs: int,
+                  sms: int = H100_SMS):
+    """The plan of the tensor-core forward for a bf16 head past the largest
+    width class over ``pairs`` (batch, head) pairs, chosen here alone: the
+    entries take it (``fwd_plan_args``) and csrc/attention_wide.cuh's
+    ``tc_plan`` refuses a plan its kernel cannot run, shared memory other
+    than its own count included. The pack (``fwd_pack``), the column groups
+    of out's n8 tiles (at most BW_NTO a group: one up to dvh 256, two at
+    dvh 320), n8 tiles per group, warp groups a block (BW_WG where there are
+    several groups), key tokens per tile (tk, as ``wide_bwd_plan`` chooses
+    it, or 16 where that alone makes the grid resident at once) and shared
+    memory in bytes: the query rows, two key and value tiles (whose room
+    first holds the chunks of R that the RC rows are summed from), the f32
+    RC rows and the token table; and the blocks an SM holds. None for a map
+    past ``on_tensor_cores`` and for rows that do not fit at tk 16 (the
+    CUDA-core kernel takes those)."""
+    if not on_tensor_cores(torch.bfloat16, H, W):
+        return None
+    per_tk, groups, wg, tk = _fwd_tiles(H, W, dkh, dvh)
+    if tk is None:
+        return None
+    pack = fwd_pack(H, W, dkh, dvh, pairs, sms)
+    own_tiles = 1 if pack > 1 else -(-(H * W) // BW_ROWS)
+    blocks = -(-pairs // pack) * own_tiles * -(-groups // wg)
+    if tk == 32 and sms * per_tk[32][1] < blocks <= sms * per_tk[16][1]:
+        tk = 16
+    return {"pack": pack, "own_tiles": own_tiles, "groups": groups,
+            "tiles": -(-(-(-dvh // 8)) // groups), "warp_groups": wg,
+            "blocks_per_tile": -(-groups // wg), "tk": tk, "smem": per_tk[tk][0],
+            "blocks_per_sm": per_tk[tk][1]}
+
+
+def fwd_instance(plan: dict) -> int:
+    """The n8 tiles a warp of the forward's instance holds for a plan of
+    ``wide_fwd_plan`` (FWD_INSTANCES: the least that holds its column group,
+    the widest for two warp groups), as csrc/attention_wide.cuh::fwd picks
+    it."""
+    if plan["warp_groups"] > 1:
+        return FWD_INSTANCES[-1][0]
+    return next(n for n, _ in FWD_INSTANCES if plan["tiles"] <= n)
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan_args(dtype, H: int, W: int, dkh: int, dvh: int, pairs: int,
+                  sms: int = H100_SMS) -> Tuple[int, int, int, int, int]:
+    """The plan that the forward entries take after the head's chunk counts:
+    (pack, column groups, warp groups a block, tk, shared memory bytes) of
+    ``wide_fwd_plan`` for ``pairs`` (batch, head) pairs on a card of ``sms``
+    SMs, which the tensor-core forward runs; all 0 for a head its width class
+    holds, for f32 or a map past ``on_tensor_cores``, and for rows that do
+    not fit (the CUDA-core kernel takes those)."""
+    if width_plan(dkh, dvh)[1:] == (1, 1) or not on_tensor_cores(dtype, H, W):
+        return (0, 0, 0, 0, 0)
+    p = wide_fwd_plan(H, W, dkh, dvh, pairs, sms)
+    if p is None:
+        return (0, 0, 0, 0, 0)
+    return (p["pack"], p["groups"], p["warp_groups"], p["tk"], p["smem"])
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (the forward's plan packs tiny maps by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.lru_cache(maxsize=64)
 def key_table(H: int, W: int, device: torch.device, pack: int = 1) -> torch.Tensor:
     """What the tensor-core kernels need to know of each tile of 64 keys (the
     dq passes all of it, the forwards the key positions): an int32 table
     (tiles, words) that depends on the map alone, so it is built once per
-    (H, W, device, pack) and kept. ``pack`` > 1 (``bwd_plan_args``): the
-    keys are ``pack`` copies of the map's hw tokens one after another, key v
-    being token v % hw (one row). Per row (``KeyTable`` in
+    (H, W, device, pack) and kept. ``pack`` > 1 (``bwd_plan_args``,
+    ``fwd_plan_args``): the keys are ``pack`` copies of the map's hw tokens
+    one after another, key v being token v % hw (one row). Per row (``KeyTable`` in
     csrc/attention_bwd_mma.cuh):
 
       [4 chunks of 16 keys][bin tiles][32 lanes][2]  the B fragments (b0, b1)
@@ -367,10 +484,11 @@ def rel_attention_fwd(qr: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _kernel_entry(NAME, NAME, (qr, k, v), (), dkh, dvh)
     out = torch.empty((bn, hw, dvh), dtype=v.dtype, device=qr.device)
     lse = torch.empty((bn, hw), dtype=torch.float32, device=qr.device)
-    tab = key_table(H, W, qr.device) if on_tensor_cores(qr.dtype, H, W) else None
+    plan = fwd_plan_args(qr.dtype, H, W, dkh, dvh, bn, sm_count(qr.device))
+    tab = key_table(H, W, qr.device, max(plan[0], 1)) if on_tensor_cores(qr.dtype, H, W) else None
     kernels.launch(NAME, fn, [None if t is None else t.data_ptr()
                               for t in (qr, k, v, tab, out, lse)],
-                   [bn, hw, H, W, dkh, dvh, *width_plan(dkh, dvh)[1:]], qr.device)
+                   [bn, hw, H, W, dkh, dvh, *width_plan(dkh, dvh)[1:], *plan], qr.device)
     return out, lse
 
 

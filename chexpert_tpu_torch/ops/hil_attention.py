@@ -53,9 +53,11 @@ import torch
 from chexpert_tpu_torch import kernels
 from chexpert_tpu_torch.ops.fused_attention import (
     bwd_plan_args,
+    fwd_plan_args,
     key_positions,
     key_table,
     on_tensor_cores,
+    sm_count,
     width_library,
     width_plan,
 )
@@ -254,9 +256,11 @@ def hil_attention_fwd(P0: torch.Tensor, Rw: Optional[torch.Tensor], Rh: Optional
     fn = _kernel_entry(FWD, FWD, (P0,), (Rw, Rh), dkh, dvh)
     out = torch.empty((B, hw, nh * dvh), dtype=P0.dtype, device=P0.device)
     lse = torch.empty((B, nh, hw), dtype=torch.float32, device=P0.device)
-    tab = key_table(H, W, P0.device) if on_tensor_cores(P0.dtype, H, W) else None
+    plan = fwd_plan_args(P0.dtype, H, W, dkh, dvh, B * nh, sm_count(P0.device))
+    tab = key_table(H, W, P0.device, max(plan[0], 1)) if on_tensor_cores(P0.dtype, H, W) else None
     kernels.launch(FWD, fn, [_ptr(t) for t in (P0, Rw, Rh, tab, out, lse)],
-                   [B, hw, H, W, nh, slot, dkh, dvh, *width_plan(dkh, dvh)[1:]], P0.device)
+                   [B, hw, H, W, nh, slot, dkh, dvh, *width_plan(dkh, dvh)[1:], *plan],
+                   P0.device)
     return out, lse
 
 

@@ -2229,6 +2229,21 @@ def pass_registers(source: str, cls) -> dict:
             for p, rs in found.items()}
 
 
+def forward_registers(source: str, plan) -> dict:
+    """Registers and spill stores of the tensor-core wide forward's instance
+    that ``plan`` (fused_attention.wide_fwd_plan) runs, by its kernel name
+    (``fwd_tc_kernel<N>``, N = fused_attention.fwd_instance) in the report
+    of the (128, 64) library of ``source`` (kernels.ptxas_report)."""
+    from chexpert_tpu_torch import kernels
+    from chexpert_tpu_torch.ops.fused_attention import WIDTH_CLASSES, fwd_instance, width_defines
+
+    name = f"fwd_tc_kernel<{fwd_instance(plan)}>"
+    found = [r for r in kernels.ptxas_report((source, width_defines(WIDTH_CLASSES[-1])))
+             if name in r["kernel"]]
+    return {"kernel": name, "registers": found[0].get("registers") if found else None,
+            "spill_stores": found[0].get("spill_stores") if found else None}
+
+
 def bench_attention_rows(geos, nh=NH, time_f32=False):
     """B1, B2's two passes, B5 and B6's three passes at each (H, W, dvh, dkh)
     of ``geos`` and BENCH_BATCH x nh heads, f32 and bf16, against their plain
@@ -2250,6 +2265,7 @@ def bench_attention_rows(geos, nh=NH, time_f32=False):
         rel_attention_bwd_plain,
         rel_attention_fwd,
         rel_attention_fwd_plain,
+        wide_fwd_plan,
         width_plan,
     )
     from chexpert_tpu_torch.ops.hil_attention import (
@@ -2382,6 +2398,12 @@ def bench_attention_rows(geos, nh=NH, time_f32=False):
                                    ("b5", "hil_attention_fwd", ("fwd",)),
                                    ("b6", "hil_attention_bwd", ("dq", "dkdv", "drel")))
                 for p in ps}
+            plan = (wide_fwd_plan(H, W, dkh, dvh, bn) if dtype == torch.bfloat16
+                    and (nk, nv) != (1, 1) else None)
+            if plan is not None:  # the wide forward's own instance, beside each pass's most
+                row["fwd_plan"] = plan
+                for k, src in (("b1", "rel_attention_fwd"), ("b5", "hil_attention_fwd")):
+                    row["registers"][f"{k} fwd_tc"] = forward_registers(src, plan)
             rows.append(row)
             regs = row["registers"]
             times = ""

@@ -89,14 +89,16 @@ def _params(text: str, entry: str) -> list:
 
 @pytest.mark.parametrize("suffix", ["f32", "bf16"])
 @pytest.mark.parametrize("name,params", [
-    (fused_attention.NAME, "qr k v tab out lse bn hw H W dkh dvh nk nv stream"),
-    (hil_attention.FWD, "P Rw Rh tab out lse B hw H W nh slot dkh dvh nk nv stream"),
+    (fused_attention.NAME,
+     "qr k v tab out lse bn hw H W dkh dvh nk nv pack groups wg tk smem stream"),
+    (hil_attention.FWD,
+     "P Rw Rh tab out lse B hw H W nh slot dkh dvh nk nv pack groups wg tk smem stream"),
 ])
 def test_forward_entries_take_the_key_table(name, params, suffix):
     """Both forwards take the key table's pointer after their operands, as
     ``rel_attention_fwd`` / ``hil_attention_fwd`` pass it (None off the
-    tensor-core route), and the head's chunk counts of ``width_plan`` after
-    its widths."""
+    tensor-core route), the head's chunk counts of ``width_plan`` after
+    its widths and the wide forward's plan (``fwd_plan_args``) after them."""
     text = (kernels.CSRC_DIR / f"{name}.cu").read_text()
     assert _params(text, f"{name}_{suffix}") == params.split()
 

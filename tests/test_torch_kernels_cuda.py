@@ -56,7 +56,10 @@ from chexpert_tpu_torch.ops.fused_attention import (
     rel_attention_fwd,
     rel_attention_fwd_plain,
     bwd_pack,
+    fwd_pack,
+    sm_count,
     wide_bwd_plan,
+    wide_fwd_plan,
     width_class,
     width_plan,
 )
@@ -530,6 +533,110 @@ def test_wide_heads_on_unaligned_slots(cuda, head, geo):
     narrower copies and 2-byte loads, and match the plain versions."""
     dkh, dvh = head
     _match_plain(dkh, dvh, *geo, "hil", torch.bfloat16, slot=2 * dkh + dvh + 3)
+
+
+# the tensor-core forward's own cases of heads past the largest class:
+# ((dkh, dvh), (B, nh, H, W)) with pair counts past one wave of blocks, so
+# that tiny maps pack 2 to 4 pairs a tile and the last pack is partial (1x1,
+# 2x2, 4x4; the width rows' 1x1 at about 256 x 2 pairs); the ragged (150, 75)
+# at 1x1, 8x8 and 10x10; the widest head, (640, 320), in two warp groups;
+# (320, 160) at 16x16
+FWD_CASES = [((512, 256), (5, 67, 1, 1)), ((160, 64), (7, 143, 2, 2)),
+             ((320, 128), (3, 401, 4, 4)), ((150, 75), (1, 1001, 1, 1)),
+             ((512, 256), (255, 2, 1, 1)), ((150, 75), (2, 2, 8, 8)),
+             ((150, 75), (2, 3, 10, 10)), ((640, 320), (2, 1, 8, 8)),
+             ((320, 160), (1, 1, 16, 16))]
+
+
+def _forward(layout, dkh, dvh, B, nh, H, W, dtype=torch.bfloat16, slot=None):
+    """(kernel out, kernel lse, plain out, plain lse) of B1 / B5 at the head
+    and map, one launch of the forward and no other kernel."""
+    kernels.reset_launch_counts()
+    if layout == "bn":
+        qr, k, v = _inputs(B, nh, H, W, dvh, dtype, dkh=dkh)
+        got = rel_attention_fwd(qr, k, v, H, W, dkh)
+        want = rel_attention_fwd_plain(qr, k, v, H, W, dkh)
+        name = NAME
+    else:
+        slot = slot or hil_slot(dkh, dvh)
+        P0, Rw, Rh = _hil_inputs(B, nh, H, W, dvh, dtype, slot, dkh=dkh)
+        got = hil_attention_fwd(P0, Rw, Rh, H, W, dkh, dvh, slot)
+        want = hil_attention_fwd_plain(P0, Rw, Rh, H, W, dkh, dvh, slot)
+        name = FWD
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {name: 1}
+    return (*got, *want)
+
+
+@pytest.mark.parametrize("layout", ["bn", "hil"])
+@pytest.mark.parametrize("head,geo", FWD_CASES, ids=lambda x: "x".join(map(str, x)))
+def test_wide_forward_matches_plain(cuda, head, geo, layout):
+    """The tensor-core forward (wide_fwd_plan finds room) at packed tiny maps
+    whose pair count is not a multiple of the pack, ragged heads and tokens
+    and the widest head: out and lse within TOL of the plain version."""
+    dkh, dvh = head
+    B, nh, H, W = geo
+    plan = wide_fwd_plan(H, W, dkh, dvh, B * nh, sm_count(torch.device("cuda", 0)))
+    assert plan is not None
+    assert plan["pack"] == fwd_pack(H, W, dkh, dvh, B * nh, sm_count(torch.device("cuda", 0)))
+    assert plan["pack"] == 1 or (B * nh) % plan["pack"] != 0
+    out, lse, out_p, lse_p = _forward(layout, dkh, dvh, B, nh, H, W)
+    _check_close("out", out, out_p, TOL[torch.bfloat16], False)
+    _check_close("lse", lse, lse_p, TOL[torch.bfloat16], False)
+
+
+@pytest.mark.parametrize("head,geo", [((512, 256), (4, 70, 1, 1)), ((160, 64), (1, 2, 8, 8)),
+                                      ((150, 75), (2, 3, 4, 4)), ((640, 320), (1, 2, 8, 8))],
+                         ids=lambda x: "x".join(map(str, x)))
+def test_wide_forward_on_unaligned_slots(cuda, head, geo):
+    """Heads-in-lanes slots of 2 dkh + dvh + 3 lanes: the forward stages q, k
+    and v by narrower copies and 2-byte loads (packed too) and matches the
+    plain version."""
+    dkh, dvh = head
+    out, lse, out_p, lse_p = _forward("hil", dkh, dvh, *geo, slot=2 * dkh + dvh + 3)
+    _check_close("out", out, out_p, TOL[torch.bfloat16], False)
+    _check_close("lse", lse, lse_p, TOL[torch.bfloat16], False)
+
+
+@pytest.mark.parametrize("layout", ["bn", "hil"])
+@pytest.mark.parametrize("head,geo", [((512, 256), (5, 67, 1, 1)), ((640, 320), (2, 1, 8, 8)),
+                                      ((160, 64), (1, 2, 16, 16))],
+                         ids=lambda x: "x".join(map(str, x)))
+def test_wide_forward_is_deterministic(cuda, head, geo, layout):
+    """Two forward calls on the same inputs give bit-equal out and lse."""
+    dkh, dvh = head
+    a = _forward(layout, dkh, dvh, *geo)
+    b = _forward(layout, dkh, dvh, *geo)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# plans that the tensor-core forward refuses at (320, 128) on 8x8, made from
+# the one fwd_plan_args chooses: shared memory 16 bytes off its count, tk 64,
+# 17 column groups of out's 16 n8 tiles (the last one empty), a pack of 2 on
+# a map of 64 tokens, three warp groups a block
+FWD_BAD_PLANS = {"smem": lambda p: (*p[:4], p[4] + 16), "tk": lambda p: (*p[:3], 64, p[4]),
+                 "groups": lambda p: (p[0], 17, *p[2:]), "pack": lambda p: (2, *p[1:]),
+                 "wg": lambda p: (*p[:2], 3, *p[3:])}
+
+
+@pytest.mark.parametrize("layout", ["bn", "hil"])
+@pytest.mark.parametrize("bad", sorted(FWD_BAD_PLANS))
+def test_wide_forward_refuses_a_plan_it_cannot_run(cuda, monkeypatch, layout, bad):
+    """The forward takes the plan of wide_fwd_plan from the wrapper
+    (fwd_plan_args) and refuses one its kernel cannot run, its shared memory
+    included: the wrapper raises and counts no launch."""
+    from chexpert_tpu_torch.ops import fused_attention, hil_attention
+
+    dkh, dvh, B, nh, H, W = 320, 128, 2, 1, 8, 8
+    mod = fused_attention if layout == "bn" else hil_attention
+    real = fused_attention.fwd_plan_args
+    assert real(torch.bfloat16, H, W, dkh, dvh, B * nh)[3] in (16, 32)
+    monkeypatch.setattr(mod, "fwd_plan_args", lambda *a: FWD_BAD_PLANS[bad](real(*a)))
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        _forward(layout, dkh, dvh, B, nh, H, W)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {}
 
 
 # pass drel's plans: 8x8 with one and two heads (batch elements share a
