@@ -47,7 +47,7 @@ from chexpert_tpu_torch.models.attn import ATTN_IMPLS
 from chexpert_tpu_torch.models.registry import OptimizerSpec, attn_layout_from_env
 from chexpert_tpu_torch.parallel import create_mesh
 from chexpert_tpu_torch.train import autocast, eval_logits, make_optimizer
-from chexpert_tpu_torch.utils import MetricsWriter, resolve_device, save_json
+from chexpert_tpu_torch.utils import MetricsWriter, resolve_device, save_json, trace
 
 # reference normalization constants (test_model.py:268)
 CIFAR_MEAN = np.array([125.3, 123.0, 113.9], np.float32) / 255.0
@@ -161,16 +161,17 @@ def normalize(x_uint8: np.ndarray) -> np.ndarray:
 
 def augment(x_uint8: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
     """Reflect-pad 4 + random flip + random crop 32 (test_model.py:269)."""
-    n = len(x_uint8)
-    padded = np.pad(x_uint8, ((0, 0), (4, 4), (4, 4), (0, 0)), mode="reflect")
-    out = np.empty_like(x_uint8)
-    tops = rng.randint(0, 9, n)
-    lefts = rng.randint(0, 9, n)
-    flips = rng.rand(n) < 0.5
-    for i in range(n):
-        img = padded[i, tops[i]:tops[i] + 32, lefts[i]:lefts[i] + 32]
-        out[i] = img[:, ::-1] if flips[i] else img
-    return out
+    with trace.span("input.augment"):
+        n = len(x_uint8)
+        padded = np.pad(x_uint8, ((0, 0), (4, 4), (4, 4), (0, 0)), mode="reflect")
+        out = np.empty_like(x_uint8)
+        tops = rng.randint(0, 9, n)
+        lefts = rng.randint(0, 9, n)
+        flips = rng.rand(n) < 0.5
+        for i in range(n):
+            img = padded[i, tops[i]:tops[i] + 32, lefts[i]:lefts[i] + 32]
+            out[i] = img[:, ::-1] if flips[i] else img
+        return out
 
 
 def build_bench_model(args, n_classes: int, n_batches: int):
@@ -220,21 +221,28 @@ def topk_accuracy(logits: np.ndarray, y: np.ndarray, ks=(1, 5)):
 def train_step(model, optimizer, scheduler, x: torch.Tensor, y: torch.Tensor,
                compute_dtype: torch.dtype, generator=None) -> torch.Tensor:
     """One optimizer step of the mean log-softmax cross-entropy (f32) on a
-    prepared (B, 3, 32, 32) batch; returns the loss on the device."""
-    model.train()
-    with autocast(x.device, compute_dtype):
-        out = model(x, generator=generator)
-    loss = F.cross_entropy(out.float(), y)
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
-    scheduler.step()
-    return loss.detach()
+    prepared (B, 3, 32, 32) batch; returns the loss on the device. Spans:
+    ``step`` around it all, then ``step.forward``, ``step.backward`` and
+    ``step.optimizer`` (``utils/trace.py``)."""
+    with trace.span(trace.STEP):
+        model.train()
+        with trace.span("step.forward"):
+            with autocast(x.device, compute_dtype):
+                out = model(x, generator=generator)
+            loss = F.cross_entropy(out.float(), y)
+        with trace.span("step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with trace.span("step.optimizer"):
+            optimizer.step()
+            scheduler.step()
+        return loss.detach()
 
 
 def to_device(x_uint8: np.ndarray, device) -> torch.Tensor:
     """Normalized NHWC uint8 images -> (B, 3, 32, 32) f32 on ``device``."""
-    return torch.from_numpy(normalize(x_uint8)).to(device).permute(0, 3, 1, 2).contiguous()
+    with trace.span("input.to_device"):
+        return torch.from_numpy(normalize(x_uint8)).to(device).permute(0, 3, 1, 2).contiguous()
 
 
 def evaluate(model, x: np.ndarray, y: np.ndarray, batch_size: int, device,

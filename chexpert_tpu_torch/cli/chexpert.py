@@ -26,7 +26,11 @@ cache under ``<data_path>/CheXpert-v1.0-small/packed`` (with a 32-pixel crop
 margin for ``--data_aug`` training) and streams it; ``--device_aug`` then
 crops and flips on the device instead of the host. ``--profile`` writes a
 ``torch.profiler`` trace of steps 3-12 of epoch 0 to
-``<output_dir>/profile/trace.json``. ``--pretrained`` starts from
+``<output_dir>/profile/trace.json``, with the port's spans (``utils/trace.py``)
+as ranges of their names: ``step`` and its phases ``step.forward``,
+``step.backward`` and ``step.optimizer``, ``input.next`` (the wait for the
+next batch), and ``attn.fwd`` / ``attn.bwd`` around each AA conv's attention
+kernels. ``--pretrained`` starts from
 ``$CHEXPERT_TPU_PRETRAINED_DIR/<model>.pth`` (the head excepted); a restore
 re-reads the flag from the restored run's config.json.
 

@@ -44,6 +44,7 @@ from typing import Tuple
 import torch
 
 from chexpert_tpu_torch import kernels
+from chexpert_tpu_torch.utils import trace
 
 NAME = "rel_attention_fwd"
 BWD_SOURCE = "rel_attention_bwd"  # one source, two kernels (passes)
@@ -544,7 +545,8 @@ class RelAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qr, k, v, H: int, W: int, dkh: int):
-        out, lse = rel_attention_fwd(qr, k, v, H, W, dkh)
+        with trace.span("attn.fwd", H=H, W=W, batch_heads=qr.shape[0]):
+            out, lse = rel_attention_fwd(qr, k, v, H, W, dkh)
         ctx.save_for_backward(qr, k, v, out, lse)
         ctx.geometry = (H, W, dkh)
         return out
@@ -552,7 +554,9 @@ class RelAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qr, k, v, out, lse = ctx.saved_tensors
-        with torch.autocast(qr.device.type, enabled=False):
+        H, W, _ = ctx.geometry
+        with torch.autocast(qr.device.type, enabled=False), \
+                trace.span("attn.bwd", H=H, W=W, batch_heads=qr.shape[0]):
             dqr, dk, dv = rel_attention_bwd(qr, k, v, out, lse,
                                             dout.to(v.dtype).contiguous(), *ctx.geometry)
         return dqr, dk, dv, None, None, None

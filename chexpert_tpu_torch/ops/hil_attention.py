@@ -61,6 +61,7 @@ from chexpert_tpu_torch.ops.fused_attention import (
     width_library,
     width_plan,
 )
+from chexpert_tpu_torch.utils import trace
 
 FWD = "hil_attention_fwd"
 BWD_SOURCE = "hil_attention_bwd"  # one source, three kernels (passes)
@@ -383,7 +384,8 @@ class HilAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, P0, Rw, Rh, H: int, W: int, dkh: int, dvh: int, slot: int):
-        out, lse = hil_attention_fwd(P0, Rw, Rh, H, W, dkh, dvh, slot)
+        with trace.span("attn.fwd", H=H, W=W, heads=P0.shape[-1] // slot):
+            out, lse = hil_attention_fwd(P0, Rw, Rh, H, W, dkh, dvh, slot)
         ctx.save_for_backward(P0, Rw, Rh, out, lse)
         ctx.geometry = (H, W, dkh, dvh, slot)
         return out
@@ -391,7 +393,9 @@ class HilAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         P0, Rw, Rh, out, lse = ctx.saved_tensors
-        with torch.autocast(P0.device.type, enabled=False):
+        H, W, _, _, slot = ctx.geometry
+        with torch.autocast(P0.device.type, enabled=False), \
+                trace.span("attn.bwd", H=H, W=W, heads=P0.shape[-1] // slot):
             dP, dRw, dRh = hil_attention_bwd(P0, Rw, Rh, out, lse,
                                              dout.to(P0.dtype).contiguous(), *ctx.geometry)
         return dP, dRw, dRh, None, None, None, None, None

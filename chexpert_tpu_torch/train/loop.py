@@ -32,7 +32,7 @@ from chexpert_tpu_torch.parallel.mesh import Mesh, create_mesh
 from chexpert_tpu_torch.parallel.multihost import is_primary
 from chexpert_tpu_torch.train.state import TrainState
 from chexpert_tpu_torch.train.steps import eval_step, train_step
-from chexpert_tpu_torch.utils import MetricsWriter, save_json
+from chexpert_tpu_torch.utils import MetricsWriter, save_json, trace
 
 
 def evaluate(state: TrainState, batches: Batches, device: torch.device,
@@ -90,6 +90,8 @@ def _checkpoint(cfg: Config, state: TrainState, metrics: Dict, step: int) -> Non
 
 
 def _start_profile(cfg: Config, device: torch.device, log_fn):
+    """Start the profiler, and the port's spans with it (``utils/trace.py``),
+    so the trace carries the step's phases and the input's wait as ranges."""
     from torch.profiler import ProfilerActivity, profile
 
     log_fn(f"Capturing profiler trace to {os.path.join(cfg.output_dir, 'profile')}")
@@ -98,12 +100,15 @@ def _start_profile(cfg: Config, device: torch.device, log_fn):
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
+    trace.enable()
     return prof
 
 
 def _stop_profile(cfg: Config, prof) -> None:
-    """Stop the trace; the primary process writes it as a Chrome trace to
-    ``<output_dir>/profile/trace.json``."""
+    """Stop the spans and the trace; the primary process writes it as a
+    Chrome trace to ``<output_dir>/profile/trace.json``."""
+    trace.disable()
+    trace.drain()
     prof.stop()
     if is_primary():
         trace_dir = os.path.join(cfg.output_dir, "profile")
@@ -124,7 +129,12 @@ def train_epoch(cfg: Config, state: TrainState, train_batches: Batches,
     t0, imgs = time.time(), 0
     prof_start, prof_stop = (3, 13) if (cfg.profile and epoch == 0) else (-1, -1)
     prof, local = None, 0
-    for batch in device_prefetch(train_batches, device, depth=cfg.prefetch):
+    batches = device_prefetch(train_batches, device, depth=cfg.prefetch)
+    while True:
+        with trace.span("input.next"):
+            batch = next(batches, None)
+        if batch is None:
+            break
         if local == prof_start:
             prof = _start_profile(cfg, device, log_fn)
         loss = train_step(state, batch, compute_dtype, device_crop)

@@ -26,6 +26,7 @@ from torch.nn.parallel import DistributedDataParallel
 from chexpert_tpu_torch.data.chexpert import PIXEL_MEAN, PIXEL_STD
 from chexpert_tpu_torch.train.loss import bce_with_logits, train_loss
 from chexpert_tpu_torch.train.state import TrainState
+from chexpert_tpu_torch.utils import trace
 
 
 def crop_and_flip(img: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
@@ -98,21 +99,28 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     """One optimizer step on ``batch`` (tensors on the model's device);
     returns the loss as a 0-d tensor on the device (no host sync). With
     ``device_crop``, stored tiles larger than it are cropped and flipped on
-    the device first (``device_augment``)."""
-    model = (state.model if state.ddp is None else state.ddp).train()
-    image = batch["image"]
-    if device_crop is not None and image.shape[1] > device_crop:
-        image = device_augment(image, state.generator, device_crop)
-    image = prepare_image(image)
-    with autocast(image.device, compute_dtype):
-        logits = model(image, generator=state.generator)
-    loss = train_loss(logits, batch["label"], batch["mask"], batch.get("label_mask"))
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
-    return loss.detach()
+    the device first (``device_augment``). Spans: ``step`` around it all,
+    then ``step.forward`` (the input's preparation on the device, the
+    forward and the loss), ``step.backward`` and ``step.optimizer``
+    (``utils/trace.py``)."""
+    with trace.span(trace.STEP):
+        model = (state.model if state.ddp is None else state.ddp).train()
+        with trace.span("step.forward"):
+            image = batch["image"]
+            if device_crop is not None and image.shape[1] > device_crop:
+                image = device_augment(image, state.generator, device_crop)
+            image = prepare_image(image)
+            with autocast(image.device, compute_dtype):
+                logits = model(image, generator=state.generator)
+            loss = train_loss(logits, batch["label"], batch["mask"], batch.get("label_mask"))
+        with trace.span("step.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with trace.span("step.optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
+        state.step += 1
+        return loss.detach()
 
 
 @torch.no_grad()

@@ -26,6 +26,7 @@ from chexpert_tpu.train.steps import prepare_image as jax_prepare_image
 from chexpert_tpu_torch.cli.chexpert import main
 from chexpert_tpu_torch.data import ChexpertIndex, make_synthetic_dataset
 from chexpert_tpu_torch.train import crop_and_flip, device_augment, prepare_image
+from chexpert_tpu_torch.utils import trace as tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 40
@@ -216,7 +217,8 @@ def test_cli_packed_cache_device_aug_and_profile(data, tmp_path, monkeypatch):
     """--packed_cache builds the caches under the dataset's packed/ and trains
     from them; with --data_aug --device_aug every step crops on the device
     from the stored tiles; --profile over the 5 steps of an epoch leaves a
-    trace (steps 3 and 4)."""
+    trace (steps 3 and 4) that holds the port's spans as ranges, and the
+    spans stop with it."""
     import chexpert_tpu_torch.train.steps as steps
 
     crops, real = [], steps.device_augment
@@ -235,3 +237,11 @@ def test_cli_packed_cache_device_aug_and_profile(data, tmp_path, monkeypatch):
     assert len(losses) == 5
     trace = tmp_path / "prof" / "profile" / "trace.json"
     assert trace.exists() and trace.stat().st_size > 0
+    with open(trace) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    for name in ("step", "step.forward", "step.backward", "step.optimizer"):
+        assert names.count(name) == 2, name
+    # step 4's wait and the one that ends the epoch; step 3's came before the trace
+    assert names.count("input.next") == 2
+    assert tracing.drain() == []
