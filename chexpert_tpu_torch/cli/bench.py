@@ -52,6 +52,8 @@ from chexpert_tpu_torch.utils import MetricsWriter, resolve_device, save_json, t
 # reference normalization constants (test_model.py:268)
 CIFAR_MEAN = np.array([125.3, 123.0, 113.9], np.float32) / 255.0
 CIFAR_STD = np.array([63.0, 62.1, 66.7], np.float32) / 255.0
+# (3, 3, 1, 1): 255, the mean and the std of each channel, for whitening NCHW
+_WHITEN = np.stack([np.full(3, 255.0, np.float32), CIFAR_MEAN, CIFAR_STD])[:, :, None, None]
 
 RESNET_LAYERS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -159,19 +161,29 @@ def normalize(x_uint8: np.ndarray) -> np.ndarray:
     return (x_uint8.astype(np.float32) / 255.0 - CIFAR_MEAN) / CIFAR_STD
 
 
+def _reflected(starts: np.ndarray, size: int) -> np.ndarray:
+    """(n, size) source indices of a crop of ``size`` at each offset in
+    ``starts`` of the reflect-padded (by 4) axis: ``|i|``, then
+    ``2 (size - 1) - i`` past the last index."""
+    i = np.abs(starts[:, None] + np.arange(size) - 4)
+    return np.where(i > size - 1, 2 * (size - 1) - i, i)
+
+
 def augment(x_uint8: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
-    """Reflect-pad 4 + random flip + random crop 32 (test_model.py:269)."""
+    """Reflect-pad 4 + random flip + random crop 32 (test_model.py:269), as
+    one gather of the batch's pixels at their reflected rows and columns."""
     with trace.span("input.augment"):
-        n = len(x_uint8)
-        padded = np.pad(x_uint8, ((0, 0), (4, 4), (4, 4), (0, 0)), mode="reflect")
-        out = np.empty_like(x_uint8)
+        n, h, w, c = x_uint8.shape
         tops = rng.randint(0, 9, n)
         lefts = rng.randint(0, 9, n)
         flips = rng.rand(n) < 0.5
-        for i in range(n):
-            img = padded[i, tops[i]:tops[i] + 32, lefts[i]:lefts[i] + 32]
-            out[i] = img[:, ::-1] if flips[i] else img
-        return out
+        rows = _reflected(tops, h)
+        cols = _reflected(lefts, w)
+        cols = np.where(flips[:, None], cols[:, ::-1], cols)
+        pixels = (np.arange(n)[:, None, None] * (h * w) + rows[:, :, None] * w
+                  + cols[:, None, :])
+        return np.take(x_uint8.reshape(n * h * w, c), pixels.ravel(), axis=0).reshape(
+            x_uint8.shape)
 
 
 def build_bench_model(args, n_classes: int, n_batches: int):
@@ -240,9 +252,16 @@ def train_step(model, optimizer, scheduler, x: torch.Tensor, y: torch.Tensor,
 
 
 def to_device(x_uint8: np.ndarray, device) -> torch.Tensor:
-    """Normalized NHWC uint8 images -> (B, 3, 32, 32) f32 on ``device``."""
-    with trace.span("input.to_device"):
-        return torch.from_numpy(normalize(x_uint8)).to(device).permute(0, 3, 1, 2).contiguous()
+    """NHWC uint8 images -> (B, 3, 32, 32) f32 on ``device``, contiguous
+    NCHW: the uint8 bytes are copied, then ``device`` lays them out and
+    whitens them with ``normalize``'s f32 constants in its order, so the
+    values are ``normalize``'s bit for bit. Span ``input.to_device``, meta
+    ``bytes`` (copied) and ``dtype``."""
+    with trace.span("input.to_device", bytes=x_uint8.nbytes, dtype=x_uint8.dtype.name):
+        scale, mean, std = torch.from_numpy(_WHITEN).to(device)
+        x = torch.from_numpy(x_uint8).to(device)
+        # divisors as tensors: CUDA divides by a host scalar through its reciprocal
+        return (x.permute(0, 3, 1, 2).contiguous().float() / scale - mean) / std
 
 
 def evaluate(model, x: np.ndarray, y: np.ndarray, batch_size: int, device,

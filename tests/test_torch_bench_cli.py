@@ -75,6 +75,54 @@ def test_synthetic_augment_normalize_equal_jax(n_classes):
     np.testing.assert_array_equal(bench.normalize(a), jax_bench.normalize(a))
 
 
+def _augment_pad_and_loop(x_uint8, rng):
+    """``augment`` as first written: ``np.pad``, then a crop and flip one
+    image at a time."""
+    n = len(x_uint8)
+    padded = np.pad(x_uint8, ((0, 0), (4, 4), (4, 4), (0, 0)), mode="reflect")
+    out = np.empty_like(x_uint8)
+    tops = rng.randint(0, 9, n)
+    lefts = rng.randint(0, 9, n)
+    flips = rng.rand(n) < 0.5
+    for i in range(n):
+        img = padded[i, tops[i]:tops[i] + 32, lefts[i]:lefts[i] + 32]
+        out[i] = img[:, ::-1] if flips[i] else img
+    return out
+
+
+@pytest.mark.parametrize("n,seed", [(1, 0), (3, 7), (256, 11), (256, 4294967295)])
+def test_augment_equals_pad_and_loop(n, seed):
+    """The one-gather ``augment`` gives the pad-and-loop output bit for bit and
+    leaves the rng where it left it; the batch of 256 holds flipped images
+    and crops at both extreme offsets."""
+    x = np.random.RandomState(seed).randint(0, 256, (n, 32, 32, 3)).astype(np.uint8)
+    rng_got, rng_want = np.random.RandomState(seed), np.random.RandomState(seed)
+    got = bench.augment(x, rng_got)
+    want = _augment_pad_and_loop(x, rng_want)
+    assert got.dtype == np.uint8 and got.shape == x.shape
+    np.testing.assert_array_equal(got, want)
+    assert rng_got.rand() == rng_want.rand()
+    if n == 256:
+        draws = np.random.RandomState(seed)
+        offsets = np.concatenate([draws.randint(0, 9, n), draws.randint(0, 9, n)])
+        assert (draws.rand(n) < 0.5).any() and {0, 8} <= set(offsets.tolist())
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw_storage"])
+def test_to_device_equals_normalize_then_permute(layout):
+    """``to_device`` whitens on the device what ``normalize`` whitens on the
+    host, bit for bit, into contiguous NCHW f32; also from a batch that is an
+    NHWC view of NCHW storage, as ``load_cifar`` returns."""
+    x = np.random.RandomState(3).randint(0, 256, (6, 32, 32, 3)).astype(np.uint8)
+    if layout == "nchw_storage":
+        x = np.ascontiguousarray(x.transpose(0, 3, 1, 2)).transpose(0, 2, 3, 1)
+    got = bench.to_device(x, torch.device("cpu"))
+    want = torch.from_numpy(bench.normalize(x)).permute(0, 3, 1, 2).contiguous()
+    assert got.dtype == torch.float32 and got.shape == (6, 3, 32, 32)
+    assert got.is_contiguous() and got.stride() == want.stride()
+    assert torch.equal(got, want)
+
+
 def test_topk_accuracy_equals_jax():
     rng = np.random.RandomState(0)
     logits, y = rng.randn(50, 10).astype(np.float32), rng.randint(0, 10, 50)

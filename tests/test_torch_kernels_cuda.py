@@ -25,7 +25,8 @@ models reach (WIDTHS: dkh 24, 26, 32, 20, 64, 128 with dvh up to 64, ragged
 dkh and dvh included) on both layouts and both routes, heads past the
 largest class (WIDE_CASES: the chunked kernels of ``csrc/attention_wide.cuh``,
 dkh up to 512 and dvh up to 256, ragged widths included) likewise, and widths
-below 1 raise ValueError."""
+below 1 raise ValueError. The CIFAR bench's ``to_device`` whitens its uint8
+batch on the card as ``normalize`` does on the host."""
 
 import os
 
@@ -34,6 +35,7 @@ import pytest
 import torch
 
 from chexpert_tpu_torch import kernels
+from chexpert_tpu_torch.cli import bench
 from chexpert_tpu_torch.ops.attention import pack_query
 from chexpert_tpu_torch.ops.depthwise import BWD as DW_BWD
 from chexpert_tpu_torch.ops.depthwise import FWD as DW_FWD
@@ -820,3 +822,20 @@ def test_grad_cam_launches_the_forward_kernels_only(cuda, arch, layout):
         assert kernels.launch_counts() == {}
         for w in weights:
             assert torch.allclose(torch.from_numpy(w).sum(-1), torch.ones(()), atol=1e-3)
+
+
+def test_bench_to_device_equals_the_host(cuda):
+    """At batch 256 the card's uint8 route gives ``normalize`` + permute bit
+    for bit, as contiguous NCHW f32. Two calls back to back, no sync between,
+    the first batch's host array overwritten after its call: each result is
+    the batch it was handed."""
+    rng = np.random.RandomState(0)
+    xs = [rng.randint(0, 256, (256, 32, 32, 3)).astype(np.uint8) for _ in range(2)]
+    wants = [torch.from_numpy(bench.normalize(x)).permute(0, 3, 1, 2).contiguous() for x in xs]
+    first = bench.to_device(xs[0], cuda)
+    xs[0][:] = 0
+    got = [first, bench.to_device(xs[1], cuda)]
+    for g, want in zip(got, wants):
+        assert g.device.type == "cuda" and g.dtype == torch.float32
+        assert g.shape == (256, 3, 32, 32) and g.is_contiguous()
+        assert torch.equal(g.cpu(), want)

@@ -170,6 +170,7 @@ def test_input_spans(tracer):
     spans = tracer.drain()
     assert [s.name for s in spans] == ["input.augment", "input.to_device"]
     assert all(s.parent is None and s.step is None and s.end >= s.start for s in spans)
+    assert spans[1].meta == {"bytes": x.nbytes, "dtype": "uint8"}  # what the copy moved
 
 
 def test_a_span_on_another_thread_finds_the_step(tracer):
