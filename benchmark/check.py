@@ -5,14 +5,19 @@ limit (``limits/<cell>.json``).
 Training: set-up drives the program's train step through its first three
 steps on the window's own feed; the reference follows them from the same
 weights and the same generated inputs, which it decodes and prepares
-itself. Read: the first step's logits; each step's loss; the first
-gradient as the optimizer takes it (its momentum buffer after one step);
-and the parameters' change after the three steps. A leaf's gap is the gap
-between the two norms, over the reference's norm of that leaf or of the
-median leaf, whichever is larger. Leaves whose reference gradient is
+itself, under the optimizer the configuration names. Read: the first
+step's logits; each step's loss; the first gradient as the optimizer
+takes it (weight decay added); and the parameters' change after the three
+steps. A leaf's gap is the gap between the two norms, over the
+reference's norm of that leaf or of the median leaf, whichever is larger.
+The change's difference (``change_diff_median``) is the norm of the two
+changes' difference over the reference change's norm: it sees a change of
+the right norm in the wrong direction, as Adam's first steps, which move
+each element by about lr, can make. Leaves whose reference gradient is
 under a thousandth of the median leaf's are round-off on both sides and
-are left out of the gradient's and the change's readings. Which readings have a limit is the cell's
-``limits/<cell>.json``; PERF.md gives the readings each was set from.
+are left out of the gradient's and the change's readings. Which readings
+have a limit is the cell's ``limits/<cell>.json``; PERF.md gives the
+readings each was set from.
 
 Serving: every answer of the window against the reference's probabilities
 for the JPEG that was sent; an answer that never came counts as missing.
@@ -46,14 +51,18 @@ def train_numbers(prog: dict, ref: dict) -> dict:
     logit_gap (the first step's logits, the L2 norm of the difference over
     the reference's; 1 where the rows differ), the losses' relative gaps,
     and per leaf the gaps of the first gradient and of the change, as the
-    worst leaf's and the median leaf's (``*_median``), the worst named."""
+    worst leaf's and the median leaf's (``*_median``), the worst named, and
+    the median leaf's difference of the changes over the reference's
+    change."""
     losses = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(prog["losses"], ref["losses"])]
     gn = _norms(ref["grad1"])
     med = statistics.median(gn.values())
     moved = [k for k in ref["p3"] if gn[k] >= ZERO_GRAD * med]
     grad = leaf_gaps({k: prog["grad1"][k] for k in moved}, {k: ref["grad1"][k] for k in moved})
-    change = leaf_gaps({k: prog["p3"][k].double() - prog["p0"][k].double() for k in moved},
-                       {k: ref["p3"][k].double() - ref["p0"][k].double() for k in moved})
+    dp = {k: prog["p3"][k].double().cpu() - prog["p0"][k].double().cpu() for k in moved}
+    dr = {k: ref["p3"][k].double().cpu() - ref["p0"][k].double().cpu() for k in moved}
+    change = leaf_gaps(dp, dr)
+    diff = [float((dp[k] - dr[k]).norm() / dr[k].norm().clamp(min=1e-30)) for k in moved]
     worst_g, worst_c = max(grad, key=grad.get), max(change, key=change.get)
     zp, zr = prog.get("logits1"), ref["logits1"]
     same = zp is not None and zp.shape == zr.shape
@@ -65,6 +74,7 @@ def train_numbers(prog: dict, ref: dict) -> dict:
             "grad_gap": grad[worst_g], "grad_gap_median": statistics.median(grad.values()),
             "change_gap": change[worst_c],
             "change_gap_median": statistics.median(change.values()),
+            "change_diff_median": statistics.median(diff),
             "leaves": {"grad": worst_g, "change": worst_c,
                        "left_out": sorted(set(ref["p3"]) - set(moved))}}
 
@@ -75,7 +85,7 @@ def reference_train(ref_mod, cfg, weights: dict, batches, loss_fn, precision="f3
     (each (x, target, mask)); ``half`` leaves out the second half of each
     batch (a fault's reading)."""
     from reference.layers import no_tf32
-    from reference.train import NesterovSGD
+    from reference.train import make
 
     no_tf32()
     buffers = (".running_mean", ".running_var", ".num_batches_tracked")
@@ -83,7 +93,7 @@ def reference_train(ref_mod, cfg, weights: dict, batches, loss_fn, precision="f3
               for k, v in weights.items() if not k.endswith(buffers)}
     P = dict(weights, **params)
     p0 = {k: v.detach().clone() for k, v in params.items()}
-    opt = NesterovSGD(params, cfg["optimizer"])
+    opt = make(params, cfg["optimizer"])
     losses, grad1, logits1 = [], None, None
     for x, target, mask in batches:
         if half:
@@ -96,7 +106,7 @@ def reference_train(ref_mod, cfg, weights: dict, batches, loss_fn, precision="f3
         loss = loss_fn(logits, target, mask)
         grads = torch.autograd.grad(loss, list(params.values()))
         taken = opt.step(dict(zip(params, grads)))
-        losses.append(float(loss))
+        losses.append(float(loss.detach()))
         if grad1 is None:
             grad1 = {k: v.clone() for k, v in taken.items()}
     return {"losses": losses, "grad1": grad1, "p0": p0, "logits1": logits1,

@@ -22,11 +22,11 @@ from collections import defaultdict
 import torch
 
 # groups of device kernels by the first pattern in the name (chip_smoke.py's
-# KERNEL_GROUPS, copied)
+# KERNEL_GROUPS, copied, with cuBLAS's Hopper GEMMs, "nvjet_*", as GEMMs)
 KERNEL_GROUPS = (("attention", ("attention_",)), ("depthwise", ("depthwise_",)),
                  ("layout copies", ("nchwToNhwc", "nhwcToNchw")),
                  ("batch norm", ("batch_norm",)),
-                 ("conv and gemm", ("xmma", "gemm", "conv", "cutlass", "cudnn")))
+                 ("conv and gemm", ("xmma", "gemm", "conv", "cutlass", "cudnn", "nvjet")))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 

@@ -19,16 +19,27 @@ def host_copy(named) -> dict:
     return {n: t.detach().float().cpu().clone() for n, t in named}
 
 
-def momentum_buffers(model, optimizer) -> dict:
-    """Each parameter's SGD momentum buffer: after one step, the gradient as
-    the optimizer took it (weight decay added); zeros where the optimizer
-    kept none."""
+def taken_gradient(model, optimizer):
+    """(out, handle): a pre-hook of the optimizer's next step fills ``out``
+    once with the gradient as the optimizer takes it, host copies by
+    parameter name: each parameter's ``grad`` with ``weight_decay * p``
+    added where its group's weight decay is not 0, as torch's SGD and Adam
+    and the program's RMSprop add it first. The hook removes itself."""
+    names = {id(p): n for n, p in model.named_parameters()}
     out = {}
-    for n, p in model.named_parameters():
-        buf = optimizer.state.get(p, {}).get("momentum_buffer")
-        out[n] = (torch.zeros(p.shape) if buf is None else
-                  buf.detach().float().cpu().clone())
-    return out
+
+    def hook(opt, args, kwargs):
+        handle.remove()
+        for group in opt.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            grads = [p.grad for p in params]
+            if group.get("weight_decay"):
+                grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
+            out.update({names[id(p)]: g.detach().float().cpu().clone()
+                        for p, g in zip(params, grads)})
+
+    handle = optimizer.register_step_pre_hook(hook)
+    return out, handle
 
 
 def checked_steps(model, optimizer, step, n: int = 3) -> dict:
@@ -36,18 +47,20 @@ def checked_steps(model, optimizer, step, n: int = 3) -> dict:
     the loss tensor and the batch's row ids) and keep what the reference is
     compared with: the first step's logits (the model's output, read by a
     hook that is gone before the second step), each step's loss, the first
-    gradient and the parameters before and after."""
+    step's gradient as the optimizer takes it (zeros where that step ran no
+    optimizer step) and the parameters before and after."""
     p0 = host_copy(model.named_parameters())
-    losses, rows, grad1, logits = [], [], None, []
+    losses, rows, logits = [], [], []
     hook = model.register_forward_hook(lambda m, i, out: logits.append(out.detach().float().cpu()))
+    taken, taking = taken_gradient(model, optimizer)
     for i in range(n):
         loss, row_ids = step()
         if i == 0:
             hook.remove()
+            taking.remove()
         losses.append(float(loss))
         rows.append(row_ids)
-        if i == 0:
-            grad1 = momentum_buffers(model, optimizer)
+    grad1 = {k: taken.get(k, torch.zeros(v.shape)) for k, v in p0.items()}
     return {"losses": losses, "rows": rows, "grad1": grad1, "p0": p0,
             "p3": host_copy(model.named_parameters()), "logits1": logits[0] if logits else None}
 

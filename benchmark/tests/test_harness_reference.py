@@ -11,15 +11,19 @@ import pytest
 import torch
 
 import weights
-from reference import aadensenet, wideresnet
+from reference import aadensenet, aaresnet, wideresnet
 from reference.data import center_crop, cifar_augmented, radiograph_input
 from reference.layers import rel_attention
-from reference.train import NesterovSGD, bce_sum_mean, cross_entropy, lr_at
+from reference.train import bce_sum_mean, cross_entropy, lr_at, make
 
 BENCH = Path(__file__).resolve().parent.parent
 TINY_DN = {"image_size": 32, "stem": "cifar", "growth_rate": 8, "block_config": [2, 2],
            "num_init_features": 16, "bn_size": 4, "num_classes": 5,
            "attn": {"k": 0.25, "v": 0.25, "nh": 2, "relative": True, "min_dk_per_head": 20}}
+TINY_RN = {"image_size": 64, "layers": [1, 1, 1, 1], "num_classes": 5,
+           "init": {"branch_scale": 0.1},
+           "attn": {"k": 0.2, "v": 0.1, "nh": 8, "relative": True, "min_dk_per_head": 20,
+                    "stages": [2, 3, 4]}}
 TINY_WRN = {"image_size": 32, "depth": 10, "width": 2, "num_classes": 10,
             "attn": {"k": 0.2, "v": 0.2, "nh": 2, "relative": True, "min_dk_per_head": 20}}
 
@@ -83,6 +87,22 @@ def test_wideresnet_matches_the_program(layout):
              lambda o: torch.nn.functional.cross_entropy(o, y))
 
 
+@pytest.mark.parametrize("layout", ["bn", "hil"])
+def test_aaresnet_matches_the_program(layout):
+    from chexpert_tpu_torch.models import AttnParams
+    from chexpert_tpu_torch.models.resnet import ResNet
+    from chexpert_tpu_torch.train.loss import train_loss
+
+    a = TINY_RN["attn"]
+    model = ResNet("bottleneck", (1, 1, 1, 1), num_classes=5,
+                   attn=AttnParams(a["k"], a["v"], a["nh"], True, (64, 64)), attn_layout=layout)
+    x = torch.randn(3, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    y = (torch.rand(3, 5, generator=torch.Generator().manual_seed(2)) < 0.5).float()
+    mask = torch.ones(3)
+    _compare(aaresnet, TINY_RN, model, x, lambda o: bce_sum_mean(o, y, mask),
+             lambda o: train_loss(o, y, mask))
+
+
 def test_relative_attention_matches_the_program():
     from chexpert_tpu_torch.ops.attention import aa_attention_einsum
 
@@ -95,18 +115,49 @@ def test_relative_attention_matches_the_program():
     torch.testing.assert_close(rel_attention(q, k, v, rw, rh, H, W), want, rtol=1e-5, atol=1e-6)
 
 
-def test_sgd_and_schedule_match_the_program():
+OPTIMIZER_CASES = {
+    "sgd_cosine": ({"kind": "sgd_nesterov", "momentum": 0.9, "weight_decay": 1e-2,
+                    "warmup": "linear", "warmup_steps": 2, "schedule": "cosine", "cosine_steps": 5},
+                   dict(kind="sgd_nesterov", schedule="cosine", weight_decay=1e-2),
+                   dict(warmup_steps=2, warmup_style="linear", cosine_decay_steps=5)),
+    "sgd_multistep": ({"kind": "sgd_nesterov", "momentum": 0.9, "weight_decay": 1e-2,
+                       "warmup": "hold", "warmup_steps": 1, "schedule": "multistep",
+                       "milestones": [2, 4]},
+                      dict(kind="sgd_nesterov", schedule="multistep", milestones=(2, 4),
+                           weight_decay=1e-2), dict(warmup_steps=1)),
+    "adam_constant": ({"kind": "adam", "betas": [0.9, 0.999], "eps": 1e-8, "weight_decay": 1e-2,
+                       "warmup": "hold", "warmup_steps": 0, "schedule": "constant"},
+                      dict(kind="adam", weight_decay=1e-2), {}),
+    "adam_multistep": ({"kind": "adam", "betas": [0.9, 0.999], "eps": 1e-8, "weight_decay": 0.0,
+                        "warmup": "linear", "warmup_steps": 2, "schedule": "multistep",
+                        "milestones": [1]},
+                       dict(kind="adam", schedule="multistep", milestones=(1,)),
+                       dict(warmup_steps=2, warmup_style="linear")),
+    "rmsprop_exponential": ({"kind": "rmsprop", "decay": 0.99, "eps": 1e-3, "momentum": 0.9,
+                             "weight_decay": 1e-2, "warmup": "hold", "warmup_steps": 0,
+                             "schedule": "exponential", "decay_factor": 0.5, "decay_steps": 2},
+                            dict(kind="rmsprop", schedule="exponential", decay_factor=0.5,
+                                 decay_steps=2, weight_decay=1e-2), {}),
+    "rmsprop_constant": ({"kind": "rmsprop", "decay": 0.99, "eps": 1e-3, "momentum": 0.9,
+                          "weight_decay": 0.0, "warmup": "hold", "warmup_steps": 0,
+                          "schedule": "constant"}, dict(kind="rmsprop"), {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPTIMIZER_CASES))
+def test_optimizer_matches_the_program(case):
+    """The reference's optimizers (``make``) against torch.optim.SGD and
+    torch.optim.Adam and the program's RMSpropLRInTrace, as the program's
+    make_optimizer builds them, with weight decay and each schedule."""
     from chexpert_tpu_torch.models.registry import OptimizerSpec
     from chexpert_tpu_torch.train import make_optimizer
 
-    opt_cfg = {"kind": "sgd_nesterov", "lr": 0.1, "momentum": 0.9, "weight_decay": 1e-2,
-               "warmup": "linear", "warmup_steps": 2, "schedule": "cosine", "cosine_steps": 5}
-    spec = OptimizerSpec("sgd_nesterov", "cosine", weight_decay=1e-2)
+    ref_cfg, spec, kw = OPTIMIZER_CASES[case]
+    opt_cfg = dict(ref_cfg, lr=0.1)
     p = torch.nn.Parameter(torch.randn(4, 3, generator=torch.Generator().manual_seed(0)))
-    opt, sched, schedule = make_optimizer(spec, [p], 0.1, warmup_steps=2, warmup_style="linear",
-                                          cosine_decay_steps=5)
+    opt, sched, schedule = make_optimizer(OptimizerSpec(**spec), [p], 0.1, **kw)
     mine = {"p": p.detach().clone()}
-    ref = NesterovSGD(mine, opt_cfg)
+    ref = make(mine, opt_cfg)
     for t in range(6):
         g = torch.randn(4, 3, generator=torch.Generator().manual_seed(t + 1))
         assert lr_at(opt_cfg, t) == pytest.approx(schedule(t))

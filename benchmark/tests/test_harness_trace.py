@@ -36,4 +36,5 @@ def test_summarize():
 def test_kernel_groups():
     assert kernel_group("void attention_wide::fwd_tc_kernel<8>") == "attention"
     assert kernel_group("sm90_xmma_gemm_bf16") == "conv and gemm"
+    assert kernel_group("nvjet_tst_224x128_64x4_1x2_h_bz_coopA_NTN") == "conv and gemm"
     assert kernel_group("elementwise_kernel") == "other"

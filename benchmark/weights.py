@@ -3,7 +3,7 @@ calls: one normal draw for every weight element from a generator on the
 device, scaled per tensor by one foreach call; the constant tensors
 filled. Init kinds (reference/layers.py ``*_shapes``): ``conv`` N(0,
 2 / fan_in), ``linear`` N(0, 1 / fan_in), ``rel`` N(0, 1 / dkh), ``ones``,
-``zeros``, ``count`` (an int64 0)."""
+``zeros``, ``count`` (an int64 0), or a number: the tensor filled with it."""
 
 from __future__ import annotations
 
@@ -40,4 +40,6 @@ def make(shapes: dict, seed: int, device) -> dict:
             out[n] = torch.zeros(s, device=device)
         elif k == "count":
             out[n] = torch.zeros(s, dtype=torch.long, device=device)
+        elif isinstance(k, (int, float)):
+            out[n] = torch.full(s, float(k), device=device)
     return {n: out[n] for n in shapes}
